@@ -1,0 +1,424 @@
+"""Fused and chained edge passes: gather -> elementwise -> reduce.
+
+Counterpart of `pdp_solver_tpu/ops/pallas_fused.py` (`fused_edge_pass`
+:553 and `chained_edge_pass` :442). The JAX functions take caller closures;
+here each caller is a named functor, declared once below with its plain
+PyTorch version and once in `csrc/edge_pass.cu` as a device struct. The
+wrapper runs the plain version when the batch lies on the CPU and launches
+the CUDA kernel when it lies on the card (or raises); there is no fallback
+between the two.
+
+Inputs are passed as one tuple `ins` whose layout each functor fixes (the
+`layout` string: V = a variable column, F = a clause column, E = an edge
+column). Node columns are gathered through edge_var / edge_clause.
+
+fused_edge_pass(fn, batch, ins) -> (reduced [n_red, V] or None, eouts)
+    one direction: per-edge f, then a sum per variable (side "var") or
+    none. (Every clause-direction reduce on the path is the first phase of
+    a chained pass.)
+chained_edge_pass(fn, batch, ins) -> (cout [n_cout, F] or None,
+                                      vred [n_vred, V] or None, eouts,
+                                      ired [n_ired, B] or None)
+    both directions: f1 per edge summed per clause, f2 per clause
+    (clause outputs, columns broadcast back to the edges, clause columns
+    summed per instance), f3 per edge summed per variable.
+
+Each wrapper counts the calls that launched its kernel in `.launches`
+(and per functor in `.launches_by_fn`).
+"""
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from pdp_solver_tpu_torch.ops import _build
+from pdp_solver_tpu_torch.ops.segment import (
+    LOG_EPS_PROP, LOG_EPS_SCORE, safe_exp, safe_log)
+
+
+def _flag(b):
+    return b.to(torch.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeFn:
+    """A fused-pass functor: plain(ins, ev, ec, s) -> (red cols, eouts)."""
+    name: str
+    side: str          # "none" | "var"
+    layout: str        # one of V/F/E per input
+    inputs: tuple      # the inputs' names, in order
+    n_red: int
+    n_eout: int
+    plain: Callable
+    flops: int         # arithmetic per edge (for the bound)
+
+    @property
+    def meta(self):
+        side = {"none": 0, "var": 1}[self.side]
+        return (0, side, len(self.layout), self.n_red, self.n_eout,
+                0, 0, 0, 0, 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainFn:
+    """A chained-pass functor.
+
+    f1(ins, ev, ec) -> n_cred edge columns (summed per clause)
+    f2(cred, ins) -> (n_cout clause outputs, n_bcast clause columns,
+                      n_ired clause columns summed per instance)
+    f3(bcast_e, ins, ev, ec) -> (n_vred edge columns summed per variable,
+                                 n_eout edge outputs)
+    """
+    name: str
+    layout: str
+    inputs: tuple
+    n_cred: int
+    n_cout: int
+    n_bcast: int
+    n_vred: int
+    n_eout: int
+    n_ired: int
+    f1: Callable
+    f2: Callable
+    f3: Callable
+    flops: int
+
+    @property
+    def meta(self):
+        return (1, 0, len(self.layout), 0, self.n_eout, self.n_cred,
+                self.n_cout, self.n_bcast, self.n_vred, self.n_ired)
+
+
+# ---------------------------------------------------------------------------
+# functors (input layouts must match csrc/edge_pass.cu)
+# ---------------------------------------------------------------------------
+
+def q_triplet_stable(same, opp):
+    """(q_u, q_s, q_dc, total) from the log-domain same/opp aggregations,
+    shifted by max(same, opp) so the normalisation never divides 0/0
+    (propagate.py q_triplet_stable :168)."""
+    b = torch.maximum(same, opp)
+    s = safe_exp(same - b)
+    o = safe_exp(opp - b)
+    d = safe_exp(same + opp - b)
+    q_u = torch.clamp(s - d, min=0.0)
+    q_s = torch.clamp(o - d, min=0.0)
+    total = torch.clamp(q_u + q_s + d, min=1e-20)
+    return q_u, q_s, d, total
+
+
+def _sp_pass_c(ins, ev, ec, pi):
+    pos, neg, eta_in, em, mask, sign, force, v0, v1, v2 = ins
+    pos, neg = pos[ev], neg[ev]
+    lm = safe_log(1.0 - eta_in, LOG_EPS_PROP) * em
+    same = 0.5 * (1 + sign) * pos + 0.5 * (1 - sign) * neg - lm
+    same = same + safe_log(1.0 - pi * _flag(force == sign), LOG_EPS_PROP)
+    opp = 0.5 * (1 - sign) * pos + 0.5 * (1 + sign) * neg
+    opp = opp + safe_log(1.0 - pi * _flag(force == -sign), LOG_EPS_PROP)
+    q_u, q_s, d, total = q_triplet_stable(same, opp)
+    return (), tuple(mask * (q / total) + (1.0 - mask) * v
+                     for q, v in ((q_u, v0), (q_s, v1), (d, v2)))
+
+
+def _smax_scorer(ins, ev, ec, s):
+    ac, prev_eta, eta, em, bmask, force, sign = ins
+    diff = torch.abs(prev_eta - eta) * em
+    cd = safe_exp(30.0 * diff) * bmask
+    ce = safe_exp(30.0 * eta) * bmask
+    em_s = ac[ec] * bmask
+    fm1 = safe_log(1.0 - eta, LOG_EPS_SCORE) * em_s
+    pos_w, neg_w = _flag(sign == 1), _flag(sign == -1)
+    return (diff * cd, cd, eta * ce, ce, force * bmask, fm1 * pos_w,
+            fm1 * neg_w, fm1), ()
+
+
+def _scorer(ins, ev, ec, s):
+    ac, eta, force, sign, mask = ins
+    em = ac[ec] * mask
+    fm1 = safe_log(1.0 - eta, LOG_EPS_SCORE) * em
+    return (force * mask, fm1 * _flag(sign == 1), fm1 * _flag(sign == -1),
+            fm1), ()
+
+
+def _em_ae(ins, ev, ec, s):
+    av, abv, ac, mask = ins
+    return (), (av[ev] * ac[ec] * mask, abv[ev])
+
+
+def _em(ins, ev, ec, s):
+    av, ac, mask = ins
+    return (), (av[ev] * ac[ec] * mask,)
+
+
+def _ae(ins, ev, ec, s):
+    (abv,) = ins
+    return (), (abv[ev],)
+
+
+SP_PASS_C = EdgeFn(
+    "sp_pass_c", "none", "VVEEEEEEEE",
+    ("pos", "neg", "eta_in", "em", "mask", "sign", "force", "v0", "v1",
+     "v2"), 0, 3, _sp_pass_c, 40)
+SMAX_SCORER = EdgeFn(
+    "smax_scorer", "var", "FEEEEEE",
+    ("ac", "prev_eta", "eta", "em", "bmask", "force", "sign"), 8, 0,
+    _smax_scorer, 30)
+SCORER = EdgeFn("scorer", "var", "FEEEE",
+                ("ac", "eta", "force", "sign", "mask"), 4, 0, _scorer, 12)
+EM_AE = EdgeFn("em_ae", "none", "VVFE", ("av", "abv", "ac", "mask"), 0, 2,
+               _em_ae, 2)
+EM = EdgeFn("em", "none", "VFE", ("av", "ac", "mask"), 0, 1, _em, 2)
+AE = EdgeFn("ae", "none", "V", ("abv",), 0, 1, _ae, 0)
+
+
+def _sp_f1(ins, ev, ec):
+    u_in, eta_in, em, mask, eta_state, sign = ins
+    return (safe_log(u_in, LOG_EPS_PROP) * em,)
+
+
+def _sp_f2(cred, ins):
+    return (), cred, ()
+
+
+def _sp_f3(bc, ins, ev, ec):
+    u_in, eta_in, em, mask, eta_state, sign = ins
+    log_u = safe_log(u_in, LOG_EPS_PROP) * em
+    eta = safe_exp(bc[0] - log_u)
+    new_eta = mask * eta + (1.0 - mask) * eta_state
+    lm = safe_log(1.0 - eta_in, LOG_EPS_PROP) * em
+    return (lm * _flag(sign == 1), lm * _flag(sign == -1)), (new_eta,)
+
+
+def _sround_f1(ins, ev, ec):
+    av, sol, sign, mask, ac = ins
+    av_e, sol_e = av[ev], sol[ev]
+    lit_true = torch.where(sign > 0, _flag(sol_e >= 1.0), _flag(sol_e <= 0.0))
+    assigned = _flag(av_e <= 0)
+    return (av_e * mask, lit_true * assigned * mask)
+
+
+def _sround_f2(cred, ins):
+    degree_f, sat_f = cred
+    ac = ins[4]
+    ac2 = torch.where(sat_f > 0, torch.zeros_like(ac), ac)
+    single_f = _flag(degree_f == 1.0) * ac2
+    return (ac2,), (ac2, single_f), ()
+
+
+def _sround_f3(bc, ins, ev, ec):
+    ac_e, single_e = bc
+    sign, mask = ins[2], ins[3]
+    s_e = single_e * mask
+    c_e = ac_e * mask
+    return (s_e, sign * s_e, c_e, sign * c_e), ()
+
+
+def _cnf_f1(ins, ev, ec):
+    p, sign, mask, cm = ins
+    lit = sign * p[ev] + (1.0 - sign) / 2.0
+    return (_flag(lit > 0.5) * mask,)
+
+
+def _cnf_f2(cred, ins):
+    cm = ins[3]
+    return (), (), (cm, _flag(cred[0] > 0) * cm)
+
+
+def _ws_f1(ins, ev, ec):
+    sa, av, sign, mask, em, ac = ins
+    return (sign * sa[ev] * mask, av[ev] * mask)
+
+
+def _ws_f2(cred, ins):
+    agg_f, degree_f = cred
+    unsat_f = _flag(agg_f == -degree_f) * ins[5]
+    return (), (agg_f, degree_f, unsat_f), (unsat_f,)
+
+
+def _ws_f3(bc, ins, ev, ec):
+    agg_c, degree_c, unsat_c = bc
+    sa, av, sign, mask, em, ac = ins
+    dist = sign * sa[ev] * mask
+    agg_e = agg_c - dist
+    critical = _flag(agg_e == (1.0 - degree_c)) * em
+    return (critical * dist, unsat_c * mask), ()
+
+
+def _no_f3(bc, ins, ev, ec):
+    return (), ()
+
+
+SP_CHAIN = ChainFn(
+    "sp_chain", "EEEEEE",
+    ("u_in", "eta_in", "em", "mask", "eta_state", "sign"), 1, 0, 1, 2, 1, 0,
+    _sp_f1, _sp_f2, _sp_f3, 20)
+SROUND = ChainFn("sround", "VVEEF", ("av", "sol", "sign", "mask", "ac"),
+                 2, 1, 2, 4, 0, 0, _sround_f1, _sround_f2, _sround_f3, 12)
+CNF_CHAIN = ChainFn("cnf_chain", "VEEF", ("p", "sign", "mask", "cm"),
+                    1, 0, 0, 0, 0, 2, _cnf_f1, _cnf_f2, _no_f3, 6)
+WS_CHAIN = ChainFn("ws_chain", "VVEEEF",
+                   ("sa", "av", "sign", "mask", "em", "ac"),
+                   2, 0, 3, 2, 0, 1, _ws_f1, _ws_f2, _ws_f3, 14)
+
+FUSED_FNS = (SP_PASS_C, SMAX_SCORER, SCORER, EM_AE, EM, AE)
+CHAINED_FNS = (SP_CHAIN, SROUND, CNF_CHAIN, WS_CHAIN)
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def _sizes(batch):
+    return {"V": batch.num_vars, "F": batch.num_clauses,
+            "E": batch.num_edges}
+
+
+def _check_inputs(fn, batch, ins):
+    if len(ins) != len(fn.layout):
+        raise ValueError(f"{fn.name}: {len(ins)} inputs, expected "
+                         f"{len(fn.layout)} ({fn.layout})")
+    sizes = _sizes(batch)
+    for i, (x, kind) in enumerate(zip(ins, fn.layout)):
+        if x.shape != (sizes[kind],):
+            raise ValueError(f"{fn.name}: input {i} has shape "
+                             f"{tuple(x.shape)}, expected ({sizes[kind]},)")
+        if x.dtype != torch.float32:
+            raise ValueError(f"{fn.name}: input {i} is {x.dtype}, "
+                             "expected float32")
+        if x.device != batch.device:
+            raise ValueError(f"{fn.name}: input {i} is on {x.device}, "
+                             f"the batch on {batch.device}")
+
+
+def _sum_real_edges(batch, cols, ids, n):
+    """Sum edge columns into n nodes over the real edges only."""
+    e = batch.num_real_edges
+    out = torch.zeros((len(cols), n), dtype=torch.float32,
+                      device=batch.device)
+    return out.index_add_(1, ids[:e], torch.stack(cols)[:, :e])
+
+
+def fused_edge_pass_plain(fn: EdgeFn, batch, ins, scalar=0.0):
+    """The plain PyTorch version (gather, elementwise, index_add_)."""
+    red_cols, eouts = fn.plain(ins, batch.edge_var, batch.edge_clause,
+                               scalar)
+    red = None
+    if fn.n_red:
+        red = _sum_real_edges(batch, red_cols, batch.edge_var, batch.num_vars)
+    return red, tuple(eouts)
+
+
+def fused_edge_pass(fn: EdgeFn, batch, ins, scalar=0.0):
+    """One fused gather -> f -> reduce pass; see the module docstring."""
+    ins = tuple(ins)
+    _check_inputs(fn, batch, ins)
+    if batch.device.type == "cpu":
+        return fused_edge_pass_plain(fn, batch, ins, scalar)
+    if batch.device.type != "cuda":
+        raise ValueError(f"fused_edge_pass: unsupported device "
+                         f"{batch.device}")
+    fid = _build.fn_id(fn.name, fn.meta)
+    ins = tuple(x.contiguous() for x in ins)
+    E = batch.num_edges
+    eouts = [torch.empty(E, dtype=torch.float32, device=batch.device)
+             for _ in range(fn.n_eout)]
+    red, n_seg = None, 0
+    if fn.side == "var":
+        n_seg = batch.num_vars
+        red = torch.empty((fn.n_red, n_seg), dtype=torch.float32,
+                          device=batch.device)
+    in_p, _in_keep = _build.ptr_array(ins)
+    eo_p, _eo_keep = _build.ptr_array(eouts)
+    rc = _build.library().pdp_fused_edge_pass(
+        fid, in_p, len(ins), eo_p, len(eouts),
+        batch.edge_var32.data_ptr(), batch.edge_clause32.data_ptr(),
+        batch.var_ptr.data_ptr(),
+        batch.var_perm.data_ptr() if batch.var_perm.numel() else None,
+        n_seg, batch.num_real_edges, E,
+        None if red is None else red.data_ptr(), float(scalar),
+        torch.cuda.current_stream(batch.device).cuda_stream)
+    _build.check(rc, f"fused_edge_pass[{fn.name}]")
+    fused_edge_pass.launches += 1
+    fused_edge_pass.launches_by_fn[fn.name] = (
+        fused_edge_pass.launches_by_fn.get(fn.name, 0) + 1)
+    return red, tuple(eouts)
+
+
+fused_edge_pass.launches = 0
+fused_edge_pass.launches_by_fn = {}
+
+
+def chained_edge_pass_plain(fn: ChainFn, batch, ins):
+    """The plain PyTorch version of a chained pass."""
+    dev = batch.device
+    F, V, B = batch.num_clauses, batch.num_vars, batch.batch_size
+    ev, ec = batch.edge_var, batch.edge_clause
+    cred = _sum_real_edges(batch, fn.f1(ins, ev, ec), ec, F)
+    cout, bcast, ired_c = fn.f2(tuple(cred), ins)
+    vred, eouts = None, ()
+    if fn.n_vred or fn.n_eout:
+        bc_e = tuple(b[ec] for b in bcast)
+        vred_cols, eouts = fn.f3(bc_e, ins, ev, ec)
+        if fn.n_vred:
+            vred = _sum_real_edges(batch, vred_cols, ev, V)
+    ired = None
+    if fn.n_ired:
+        f = batch.num_real_clauses
+        ired = torch.zeros((fn.n_ired, B), dtype=torch.float32, device=dev)
+        ired.index_add_(1, batch.clause_batch[:f],
+                        torch.stack(ired_c)[:, :f])
+    return (torch.stack(cout) if fn.n_cout else None, vred, tuple(eouts),
+            ired)
+
+
+def chained_edge_pass(fn: ChainFn, batch, ins):
+    """Both graph directions of a clause -> variable chain; see the module
+    docstring. On the card: a clause-major launch (f1, clause sum, f2), a
+    var-major launch (f3, variable sum) and, with n_ired, a per-instance
+    sum launch."""
+    ins = tuple(ins)
+    _check_inputs(fn, batch, ins)
+    if batch.device.type == "cpu":
+        return chained_edge_pass_plain(fn, batch, ins)
+    if batch.device.type != "cuda":
+        raise ValueError(f"chained_edge_pass: unsupported device "
+                         f"{batch.device}")
+    fid = _build.fn_id(fn.name, fn.meta)
+    ins = tuple(x.contiguous() for x in ins)
+    dev = batch.device
+    E, V, F, B = (batch.num_edges, batch.num_vars, batch.num_clauses,
+                  batch.batch_size)
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    cout = empty(fn.n_cout, F) if fn.n_cout else None
+    bc = empty(fn.n_bcast, F) if fn.n_bcast else None
+    irc = empty(fn.n_ired, F) if fn.n_ired else None
+    vred = empty(fn.n_vred, V) if fn.n_vred else None
+    ired = empty(fn.n_ired, B) if fn.n_ired else None
+    eouts = [empty(E) for _ in range(fn.n_eout)]
+
+    def p(t):
+        return None if t is None or t.numel() == 0 else t.data_ptr()
+
+    in_p, _in_keep = _build.ptr_array(ins)
+    eo_p, _eo_keep = _build.ptr_array(eouts)
+    rc = _build.library().pdp_chained_edge_pass(
+        fid, in_p, len(ins), eo_p, len(eouts),
+        batch.edge_var32.data_ptr(), batch.edge_clause32.data_ptr(),
+        batch.var_ptr.data_ptr(), p(batch.var_perm),
+        batch.clause_ptr.data_ptr(), batch.inst_clause_ptr.data_ptr(),
+        V, F, B, batch.num_real_edges, E,
+        p(cout), p(bc), p(irc), p(vred), p(ired), 0.0,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, f"chained_edge_pass[{fn.name}]")
+    chained_edge_pass.launches += 1
+    chained_edge_pass.launches_by_fn[fn.name] = (
+        chained_edge_pass.launches_by_fn.get(fn.name, 0) + 1)
+    return cout, vred, tuple(eouts), ired
+
+
+chained_edge_pass.launches = 0
+chained_edge_pass.launches_by_fn = {}
