@@ -13,14 +13,25 @@ Phases, one flushed line each with the elapsed seconds:
      plain version sums in another order), walksat_block bit for bit for
      eps=-1 and eps=0.5; each is then timed (CUDA events) beside its plain
      version and its bound;
-  3. main path: compacting_solve at the headline settings (tolerance 0.08,
-     t_max 50, 1000 iterations, 1000 WalkSAT flips, restart schedule
+     The [E, d] segment sum and gather of the neural modules (kernels 6
+     and 7) are checked at the np-nd-np shapes (d = 50): the sum to rtol
+     1e-5 / atol 1e-5 (the plain index_add_ on the card sums in atomic
+     order), the gather and the gather-minus-self bit for bit;
+  3. p-d-p path: compacting_solve at the headline settings (tolerance
+     0.08, t_max 50, 1000 iterations, 1000 WalkSAT flips, restart schedule
      0.35/0.35/0.3, chunk 50, simplify_rounds 1) on the shared set
      (fingerprint d3cba04af19db12d), every solution verified with numpy
      against its CNF; the solved fraction must be >= 0.60 and every kernel
      of the path launched at least once;
-  4. the {"kernels": [...]} line, the card's name and power limit, and as
+  4. np-nd-np path: compacting_solve with the trained r3 checkpoint at
+     full width (hidden 150; 1000 iterations, 1000 WalkSAT flips, chunk
+     50) on the same set, every solution verified with numpy; the solved
+     fraction must be >= 0.45 and kernels 6 and 7 launched at least once;
+  5. the {"kernels": [...]} line, the card's name and power limit, and as
      the last line {"ok": true, "device": {...}}.
+
+Every launch count is set to 0 just before each path and read just after
+it; a kernel's row carries the count of the path it serves.
 
 Any failure exits non-zero without the last line. Without a CUDA card, or
 run outside the repository, it exits 2 and prints no result.
@@ -42,10 +53,16 @@ F32_FLOPS_PER_S = 67e12
 # the JAX package's records at the headline settings: 70.1% (seeds
 # 69.5-71.1%); the port draws other random message inits
 MIN_SOLVED = 0.60
+# np-nd-np with the r3 weights: the JAX records are 0.516-0.602 (seeds 0-2,
+# docs/r5_solver_table.json); WalkSAT from a random fill alone solves 0.117
+MIN_SOLVED_NEURAL = 0.45
+REDUCE2D_TOL = dict(rtol=1e-5, atol=1e-5)
+HIDDEN_AGG = 50      # np-nd-np's mem_agg_hidden_dim: the width kernels 6/7 see
 FLOAT_TOL = dict(rtol=1e-5, atol=1e-6)
 # functors whose outputs are flags or small integer counts
 EXACT_FNS = {"em_ae", "em", "ae", "sround", "cnf_chain", "ws_chain"}
 PALLAS_FUSED = "pdp_solver_tpu/ops/pallas_fused.py"
+PALLAS_2D = "pdp_solver_tpu/ops/pallas_reduce2d.py"
 
 
 def log(msg):
@@ -229,24 +246,104 @@ def check_kernels(batch, torch, np):
     return rows
 
 
-def run_main_path(insts, torch):
-    """compacting_solve at the headline settings with every launch count
-    set to 0 just before and read just after."""
-    from pdp_solver_tpu_torch.ops import fused, walksat
-    from pdp_solver_tpu_torch.utils.headline import solve_headline
+def check_reduce2d(batch, torch):
+    """Kernels 6 and 7 at the np-nd-np shapes against their plain versions,
+    timed beside them, the one-call library version and the bound."""
+    from pdp_solver_tpu_torch.ops import reduce2d
+    E, V, d = batch.num_edges, batch.num_vars, HIDDEN_AGG
+    e = batch.num_real_edges
+    g = torch.Generator().manual_seed(17)
+    x = torch.randn(E, d, generator=g).cuda()
+    nodes = torch.randn(V, d, generator=g).cuda()
+    ev = batch.edge_var
+    rows = {}
+
+    def seg():
+        return reduce2d.segment_sum_2d(x, ev, V, e, batch.var_ptr,
+                                       batch.var_perm)
+
+    def seg_plain():
+        return reduce2d.segment_sum_2d_plain(x, ev, V, e)
+
+    got, ref = seg(), seg_plain()
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    require(bool(torch.isfinite(got).all()), "segment_sum_2d: non-finite")
+    require(torch.allclose(got, ref, **REDUCE2D_TOL),
+            f"segment_sum_2d: max abs err {err} beyond rtol "
+            f"{REDUCE2D_TOL['rtol']} / atol {REDUCE2D_TOL['atol']}")
+    out = torch.zeros(V, d, device="cuda")
+    x_real, ev_real = x[:e], ev[:e]
+    library_ms = cuda_ms(lambda: out.index_add_(0, ev_real, x_real), reps=50)
+    # rows of the real edges, the permutation and offsets read once, the
+    # sums written once; one add per element read
+    b_ms, b_by = bound_ms((e * d + e + V + 1 + V * d) * 4, e * d)
+    rows["segment_sum_2d"] = {
+        "name": "segment_sum_2d", "route": "cuda",
+        "source": "pdp_solver_tpu_torch/csrc/reduce2d.cu",
+        "replaces": f"{PALLAS_2D}:109", "max_abs_err": err,
+        "ms": cuda_ms(seg, reps=50), "plain_ms": cuda_ms(seg_plain, reps=20),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+        "library": "index_add_ over the real edges"}
+
+    for minus in (None, x):
+        got = reduce2d.gather_2d(nodes, ev, minus)
+        ref = reduce2d.gather_2d_plain(nodes, ev, minus)
+        torch.cuda.synchronize()
+        require(torch.equal(got, ref), "gather_2d (minus "
+                f"{minus is not None}): not bit-exact, max abs err "
+                f"{float((got - ref).abs().max())}")
+    # the path's form subtracts each edge's own row (aggregate minus self)
+    b_ms, b_by = bound_ms((E * d + 2 * E + V * d + E * d) * 4, E * d)
+    rows["gather_2d"] = {
+        "name": "gather_2d", "route": "cuda",
+        "source": "pdp_solver_tpu_torch/csrc/reduce2d.cu",
+        "replaces": f"{PALLAS_2D}:120", "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: reduce2d.gather_2d(nodes, ev, x), reps=50),
+        "plain_ms": cuda_ms(lambda: reduce2d.gather_2d_plain(nodes, ev, x),
+                            reps=20),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: nodes.index_select(0, ev), reps=50),
+        "library": "index_select (the gather without the subtract)",
+        "ms_without_minus": cuda_ms(lambda: reduce2d.gather_2d(nodes, ev),
+                                    reps=50)}
+    for r in rows.values():
+        log(f"kernel {r['name']}: ok, max abs err {r['max_abs_err']:.3g}, "
+            f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms)")
+    return rows
+
+
+def reset_counts():
+    from pdp_solver_tpu_torch.ops import fused, reduce2d, walksat
     fused.fused_edge_pass.launches = 0
     fused.fused_edge_pass.launches_by_fn = {}
     fused.chained_edge_pass.launches = 0
     fused.chained_edge_pass.launches_by_fn = {}
     walksat.walksat_block.launches = 0
-    try:
-        res = solve_headline(insts, seed=0)
-    except RuntimeError as e:
-        raise SmokeFailure(str(e))
+    reduce2d.segment_sum_2d.launches = 0
+    reduce2d.gather_2d.launches = 0
+
+
+def read_counts():
+    from pdp_solver_tpu_torch.ops import fused, reduce2d, walksat
     launches = dict(fused.fused_edge_pass.launches_by_fn)
     launches.update(fused.chained_edge_pass.launches_by_fn)
     launches["walksat_block"] = walksat.walksat_block.launches
-    return res, launches
+    launches["segment_sum_2d"] = reduce2d.segment_sum_2d.launches
+    launches["gather_2d"] = reduce2d.gather_2d.launches
+    return launches
+
+
+def run_path(solve):
+    """One path with every launch count set to 0 just before and read
+    just after."""
+    reset_counts()
+    try:
+        res = solve()
+    except RuntimeError as e:
+        raise SmokeFailure(str(e))
+    return res, read_counts()
 
 
 def main():
@@ -284,25 +381,45 @@ def main():
             f"real) V={batch.num_vars} F={batch.num_clauses} "
             f"B={batch.batch_size}")
         rows = check_kernels(batch, torch, np)
+        rows.update(check_reduce2d(batch, torch))
         log("phase 2 kernel checks: all kernels match their plain versions")
+        del batch
 
-        res, launches = run_main_path(insts, torch)
+        from pdp_solver_tpu_torch.utils.headline import solve_headline
+        res, launches = run_path(lambda: solve_headline(insts, seed=0))
         frac = res["solved_fraction"]
-        log(f"phase 3 main path: solved {frac:.4f} ({res['solved']}/"
+        log(f"phase 3 p-d-p path: solved {frac:.4f} ({res['solved']}/"
             f"{len(insts)}, verified with numpy) in {res['wall_s']:.2f} s; "
             f"attempts {res['attempt_solved']}, pdp {res['pdp_wall_s']} s, "
             f"walksat {res['ls_wall_s']} s, {res['compactions']} "
             "compactions")
-        log(f"launches on the main path: {json.dumps(launches)}")
+        log(f"launches on the p-d-p path: {json.dumps(launches)}")
         require(frac >= MIN_SOLVED,
                 f"solved fraction {frac} < {MIN_SOLVED}")
+
+        from pdp_solver_tpu_torch.utils.neural import solve_np_nd_np
+        require(not torch.backends.cuda.matmul.allow_tf32,
+                "TF32 matrix products are on")
+        nres, nlaunches = run_path(lambda: solve_np_nd_np(insts, seed=0))
+        nfrac = nres["solved_fraction"]
+        log(f"phase 4 np-nd-np path: solved {nfrac:.4f} ({nres['solved']}/"
+            f"{len(insts)}, verified with numpy) in {nres['wall_s']:.2f} s; "
+            f"loop {nres['loop_wall_s']} s, walksat {nres['ls_wall_s']} s, "
+            f"{nres['chunks']} chunks, {nres['compactions']} compactions, "
+            f"progress {nres['progress']}")
+        log(f"launches on the np-nd-np path: {json.dumps(nlaunches)}")
+        require(nfrac >= MIN_SOLVED_NEURAL,
+                f"np-nd-np solved fraction {nfrac} < {MIN_SOLVED_NEURAL}")
+
         path_rows = []
         for name, row in rows.items():
-            n = launches.get(name, 0)
+            path = (nlaunches if name in ("segment_sum_2d", "gather_2d")
+                    else launches)
+            n = path.get(name, 0)
             if name == "scorer":
                 log(f"{row['name']}: checked, not on the main path")
                 continue
-            require(n > 0, f"{row['name']} never launched on the main path")
+            require(n > 0, f"{row['name']} never launched on its path")
             path_rows.append(dict(row, launches=n))
     except SmokeFailure as e:
         log(f"FAILED: {e}")

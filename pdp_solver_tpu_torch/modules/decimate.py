@@ -1,7 +1,13 @@
-"""The sequential (greedy) decimator.
+"""Decimators: the neural (GRU) decimator and the sequential (greedy) one.
 
-Counterpart of `sequential_decimator_apply` in
-`pdp_solver_tpu/modules/decimate.py` (:185). Per iteration: the
+Counterpart of `neural_decimator_apply` (:59) and
+`sequential_decimator_apply` (:185) in `pdp_solver_tpu/modules/decimate.py`.
+
+The neural decimator keeps a (var, fn) pair of [E, h] states and updates
+each with a GRU cell over the propagator's messages; its init state is
+`propagate.neural_init_state`.
+
+The sequential decimator, per iteration: the
 paramagnetic early stop (classical message states only, :270), the
 per-instance convergence test with its t_max timeout, then each converged
 instance fixes its max-|score| variable (or every variable within the
@@ -15,13 +21,52 @@ problem, so the loop needs no host sync.
 import dataclasses
 
 import torch
+from torch import nn
 
+from pdp_solver_tpu_torch.modules import mlp
+from pdp_solver_tpu_torch.modules.common import col
 from pdp_solver_tpu_torch.modules.predict import survey_scorer_tail
 from pdp_solver_tpu_torch.ops import fused
 from pdp_solver_tpu_torch.ops.segment import (
     segment_argmax_first, segment_max, segment_max_shifted, segment_sum)
 from pdp_solver_tpu_torch.problem.simplify import fused_set_variables
 from pdp_solver_tpu_torch.problem.state import ProblemState
+
+
+@dataclasses.dataclass(frozen=True)
+class NeuralDecimatorConfig:
+    var_message_dim: int
+    fn_message_dim: int
+    meta_dim: int
+    hidden_dim: int
+    edge_dim: int
+    dropout: float = 0.0
+
+
+class NeuralDecimator(nn.Module):
+    """Reference pdp_decimate.py:51-87: two GRU cells over persistent edge
+    states, frozen on the edges of instances that have stopped."""
+
+    def __init__(self, cfg: NeuralDecimatorConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.var_gru = mlp.GRUCell(
+            cfg.var_message_dim + cfg.edge_dim + cfg.meta_dim,
+            cfg.hidden_dim)
+        self.fn_gru = mlp.GRUCell(
+            cfg.fn_message_dim + cfg.edge_dim + cfg.meta_dim,
+            cfg.hidden_dim)
+
+    def forward(self, batch, dec_state, message_state, active_edge):
+        old_var, old_fn = dec_state
+        msg_var, msg_fn = message_state
+        feat = col(batch.edge_sign)
+        keep = col(active_edge) > 0
+        var_new = self.var_gru(torch.cat([msg_var, feat], dim=1), old_var)
+        fn_new = self.fn_gru(torch.cat([msg_fn, feat], dim=1), old_fn)
+        var_state = torch.where(keep, var_new, old_var)
+        fn_state = torch.where(keep, fn_new, old_fn)
+        return var_state, fn_state
 
 
 @dataclasses.dataclass

@@ -1,16 +1,65 @@
-"""The survey scorer and the identity predictor.
+"""Predictors and scorers: the neural predictor, the survey scorer and the
+identity predictor.
 
-Counterpart of the classical half of `pdp_solver_tpu/modules/predict.py`.
+Counterpart of `pdp_solver_tpu/modules/predict.py` (the neural predictor
+:51, the identity predictor :73, the survey scorer :107).
 """
 
 import dataclasses
 
 import torch
+from torch import nn
 
+from pdp_solver_tpu_torch.modules import mlp
+from pdp_solver_tpu_torch.modules.common import col
 from pdp_solver_tpu_torch.modules.propagate import SPMessages
 from pdp_solver_tpu_torch.ops import fused
 from pdp_solver_tpu_torch.ops.segment import (
     LOG_EPS_SCORE, safe_exp, safe_log)
+
+
+@dataclasses.dataclass(frozen=True)
+class NeuralPredictorConfig:
+    decimator_dim: int
+    prediction_dim: int
+    edge_dim: int
+    meta_dim: int
+    mem_hidden_dim: int
+    agg_hidden_dim: int
+    mem_agg_hidden_dim: int
+    classifier_dim: int
+    classifier_kind: str = "sigmoid"  # "sigmoid" (Perceptron) | "tanh"
+
+    def aggregator_cfg(self):
+        return mlp.AggregatorConfig(
+            input_dim=self.decimator_dim + self.edge_dim + self.meta_dim,
+            output_dim=self.decimator_dim,
+            mem_hidden_dim=self.mem_hidden_dim,
+            mem_agg_hidden_dim=self.mem_agg_hidden_dim,
+            agg_hidden_dim=self.agg_hidden_dim,
+            feature_dim=0,
+            include_self=True)
+
+
+class NeuralPredictor(nn.Module):
+    """Aggregate the decimator's variable states per variable (self
+    included), then a per-variable classifier (reference
+    pdp_predict.py:49-91; only the variable path exists, as in the JAX
+    package). forward -> (prediction [V, prediction_dim], None)."""
+
+    def __init__(self, cfg: NeuralPredictorConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.var_agg = mlp.Aggregator(cfg.aggregator_cfg())
+        head = (mlp.PerceptronTanh if cfg.classifier_kind == "tanh"
+                else mlp.Perceptron)
+        self.classifier = head(cfg.decimator_dim, cfg.classifier_dim,
+                               cfg.prediction_dim)
+
+    def forward(self, batch, dec_state, edge_mask):
+        agg_in = torch.cat([dec_state[0], col(batch.edge_sign)], dim=1)
+        agg_v = self.var_agg(batch, agg_in, None, "var", edge_mask)
+        return self.classifier(agg_v), None
 
 
 def identity_predictor_apply(generator, problem, random_fill, last_call):

@@ -1,8 +1,10 @@
-"""Classical Survey Propagation.
+"""Propagators: neural message passing and classical Survey Propagation.
 
-Counterpart of the SP half of `pdp_solver_tpu/modules/propagate.py`.
-Message state (1-D edge columns, as in the JAX package):
-  var = (q_u, q_s, q_dc) simplex, fn = (eta survey, external force).
+Counterpart of `pdp_solver_tpu/modules/propagate.py`. State layouts, as in
+the JAX package:
+  NeuralPropagator: (var_state [E, h], fn_state [E, h]);
+  survey propagator: SPMessages of 1-D edge columns, var = (q_u, q_s, q_dc)
+  simplex, fn = (eta survey, external force).
 
 The JAX package also folds the decimator's reduce and the edge masks into
 the sweep (`survey_propagate_with_decimator_agg` :474,
@@ -14,9 +16,76 @@ messages, masks and reductions in separate kernels.
 import dataclasses
 
 import torch
+from torch import nn
 
+from pdp_solver_tpu_torch.modules import mlp
+from pdp_solver_tpu_torch.modules.common import col
 from pdp_solver_tpu_torch.ops import fused
 from pdp_solver_tpu_torch.ops.fused import q_triplet_stable  # noqa: F401
+
+
+@dataclasses.dataclass(frozen=True)
+class NeuralPropagatorConfig:
+    edge_dim: int
+    decimator_dim: int
+    meta_dim: int
+    hidden_dim: int
+    mem_hidden_dim: int
+    mem_agg_hidden_dim: int
+    agg_hidden_dim: int
+    dropout: float = 0.0
+
+    def aggregator_cfg(self):
+        return mlp.AggregatorConfig(
+            input_dim=self.decimator_dim + self.edge_dim + self.meta_dim,
+            output_dim=self.hidden_dim,
+            mem_hidden_dim=self.mem_hidden_dim,
+            mem_agg_hidden_dim=self.mem_agg_hidden_dim,
+            agg_hidden_dim=self.agg_hidden_dim,
+            feature_dim=self.edge_dim,
+            include_self=False)
+
+
+class NeuralPropagator(nn.Module):
+    """Reference pdp_propagate.py:47-95 (JAX propagate.py:65). The names
+    cross over as in the reference: `var_agg` sums over each variable's
+    edges and produces the new *function* state, `fn_agg` sums over each
+    clause's edges and produces the new *variable* state. Edges of
+    instances that have stopped (active_edge 0) keep their state. Dropout
+    acts only in training, and per-instance meta features only in p-nd-np,
+    neither of which is ported."""
+
+    def __init__(self, cfg: NeuralPropagatorConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.var_agg = mlp.Aggregator(cfg.aggregator_cfg())
+        self.fn_agg = mlp.Aggregator(cfg.aggregator_cfg())
+
+    def forward(self, batch, prop_state, dec_state, edge_mask, active_edge):
+        var_state, fn_state = prop_state
+        dec_var, dec_fn = dec_state
+        feat = col(batch.edge_sign)
+        keep = col(active_edge) > 0
+        fn_new = self.var_agg(batch, torch.cat([dec_var, feat], dim=1), feat,
+                              "var", edge_mask)
+        fn_state = torch.where(keep, fn_new, fn_state)
+        var_new = self.fn_agg(batch, torch.cat([dec_fn, feat], dim=1), feat,
+                              "clause", edge_mask)
+        var_state = torch.where(keep, var_new, var_state)
+        return var_state, fn_state
+
+
+def neural_init_state(generator, num_edges, hidden_dim, randomized,
+                      device):
+    """A (var, fn) pair of [E, h] states: U(-1, 1) or zeros (reference
+    pdp_propagate.py:97-108; the neural decimator's init state is the same
+    draw, JAX decimate.py:102)."""
+    shape = (num_edges, hidden_dim)
+    if not randomized:
+        return (torch.zeros(shape, device=device),
+                torch.zeros(shape, device=device))
+    return tuple(torch.rand(shape, generator=generator, device=device)
+                 .mul_(2.0).sub_(1.0) for _ in range(2))
 
 
 @dataclasses.dataclass

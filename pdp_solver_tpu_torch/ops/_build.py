@@ -44,6 +44,8 @@ _SIGNATURES = {
                                   I, I, P, P, P, P, P, ctypes.c_float, P]),
     "pdp_walksat_block": (I, [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I,
                               I, ctypes.c_float, P]),
+    "pdp_segment_sum_2d": (I, [P, I, P, P, I, P, P]),
+    "pdp_gather_2d": (I, [P, I, P, P, ctypes.c_long, P, P]),
 }
 
 

@@ -1,27 +1,36 @@
-"""The p-d-p solver: SP propagator x sequential decimator x identity
-predictor, with WalkSAT post-processing.
+"""Solver assemblies: propagator x decimator x predictor, with WalkSAT
+post-processing.
 
-Counterpart of the p-d-p assembly of `pdp_solver_tpu/solvers/base.py`
-(`SolverConfig`, `PDPSolver.forward`/`_forward`/`_forward_core` :332-603,
-`local_search`/`_local_search` :607-828). The other five assemblies are not
-ported yet.
+Counterpart of `pdp_solver_tpu/solvers/base.py` (`SolverConfig`,
+`PDPSolver.forward`/`_forward`/`_forward_core` :332-603,
+`local_search`/`_local_search` :607-828) for two of its six assemblies:
+  p-d-p     SP propagator + sequential decimator (SP scorer) + identity
+            predictor;
+  np-nd-np  neural propagator + neural (GRU) decimator + neural predictor,
+            with parameters (`init_params`, or a JAX checkpoint through
+            `convert.params_from_jax`).
+The other four raise NotImplementedError.
 
 The JAX hot loop is one `lax.while_loop` that stops once no instance is
 active. Here it is a Python loop of `iteration_num` iterations with no host
 sync: the caller runs it in chunks (the resumable `carry=` /
 `finalize=False` API) and reads the per-instance active flags once per
 chunk. Once no instance is active an iteration changes nothing but the
-decimator's counters, which are held with a device-side flag, so running
-out the chunk gives what the JAX loop gives.
+sequential decimator's counters, which are held with a device-side flag,
+so running out the chunk gives what the JAX loop gives. (The neural
+states of a stopped instance are frozen, and its prediction and solution
+are recomputed from them unchanged.)
 
-All randomness comes from one CPU `torch.Generator` (the same numbers on
+The p-d-p draws come from one CPU `torch.Generator` (the same numbers on
 the CPU and on the card for the same seed); what the device needs is
-copied there.
+copied there. The four [E, h] neural states are drawn on the batch's
+device, from a generator seeded by the CPU one.
 """
 
 import dataclasses
 
 import torch
+from torch import nn
 
 from pdp_solver_tpu_torch.modules import decimate as D
 from pdp_solver_tpu_torch.modules import predict as P
@@ -43,9 +52,20 @@ WALKSAT_K = 8
 
 @dataclasses.dataclass(frozen=True)
 class SolverConfig:
-    """The p-d-p fields of the JAX package's SolverConfig (same names and
-    defaults); the neural assemblies' fields come with their port."""
+    """The p-d-p and np-nd-np fields of the JAX package's SolverConfig
+    (same names and defaults)."""
     model_type: str
+    name: str = "pdp-solver"
+    edge_dim: int = 1
+    meta_dim: int = 0
+    hidden_dim: int = 150
+    prediction_dim: int = 1
+    mem_hidden_dim: int = 100
+    agg_hidden_dim: int = 100
+    mem_agg_hidden_dim: int = 50
+    classifier_dim: int = 50
+    # acts in training only, which is not ported
+    dropout: float = 0.0
     tolerance: float = 0.02
     t_max: float = 100.0
     # fix every variable within this fraction of the instance's max
@@ -61,9 +81,11 @@ class SolverConfig:
 
 @dataclasses.dataclass
 class SolverState:
-    prop: PR.SPMessages            # propagator messages
-    dec: PR.SPMessages             # messages the decimator hands back
-    aux: D.SeqDecimatorState       # sequential decimator bookkeeping
+    """p-d-p: SPMessages, SPMessages, SeqDecimatorState.
+    np-nd-np: (var, fn) [E, h] pairs for prop and dec, and aux ()."""
+    prop: object      # propagator message state
+    dec: object       # decimator state / the messages it hands back
+    aux: object       # sequential decimator bookkeeping, or ()
 
 
 def random_seed32(generator) -> int:
@@ -77,7 +99,7 @@ def _uniform(generator, shape, device):
 
 
 class PDPSolver:
-    """The classical p-d-p assembly."""
+    """The p-d-p and np-nd-np assemblies."""
 
     def __init__(self, config: SolverConfig):
         self.cfg = config
@@ -85,23 +107,70 @@ class PDPSolver:
         if t not in ("np-nd-np", "p-nd-np", "np-d-np", "p-d-p", "walk-sat",
                      "reinforce"):
             raise ValueError(f"unknown model_type {t!r}")
-        if t != "p-d-p":
+        if t not in ("p-d-p", "np-nd-np"):
             raise NotImplementedError(
-                f"model_type {t!r} is not ported yet (only p-d-p)")
+                f"model_type {t!r} is not ported yet (p-d-p and np-nd-np "
+                "are)")
         c = config
-        self.prop_cfg = PR.SurveyPropagatorConfig()
-        self.dec_cfg = D.SeqDecimatorConfig(
-            tolerance=c.tolerance, t_max=c.t_max,
-            decimation_threshold=c.decimation_threshold,
-            decimation_guard=c.decimation_guard,
-            simplify_rounds=c.simplify_rounds)
-        self.scorer_cfg = P.SurveyScorerConfig()
+        if t == "p-d-p":
+            self.prop_cfg = PR.SurveyPropagatorConfig()
+            self.dec_cfg = D.SeqDecimatorConfig(
+                tolerance=c.tolerance, t_max=c.t_max,
+                decimation_threshold=c.decimation_threshold,
+                decimation_guard=c.decimation_guard,
+                simplify_rounds=c.simplify_rounds)
+            self.scorer_cfg = P.SurveyScorerConfig()
+            return
+        if c.meta_dim:
+            raise NotImplementedError("per-instance meta features are not "
+                                      "ported yet")
+        self.prop_cfg = PR.NeuralPropagatorConfig(
+            edge_dim=c.edge_dim, decimator_dim=c.hidden_dim,
+            meta_dim=c.meta_dim, hidden_dim=c.hidden_dim,
+            mem_hidden_dim=c.mem_hidden_dim,
+            mem_agg_hidden_dim=c.mem_agg_hidden_dim,
+            agg_hidden_dim=c.agg_hidden_dim, dropout=c.dropout)
+        self.dec_cfg = D.NeuralDecimatorConfig(
+            var_message_dim=c.hidden_dim, fn_message_dim=c.hidden_dim,
+            meta_dim=c.meta_dim, hidden_dim=c.hidden_dim,
+            edge_dim=c.edge_dim, dropout=c.dropout)
+        self.pred_cfg = P.NeuralPredictorConfig(
+            decimator_dim=c.hidden_dim, prediction_dim=c.prediction_dim,
+            edge_dim=c.edge_dim, meta_dim=c.meta_dim,
+            mem_hidden_dim=c.mem_hidden_dim,
+            agg_hidden_dim=c.agg_hidden_dim,
+            mem_agg_hidden_dim=c.mem_agg_hidden_dim,
+            classifier_dim=c.classifier_dim, classifier_kind="sigmoid")
+
+    @property
+    def neural(self):
+        return self.cfg.model_type == "np-nd-np"
+
+    def init_params(self, device="cuda"):
+        """Freshly initialised parameters: {} for p-d-p, for np-nd-np a
+        ModuleDict of the propagator ("prop"), the decimator ("dec") and
+        the predictor ("predictor"), in eval mode."""
+        if not self.neural:
+            return {}
+        return nn.ModuleDict({
+            "prop": PR.NeuralPropagator(self.prop_cfg),
+            "dec": D.NeuralDecimator(self.dec_cfg),
+            "predictor": P.NeuralPredictor(self.pred_cfg),
+        }).to(device).eval()
 
     def get_init_state(self, generator, batch, randomized: bool
                        ) -> SolverState:
-        """Random (or uniform) SP messages for the propagator and for the
-        decimator's first hand-back, and fresh decimator bookkeeping."""
+        """p-d-p: random (or uniform) SP messages for the propagator and
+        for the decimator's first hand-back, and fresh decimator
+        bookkeeping. np-nd-np: random U(-1, 1) (or zero) [E, h] states."""
         E, dev = batch.num_edges, batch.device
+        if self.neural:
+            g = torch.Generator(device=dev)
+            g.manual_seed(random_seed32(generator))
+            h = self.cfg.hidden_dim
+            return SolverState(
+                prop=PR.neural_init_state(g, E, h, randomized, dev),
+                dec=PR.neural_init_state(g, E, h, randomized, dev), aux=())
         prop = PR.survey_propagator_init_state(generator, E, randomized,
                                                "cpu")
         dec = P.scorer_message_init_state(generator, E, randomized, "cpu")
@@ -112,21 +181,48 @@ class PDPSolver:
         return SolverState(prop=to_dev(prop), dec=to_dev(dec),
                            aux=D.seq_decimator_init_state(batch))
 
+    # -- building blocks ------------------------------------------------
+
+    def _check_params(self, params):
+        if not self.neural:
+            if params:
+                raise ValueError("p-d-p takes no parameters")
+            return
+        missing = {"prop", "dec", "predictor"} - set(params or {})
+        if missing:
+            raise ValueError(f"np-nd-np parameters lack {sorted(missing)}")
+
+    def _propagate(self, params, batch, prop, dec, em, ae):
+        if self.neural:
+            return params["prop"](batch, prop, dec, em, ae)
+        return PR.survey_propagator_apply(self.prop_cfg, batch, prop, dec,
+                                          em, ae)
+
+    def _predict(self, params, generator, batch, problem, dec, em,
+                 last_call):
+        """The variable prediction [V, 1]."""
+        if self.neural:
+            return params["predictor"](batch, dec, em)[0]
+        return P.identity_predictor_apply(generator, problem,
+                                          random_fill=True,
+                                          last_call=last_call)[0]
+
     # -- forward --------------------------------------------------------
 
+    @torch.no_grad()
     def forward(self, params, generator, batch, init_state: SolverState,
                 iteration_num: int, *, check_termination: bool = False,
                 carry=None, finalize=True):
         """One solve (or one chunk of it).
 
         finalize=True returns ((variable_prediction [V, 1], None), state):
-        the decimated solution with random fill on still-active variables,
-        improved by local search when local_search_iterations > 0.
+        the decimated solution with random fill on still-active variables
+        (p-d-p) or the neural prediction (np-nd-np), improved by local
+        search when local_search_iterations > 0.
         finalize=False returns ((None, None), state, carry) with carry =
         (problem, active instances, edge mask); pass it back as `carry=` to
         continue the same solve."""
-        if params:
-            raise ValueError("p-d-p takes no parameters")
+        self._check_params(params)
         if carry is None:
             problem = fused_simplify(batch, init_problem_state(batch))
             resume = None
@@ -135,23 +231,22 @@ class PDPSolver:
             resume = (active_b0, em0)
 
         problem, state, active_b = self._forward_core(
-            batch, problem, init_state, iteration_num, check_termination,
-            resume)
+            params, batch, problem, init_state, iteration_num,
+            check_termination, resume)
 
         em = compute_edge_mask(batch, problem)
         if not finalize:
             return (None, None), state, (problem, active_b, em)
 
-        pred = P.identity_predictor_apply(generator, problem,
-                                          random_fill=True, last_call=True)
-        var_pred = pred[0]
+        var_pred = self._predict(params, generator, batch, problem,
+                                 state.dec, em, last_call=True)
         if self.cfg.local_search_iterations > 0:
             var_pred = self._local_search(generator, batch, problem,
                                           var_pred)
         var_pred, problem = _update_solution(problem, var_pred)
         return (var_pred, None), state
 
-    def _forward_core(self, batch, problem, state, iteration_num,
+    def _forward_core(self, params, batch, problem, state, iteration_num,
                       check_termination, resume=None):
         """The hot loop (solvers/base.py :456-603, unfolded path)."""
         if resume is not None:
@@ -162,27 +257,33 @@ class PDPSolver:
         ae = edge_active_instance_mask(batch, active_b)
 
         for _ in range(iteration_num):
-            prop = PR.survey_propagator_apply(
-                self.prop_cfg, batch, state.prop, state.dec, em, ae)
-            aux, problem, maybe_active = D.sequential_decimator_apply(
-                self.dec_cfg, self.scorer_cfg, batch, state.aux, prop,
-                problem, em, active_b if check_termination else None)
-            if check_termination:
-                # the JAX loop has stopped once no instance is active; the
-                # counters are the only state a later iteration would move
-                alive = torch.sum(active_b) > 0
-                aux = D.SeqDecimatorState(
-                    prev_eta=aux.prev_eta,
-                    counters=torch.where(alive, aux.counters,
-                                         state.aux.counters),
-                    has_prev=torch.where(alive, aux.has_prev,
-                                         state.aux.has_prev))
-                active_b = maybe_active
-            state = SolverState(prop=prop, dec=prop, aux=aux)
+            prop = self._propagate(params, batch, state.prop, state.dec, em,
+                                   ae)
+            if self.neural:
+                # the neural decimator never changes the problem
+                dec = params["dec"](batch, state.dec, prop, ae)
+                state = SolverState(prop=prop, dec=dec, aux=())
+            else:
+                aux, problem, maybe_active = D.sequential_decimator_apply(
+                    self.dec_cfg, self.scorer_cfg, batch, state.aux, prop,
+                    problem, em, active_b if check_termination else None)
+                if check_termination:
+                    # the JAX loop has stopped once no instance is active;
+                    # the counters are the only state a later iteration
+                    # would move
+                    alive = torch.sum(active_b) > 0
+                    aux = D.SeqDecimatorState(
+                        prev_eta=aux.prev_eta,
+                        counters=torch.where(alive, aux.counters,
+                                             state.aux.counters),
+                        has_prev=torch.where(alive, aux.has_prev,
+                                             state.aux.has_prev))
+                    active_b = maybe_active
+                state = SolverState(prop=prop, dec=prop, aux=aux)
 
             if check_termination:
-                pred, _ = P.identity_predictor_apply(
-                    None, problem, random_fill=True, last_call=False)
+                pred = self._predict(params, None, batch, problem, state.dec,
+                                     em, last_call=False)
                 var_pred, problem = _update_solution(problem, pred)
                 solved, _ = cnf_evaluate(batch, var_pred)
                 active_b = active_b * (solved <= 0.5).to(torch.float32)
@@ -191,6 +292,7 @@ class PDPSolver:
 
     # -- WalkSAT local search -------------------------------------------
 
+    @torch.no_grad()
     def local_search(self, generator, batch, problem, var_pred, iterations,
                      seeds=None):
         """Runs `iterations` WalkSAT flips from the prediction and returns
@@ -258,6 +360,16 @@ def build_solver(config) -> PDPSolver:
     c = dict(config)
     return PDPSolver(SolverConfig(
         model_type=c["model_type"],
+        name=c.get("model_name", "pdp-solver"),
+        edge_dim=c.get("edge_feature_dim", 1),
+        meta_dim=c.get("meta_feature_dim", 0),
+        hidden_dim=c.get("hidden_dim", 150),
+        prediction_dim=c.get("prediction_dim", 1),
+        mem_hidden_dim=c.get("mem_hidden_dim", 100),
+        agg_hidden_dim=c.get("agg_hidden_dim", 100),
+        mem_agg_hidden_dim=c.get("mem_agg_hidden_dim", 50),
+        classifier_dim=c.get("classifier_dim", 50),
+        dropout=c.get("dropout", 0.0),
         tolerance=c.get("tolerance", 0.02),
         t_max=float(c.get("t_max", 100)),
         decimation_threshold=c.get("decimation_threshold", 1.0),

@@ -1,11 +1,13 @@
-"""Where the time of the port's p-d-p solve goes, on one CUDA card.
+"""Where the time of the port's solves goes, on one CUDA card.
 
     python -m pdp_solver_tpu_torch.utils.profile_solve [--seeds 0 1 2]
+        [--model p-d-p|np-nd-np]
 
-On the shared set at the headline settings (those of chip_smoke.py) it
-prints one JSON line with:
+On the shared set, with p-d-p at the headline settings or np-nd-np with
+the r3 checkpoint (the settings of chip_smoke.py), it prints one JSON line
+with:
   - per seed: the numpy-verified solved fraction and the wall time of
-    compacting_solve (split into the decimation loop and WalkSAT);
+    compacting_solve (split into the iteration loop and WalkSAT);
   - the hot loop at full size: ms per iteration over one 50-iteration
     chunk (host clock around synchronised work, after a warm-up chunk);
   - a torch.profiler trace of the same chunk run again: device busy time
@@ -16,6 +18,7 @@ Needs a CUDA card; exits 2 without one.
 
 import argparse
 import json
+import subprocess
 import sys
 import time
 
@@ -26,6 +29,8 @@ from pdp_solver_tpu_torch.utils.benchdata import (
     dataset_fingerprint, make_ksat_set)
 from pdp_solver_tpu_torch.utils.headline import (
     HEADLINE, headline_solver, solve_headline)
+from pdp_solver_tpu_torch.utils.neural import (
+    NP_ND_NP, np_nd_np_params, np_nd_np_solver, solve_np_nd_np)
 
 
 def _device_us(evt):
@@ -36,19 +41,18 @@ def _device_us(evt):
     return 0.0
 
 
-def hot_loop(insts, n=50):
+def hot_loop(insts, solver, params, n=50):
     """ms per iteration of the full-size hot loop, and a profile of it."""
     from torch.profiler import ProfilerActivity, profile
-    solver = headline_solver()
     batch = pack_instances(insts, device="cuda")
     gen = torch.Generator().manual_seed(0)
     state = solver.get_init_state(gen, batch, randomized=True)
-    _, state, carry = solver.forward({}, gen, batch, state, n,
+    _, state, carry = solver.forward(params, gen, batch, state, n,
                                      check_termination=True,
                                      finalize=False)
     torch.cuda.synchronize()
     t0 = time.time()
-    solver.forward({}, gen, batch, state, n, check_termination=True,
+    solver.forward(params, gen, batch, state, n, check_termination=True,
                    carry=carry, finalize=False)
     torch.cuda.synchronize()
     wall_ms = (time.time() - t0) * 1e3
@@ -56,7 +60,7 @@ def hot_loop(insts, n=50):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        solver.forward({}, gen, batch, state, n, check_termination=True,
+        solver.forward(params, gen, batch, state, n, check_termination=True,
                        carry=carry, finalize=False)
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
@@ -87,16 +91,29 @@ def hot_loop(insts, n=50):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
+    ap.add_argument("--model", choices=("p-d-p", "np-nd-np"),
+                    default="p-d-p")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_solve: no CUDA card", file=sys.stderr)
         return 2
     insts = make_ksat_set()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
     out = {"device": torch.cuda.get_device_name(0),
-           "fingerprint": dataset_fingerprint(insts),
-           "settings": HEADLINE}
-    out["hot_loop"] = hot_loop(insts)
-    out["seeds"] = [solve_headline(insts, s) for s in args.seeds]
+           "card": smi.stdout.strip().splitlines()[0] if smi.stdout else None,
+           "fingerprint": dataset_fingerprint(insts), "model": args.model}
+    if args.model == "p-d-p":
+        out["settings"] = HEADLINE
+        out["hot_loop"] = hot_loop(insts, headline_solver(), {})
+        out["seeds"] = [solve_headline(insts, s) for s in args.seeds]
+    else:
+        params = np_nd_np_params()
+        out["settings"] = NP_ND_NP
+        out["hot_loop"] = hot_loop(insts, np_nd_np_solver(), params)
+        out["seeds"] = [solve_np_nd_np(insts, s, params=params)
+                        for s in args.seeds]
     print(json.dumps(out), flush=True)
     return 0
 

@@ -3,8 +3,9 @@
 Marked `gpu`: each test skips when torch sees no CUDA card (decided inside
 the fixture, never at import). On the card's machine run them with
 `python -m pytest tests/test_torch_gpu.py -m gpu`. Tolerances as in
-chip_smoke.py: flags and counts exact, float sums rtol 1e-5 / atol 1e-6,
-walksat_block bit-exact.
+chip_smoke.py: flags and counts exact, float sums rtol 1e-5 / atol 1e-6
+(the [E, d] segment sum rtol 1e-5 / atol 1e-5), walksat_block and the
+[E, d] gather bit-exact.
 """
 
 import numpy as np
@@ -82,3 +83,28 @@ def test_walksat_block_matches_plain(batches, eps):
     assert torch.equal(a_got, a_ref) and torch.equal(e_got, e_ref)
     np.testing.assert_array_equal(a_got.cpu().numpy().view(np.int32),
                                   a_ref.cpu().numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("d", [50, 150, 37])
+def test_reduce2d_kernels_match_plain(batches, d):
+    """Kernel 6 to rtol 1e-5 / atol 1e-5 (the plain index_add_ on the card
+    sums in atomic order), kernel 7 with and without the subtract bit for
+    bit, padding rows included; the clause-major CSR (no permutation) too."""
+    from pdp_solver_tpu_torch.ops import reduce2d
+    _, gpu = batches
+    g = torch.Generator().manual_seed(d)
+    x = torch.randn(gpu.num_edges, d, generator=g).cuda()
+    nodes = torch.randn(gpu.num_vars, d, generator=g).cuda()
+    ev, V, e = gpu.edge_var, gpu.num_vars, gpu.num_real_edges
+    got = reduce2d.segment_sum_2d(x, ev, V, e, gpu.var_ptr, gpu.var_perm)
+    ref = reduce2d.segment_sum_2d_plain(x, ev, V, e)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    ec, F = gpu.edge_clause, gpu.num_clauses
+    got = reduce2d.segment_sum_2d(x, ec, F, e, gpu.clause_ptr)
+    ref = reduce2d.segment_sum_2d_plain(x, ec, F, e)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    for minus in (None, x):
+        got = reduce2d.gather_2d(nodes, ev, minus)
+        ref = reduce2d.gather_2d_plain(nodes, ev, minus)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)

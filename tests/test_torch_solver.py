@@ -200,7 +200,7 @@ def test_convert_and_build():
     assert solver.cfg.tolerance == 0.1
     assert solver.cfg.local_search_iterations == 7
     with pytest.raises(NotImplementedError):
-        PDPSolver(SolverConfig(model_type="np-nd-np"))
+        PDPSolver(SolverConfig(model_type="p-nd-np"))
     with pytest.raises(ValueError):
         PDPSolver(SolverConfig(model_type="nope"))
     jb = jax_pack(_instances(4, n_inst=2))
