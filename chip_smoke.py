@@ -5,18 +5,25 @@
 
 Phases, one flushed line each with the elapsed seconds:
   1. build: one nvcc call compiles every kernel source (csrc/*.cu);
-  2. kernel checks: every kernel instantiation on the main path (and the
-     survey scorer's, off it) against its plain PyTorch version on the card,
-     at the full shared-set shapes (128 instances of 4-SAT, n=100,
-     alpha=9: E=524,288 padded / 460,800 real edges, V=16,384). Flags and
-     counts must match exactly, float sums to rtol 1e-5 / atol 1e-6 (the
-     plain version sums in another order), walksat_block bit for bit for
-     eps=-1 and eps=0.5; each is then timed (CUDA events) beside its plain
-     version and its bound;
+  2. kernel checks: every kernel instantiation against its plain PyTorch
+     version on the card, at the full shared-set shapes (128 instances of
+     4-SAT, n=100, alpha=9: E=524,288 padded / 460,800 real edges,
+     V=16,384). Flags and counts must match exactly, float sums to rtol
+     1e-5 / atol 1e-6 (the plain version sums in another order),
+     walksat_block bit for bit for eps=-1 and eps=0.5; each is then timed
+     (CUDA events) beside its plain version and its bound;
      The [E, d] segment sum and gather of the neural modules (kernels 6
      and 7) are checked at the np-nd-np shapes (d = 50): the sum to rtol
      1e-5 / atol 1e-5 (the plain index_add_ on the card sums in atomic
      order), the gather and the gather-minus-self bit for bit;
+     The multi-column segment sum (kernel 4; C = 1 and 2 over the var CSR,
+     C = 1 over the clause CSR), the same kernel on a ragged batch of
+     mixed clause widths (kernel 5's function) and over sorted ids
+     (kernel 8's function), exact on integer columns and to rtol 1e-5 /
+     atol 1e-6 on floats, timed beside index_add_ and kernel 6; the
+     one-launch SP sweep (kernel 9) for pi = 0 and 0.01 against its plain
+     version and against the two launches it replaces (rtol 1e-5 / atol
+     1e-6), timed beside both;
   3. p-d-p path: compacting_solve at the headline settings (tolerance
      0.08, t_max 50, 1000 iterations, 1000 WalkSAT flips, restart schedule
      0.35/0.35/0.3, chunk 50, simplify_rounds 1) on the shared set
@@ -27,7 +34,19 @@ Phases, one flushed line each with the elapsed seconds:
      full width (hidden 150; 1000 iterations, 1000 WalkSAT flips, chunk
      50) on the same set, every solution verified with numpy; the solved
      fraction must be >= 0.45 and kernels 6 and 7 launched at least once;
-  5. the {"kernels": [...]} line, the card's name and power limit, and as
+  5. walk-sat path: compacting_solve at the solver table's settings (1000
+     WalkSAT flips from a random fill, epsilon 0.5), every solution
+     verified with numpy; >= 7/128 solved;
+  6. reinforce path: the same with REINFORCE (pi 0.01, decimation
+     probability 0.5, 1000 iterations); >= 5/128 solved, kernel 4 and
+     fused_edge_pass[scorer] launched. Then the REINFORCE forward from one
+     injected state at full size, on the card and on the CPU (p = 1):
+     after 1 iteration forces, predictions and active flags equal except
+     at variables whose CPU |score| < 1e-5 (counted), SP messages to rtol
+     1e-5 / atol 1e-6; after 10 iterations under 1% of the forces differ;
+  7. p-d-p with PDP_SP_SWEEP=on: phase 3's solve through the one-launch
+     sweep; >= 0.60 solved and kernel 9 launched once per iteration;
+  8. the {"kernels": [...]} line, the card's name and power limit, and as
      the last line {"ok": true, "device": {...}}.
 
 Every launch count is set to 0 just before each path and read just after
@@ -56,6 +75,15 @@ MIN_SOLVED = 0.60
 # np-nd-np with the r3 weights: the JAX records are 0.516-0.602 (seeds 0-2,
 # docs/r5_solver_table.json); WalkSAT from a random fill alone solves 0.117
 MIN_SOLVED_NEURAL = 0.45
+# walk-sat and reinforce at the solver table's settings: the JAX records
+# are 13-16 and 11-17 of 128 (seeds 0-2, docs/r5_solver_table.json); a
+# broken WalkSAT solves 0
+MIN_SOLVED_WALK_SAT = 7
+MIN_SOLVED_REINFORCE = 5
+# card-vs-CPU REINFORCE forward: variables whose CPU |score| is below this
+# may take either sign; the share of differing forces after 10 iterations
+SCORE_TIE = 1e-5
+MAX_FORCE_DIFF_SHARE = 0.01
 REDUCE2D_TOL = dict(rtol=1e-5, atol=1e-5)
 HIDDEN_AGG = 50      # np-nd-np's mem_agg_hidden_dim: the width kernels 6/7 see
 FLOAT_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -63,6 +91,7 @@ FLOAT_TOL = dict(rtol=1e-5, atol=1e-6)
 EXACT_FNS = {"em_ae", "em", "ae", "sround", "cnf_chain", "ws_chain"}
 PALLAS_FUSED = "pdp_solver_tpu/ops/pallas_fused.py"
 PALLAS_2D = "pdp_solver_tpu/ops/pallas_reduce2d.py"
+REDUCE_CU = "pdp_solver_tpu_torch/csrc/reduce.cu"
 
 
 def log(msg):
@@ -314,8 +343,326 @@ def check_reduce2d(batch, torch):
     return rows
 
 
+def ragged_batch(np, seed=5, count=128, n=100, m=900):
+    """A batch of the shared set's size whose clauses have mixed widths
+    (2-6, mean 4): no uniform width, so every clause-direction sum walks
+    the clause CSR; its variable ids fail the TPU window invariant's
+    uniform layout."""
+    from pdp_solver_tpu_torch.fg.batch import pack_instances
+    rng = np.random.default_rng(seed)
+    insts = []
+    for _ in range(count):
+        widths = rng.integers(2, 7, size=m)
+        ev = rng.integers(0, n, size=int(widths.sum())).astype(np.int32)
+        ec = np.repeat(np.arange(m, dtype=np.int32), widths)
+        signs = (2.0 * rng.integers(0, 2, size=ev.shape[0]) - 1.0).astype(
+            np.float32)
+        insts.append((n, m, np.stack([ev, ec]), signs, -1.0))
+    return pack_instances(insts, device="cuda")
+
+
+def _check_sum(torch, name, got, ref, exact):
+    require(got.shape == ref.shape, f"{name}: shape {tuple(got.shape)} != "
+            f"{tuple(ref.shape)}")
+    require(bool(torch.isfinite(got).all()), f"{name}: non-finite")
+    err = float((got - ref).abs().max())
+    if exact:
+        require(torch.equal(got, ref), f"{name}: not exact ({err})")
+    else:
+        require(torch.allclose(got, ref, **FLOAT_TOL),
+                f"{name}: max abs err {err} beyond rtol "
+                f"{FLOAT_TOL['rtol']} / atol {FLOAT_TOL['atol']}")
+    return err
+
+
+def check_reduce(batch, torch, np):
+    """Kernel 4 (csrc/reduce.cu) at the shared-set shapes, on a ragged
+    batch (kernel 5's function) and over sorted ids (kernel 8's)."""
+    from pdp_solver_tpu_torch.ops import reduce, reduce2d
+    E, V, F = batch.num_edges, batch.num_vars, batch.num_clauses
+    e = batch.num_real_edges
+    g = torch.Generator().manual_seed(23)
+    rows = {}
+
+    # signed integer-valued columns must sum exactly; float columns are
+    # non-negative, as the path's are (the smooth-max numerator and
+    # denominator), so rtol bounds the atomic-order error of the plain
+    # index_add_
+    def cols_of(C, E_, integer):
+        return [(torch.randint(-3, 4, (E_,), generator=g).float() if integer
+                 else torch.rand(E_, generator=g)).cuda() for _ in range(C)]
+
+    def csr_bytes(C, n, e_, perm):
+        return (C * e_ + (e_ if perm else 0) + n + 1 + C * n) * 4
+
+    # the path's shapes: [E, 2] rows over the var CSR (the convergence
+    # test's smooth-max), one column over the var CSR (the predictor), and
+    # one column over the clause CSR
+    shapes = {}
+    for label, C, ids, n, ptr, perm in (
+            ("var C=2", 2, batch.edge_var, V, batch.var_ptr, batch.var_perm),
+            ("var C=1", 1, batch.edge_var, V, batch.var_ptr, batch.var_perm),
+            ("clause C=1", 1, batch.edge_clause, F, batch.clause_ptr,
+             None)):
+        err = 0.0
+        for integer in (True, False):
+            cols = cols_of(C, E, integer)
+            ref = reduce.segment_sum_cols_plain(cols, ids, n, e)
+            got = reduce.segment_sum_cols(cols, ids, n, e, ptr, perm)
+            torch.cuda.synchronize()
+            err = max(err, _check_sum(torch, f"segment_sum_cols[{label}]",
+                                      got, ref, integer))
+        x = torch.stack(cols, 1).contiguous()
+        got = reduce.segment_sum(x, ids, n, e, ptr, perm)
+        torch.cuda.synchronize()
+        require(torch.equal(got.reshape(n, C).T, reduce.segment_sum_cols(
+            cols, ids, n, e, ptr, perm)), f"segment_sum[{label}]: [E, C] "
+            "and column forms differ")
+        xs = torch.stack([c[:e] for c in cols])
+        out = torch.zeros(C, n, device="cuda")
+        ids_real = ids[:e]
+        b_ms, b_by = bound_ms(csr_bytes(C, n, e, perm is not None), C * e)
+        shapes[label] = {
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: reduce.segment_sum(x, ids, n, e, ptr, perm)
+                          if C > 1 else reduce.segment_sum_cols(
+                              cols, ids, n, e, ptr, perm), reps=50),
+            "plain_ms": cuda_ms(lambda: reduce.segment_sum_cols_plain(
+                cols, ids, n, e), reps=20),
+            "library_ms": cuda_ms(lambda: out.index_add_(1, ids_real, xs),
+                                  reps=50),
+            "kernel6_ms": cuda_ms(lambda: reduce2d.segment_sum_2d(
+                x, ids, n, e, ptr, perm), reps=50),
+            "bound_ms": b_ms, "bound_by": b_by}
+        log(f"kernel segment_sum_cols [{label}]: ok, max abs err {err:.3g}, "
+            f"{shapes[label]['ms']:.4f} ms (plain "
+            f"{shapes[label]['plain_ms']:.4f}, index_add_ "
+            f"{shapes[label]['library_ms']:.4f}, kernel 6 "
+            f"{shapes[label]['kernel6_ms']:.4f}, bound {b_ms:.5f} ms)")
+    main = shapes["var C=2"]
+    rows["segment_sum_cols"] = dict(
+        {"name": "segment_sum_cols", "route": "cuda", "source": REDUCE_CU,
+         "replaces": "pdp_solver_tpu/ops/pallas_reduce.py:224",
+         "library": "index_add_ of the stacked real edges", "shapes": shapes},
+        **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                "library_ms", "bound_ms", "bound_by")})
+
+    # kernel 5's function: a batch that fails the window invariant
+    rb = ragged_batch(np)
+    require(rb.clause_width == 0, "the ragged batch has a uniform width")
+    Er, er = rb.num_edges, rb.num_real_edges
+    err = 0.0
+    for integer in (True, False):
+        cols = cols_of(3, Er, integer)
+        for ids, n, ptr, perm in (
+                (rb.edge_var, rb.num_vars, rb.var_ptr, rb.var_perm),
+                (rb.edge_clause, rb.num_clauses, rb.clause_ptr, None)):
+            ref = reduce.segment_sum_cols_plain(cols, ids, n, er)
+            got = reduce.segment_sum_cols(cols, ids, n, er, ptr, perm)
+            torch.cuda.synchronize()
+            err = max(err, _check_sum(torch, "segment_sum_cols[ragged]",
+                                      got, ref, integer))
+    xs = torch.stack([c[:er] for c in cols])
+    out = torch.zeros(3, rb.num_vars, device="cuda")
+    ids_real = rb.edge_var[:er]
+    b_ms, b_by = bound_ms(csr_bytes(3, rb.num_vars, er, True), 3 * er)
+    args = (rb.edge_var, rb.num_vars, er, rb.var_ptr, rb.var_perm)
+    rows["segment_sum_cols[ragged]"] = {
+        "name": "segment_sum_cols[ragged]", "route": "cuda",
+        "source": REDUCE_CU,
+        "replaces": "pdp_solver_tpu/ops/pallas_reduce.py:209",
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: reduce.segment_sum_cols(cols, *args), reps=50),
+        "plain_ms": cuda_ms(lambda: reduce.segment_sum_cols_plain(
+            cols, rb.edge_var, rb.num_vars, er), reps=20),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: out.index_add_(1, ids_real, xs),
+                              reps=50),
+        "library": "index_add_ of the stacked real edges",
+        "note": f"C = 3 over the var CSR of a batch of mixed clause widths "
+                f"(E = {Er}, {er} real)"}
+    del rb
+
+    # kernel 8's function: one column over sorted ids, the real edges'
+    # clause ids (the padding edges would put 63,488 edges in the last
+    # clause, and one thread walks each segment)
+    ids = batch.edge_clause[:e]
+    x = torch.randint(-3, 4, (e,), generator=g).float().cuda()
+    got = reduce.sorted_segment_sum(x, ids, F)
+    ref = reduce.sorted_segment_sum_plain(x, ids, F)
+    torch.cuda.synchronize()
+    _check_sum(torch, "sorted_segment_sum", got, ref, True)
+    xf = torch.rand(e, generator=g).cuda()
+    err = _check_sum(torch, "sorted_segment_sum",
+                     reduce.sorted_segment_sum(xf, ids, F),
+                     reduce.sorted_segment_sum_plain(xf, ids, F), False)
+    out = torch.zeros(F, device="cuda")
+    b_ms, b_by = bound_ms((e + 2 * e + F) * 4, e)   # x, i64 ids, sums
+    rows["sorted_segment_sum"] = {
+        "name": "sorted_segment_sum", "route": "cuda", "source": REDUCE_CU,
+        "replaces": "pdp_solver_tpu/ops/pallas_segment.py:120",
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: reduce.sorted_segment_sum(xf, ids, F),
+                      reps=50),
+        "plain_ms": cuda_ms(lambda: reduce.sorted_segment_sum_plain(
+            xf, ids, F), reps=20),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: out.index_add_(0, ids, xf), reps=50),
+        "library": "index_add_",
+        "note": "kernel checks only: on no solve path, in the JAX package "
+                "either; its CUDA kernel is segment_sum_cols, whose "
+                "launches on the reinforce path `launches` counts"}
+    for name in ("segment_sum_cols[ragged]", "sorted_segment_sum"):
+        r = rows[name]
+        log(f"kernel {name}: ok, max abs err {r['max_abs_err']:.3g}, "
+            f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
+            f"{r['library_ms']:.4f}, bound {r['bound_ms']:.5f} ms)")
+    return rows
+
+
+def sweep_inputs(batch, torch, seed, pi):
+    g = torch.Generator().manual_seed(seed)
+    E = batch.num_edges
+
+    def u(lo=0.0, hi=1.0):
+        return (torch.rand(E, generator=g) * (hi - lo) + lo).cuda()
+
+    v = torch.rand(E, 3, generator=g)
+    v = (v / v.sum(1, keepdim=True)).cuda()
+    return dict(u_like=u(0.01, 1.0), eta_in=u(0.0, 0.99),
+                em=batch.edge_mask * (u() > 0.1).float(),
+                mask=(u() > 0.2).float(), eta_state=u(), sign=batch.edge_sign,
+                force=(torch.where(u() > 0.5, 1.0, -1.0) if pi
+                       else torch.zeros(E, device="cuda")),
+                v0=v[:, 0].contiguous(), v1=v[:, 1].contiguous(),
+                v2=v[:, 2].contiguous())
+
+
+def check_sp_sweep(batch, torch):
+    """Kernel 9 against its plain version and the two launches it
+    replaces, for pi = 0 (p-d-p) and 0.01 (reinforce)."""
+    from pdp_solver_tpu_torch.ops import fused, sp_sweep
+    E, V, F, B = (batch.num_edges, batch.num_vars, batch.num_clauses,
+                  batch.batch_size)
+    e = batch.num_real_edges
+    per_pi = {}
+    for pi in (0.0, 0.01):
+        kw = sweep_inputs(batch, torch, 31, pi)
+        cols = tuple(kw.values())
+
+        def one():
+            return sp_sweep.sp_full_sweep(batch, pi=pi, **kw)
+
+        def two():
+            _, pn, (eta,), _ = fused.chained_edge_pass(
+                fused.SP_CHAIN, batch, cols[:6])
+            _, q = fused.fused_edge_pass(
+                fused.SP_PASS_C, batch,
+                (pn[0], pn[1]) + cols[1:2] + cols[2:4] + cols[5:],
+                scalar=pi)
+            return (eta,) + tuple(q)
+
+        got = one()
+        ref = sp_sweep.sp_full_sweep_plain(batch, cols, pi)
+        twin = two()
+        torch.cuda.synchronize()
+        err = err_two = 0.0
+        for a, b, c in zip(got, ref, twin):
+            err = max(err, _check_sum(torch, "sp_full_sweep", a, b, False))
+            err_two = max(err_two, _check_sum(
+                torch, "sp_full_sweep vs the two launches", a, c, False))
+        bits = all(torch.equal(a, c) for a, c in zip(got, twin))
+        per_pi[pi] = {
+            "max_abs_err": err, "max_abs_diff_two_launch": err_two,
+            "bit_equal_two_launch": bits,
+            "ms": cuda_ms(one, reps=50),
+            "plain_ms": cuda_ms(
+                lambda: sp_sweep.sp_full_sweep_plain(batch, cols, pi),
+                reps=10),
+            "two_launch_ms": cuda_ms(two, reps=50)}
+        log(f"kernel sp_full_sweep (pi {pi}): ok, max abs err {err:.3g} vs "
+            f"plain, {err_two:.3g} vs the two launches (bit-equal {bits}); "
+            f"{per_pi[pi]['ms']:.4f} ms (plain {per_pi[pi]['plain_ms']:.4f}"
+            f", two launches {per_pi[pi]['two_launch_ms']:.4f} ms)")
+    # 10 edge columns in, 4 out; edge_var, var_perm, the padding edges'
+    # clause ids and the CSR offsets read once
+    nbytes = ((10 + 4 + 1) * E + e + (E - e) + (V + 1) + (F + 1)
+              + 2 * (B + 1)) * 4
+    b_ms, b_by = bound_ms(nbytes, (fused.SP_CHAIN.flops
+                                   + fused.SP_PASS_C.flops) * E)
+    main = per_pi[0.0]
+    return {"sp_full_sweep": {
+        "name": "sp_full_sweep", "route": "cuda",
+        "source": "pdp_solver_tpu_torch/csrc/sp_sweep.cu",
+        "replaces": "pdp_solver_tpu/ops/pallas_sp.py:166",
+        "max_abs_err": max(r["max_abs_err"] for r in per_pi.values()),
+        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": None,
+        "two_launch_ms": main["two_launch_ms"],
+        "by_pi": {str(k): v for k, v in per_pi.items()}}}
+
+
+def reinforce_card_vs_cpu(insts, torch):
+    """The REINFORCE forward from one injected state at full size, on the
+    card and on the CPU, p = 1 (the coin always taken)."""
+    from pdp_solver_tpu_torch.fg.batch import pack_instances
+    from pdp_solver_tpu_torch.modules.predict import survey_scorer_apply
+    from pdp_solver_tpu_torch.solvers.base import PDPSolver, SolverConfig
+    from pdp_solver_tpu_torch.utils.classical import REINFORCE
+    solver = PDPSolver(SolverConfig(model_type="reinforce",
+                                    pi=REINFORCE["pi"],
+                                    decimation_probability=1.0))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        batch = pack_instances(insts, device=dev)
+        gen = torch.Generator().manual_seed(0)
+        state = solver.get_init_state(gen, batch, randomized=True)
+        _, s1, c1 = solver.forward({}, gen, batch, state, 1,
+                                   check_termination=True, finalize=False)
+        runs[dev] = (batch, s1, c1)
+    bg, sg, cg = runs["cuda"]
+    bc, sc, cc = runs["cpu"]
+    score = survey_scorer_apply(solver.scorer_cfg, bc, sc.prop, cc[0])[0][:, 0]
+    tie_v = (score.abs() < SCORE_TIE) & (bc.var_mask > 0)
+    n_tie = int(tie_v.sum())
+    real = bc.edge_mask > 0
+    ok_e = real & ~tie_v[bc.edge_var]
+    ok_v = (bc.var_mask > 0) & ~tie_v
+    tie_b = torch.zeros(bc.batch_size, dtype=torch.bool)
+    tie_b[bc.var_batch[tie_v]] = True
+    force_g = sg.dec.fn[1].cpu()
+    require(torch.equal(force_g[ok_e], sc.dec.fn[1][ok_e]),
+            f"reinforce card vs cpu: {int((force_g != sc.dec.fn[1])[ok_e].sum())}"
+            " forces differ after 1 iteration")
+    require(torch.equal(cg[0].solution.cpu()[ok_v], cc[0].solution[ok_v]),
+            "reinforce card vs cpu: predictions differ after 1 iteration")
+    require(torch.equal(cg[1].cpu()[~tie_b], cc[1][~tie_b]),
+            "reinforce card vs cpu: active flags differ after 1 iteration")
+    msg_err = 0.0
+    for a, b in zip(sg.prop.var + sg.prop.fn, sc.prop.var + sc.prop.fn):
+        a = a.cpu()
+        msg_err = max(msg_err, float((a[real] - b[real]).abs().max()))
+        require(torch.allclose(a[real], b[real], **FLOAT_TOL),
+                f"reinforce card vs cpu: SP messages differ by {msg_err}")
+    # nine more iterations from there, each side on its own
+    _, sg10, _ = solver.forward({}, torch.Generator().manual_seed(1), bg, sg,
+                                9, check_termination=True, carry=cg,
+                                finalize=False)
+    _, sc10, _ = solver.forward({}, torch.Generator().manual_seed(1), bc, sc,
+                                9, check_termination=True, carry=cc,
+                                finalize=False)
+    share = float((sg10.dec.fn[1].cpu() != sc10.dec.fn[1])[real]
+                  .float().mean())
+    require(share < MAX_FORCE_DIFF_SHARE,
+            f"reinforce card vs cpu: {share:.4%} of the forces differ after "
+            "10 iterations")
+    return {"score_ties": n_tie, "message_max_abs_err": msg_err,
+            "force_diff_share_10": share}
+
+
 def reset_counts():
-    from pdp_solver_tpu_torch.ops import fused, reduce2d, walksat
+    from pdp_solver_tpu_torch.ops import (
+        fused, reduce, reduce2d, sp_sweep, walksat)
     fused.fused_edge_pass.launches = 0
     fused.fused_edge_pass.launches_by_fn = {}
     fused.chained_edge_pass.launches = 0
@@ -323,15 +670,23 @@ def reset_counts():
     walksat.walksat_block.launches = 0
     reduce2d.segment_sum_2d.launches = 0
     reduce2d.gather_2d.launches = 0
+    reduce.segment_sum_cols.launches = 0
+    reduce.segment_sum_cols.launches_by_form = {}
+    sp_sweep.sp_full_sweep.launches = 0
 
 
 def read_counts():
-    from pdp_solver_tpu_torch.ops import fused, reduce2d, walksat
+    from pdp_solver_tpu_torch.ops import (
+        fused, reduce, reduce2d, sp_sweep, walksat)
     launches = dict(fused.fused_edge_pass.launches_by_fn)
     launches.update(fused.chained_edge_pass.launches_by_fn)
     launches["walksat_block"] = walksat.walksat_block.launches
     launches["segment_sum_2d"] = reduce2d.segment_sum_2d.launches
     launches["gather_2d"] = reduce2d.gather_2d.launches
+    launches["segment_sum_cols"] = reduce.segment_sum_cols.launches
+    launches["segment_sum_cols_by_form"] = dict(
+        reduce.segment_sum_cols.launches_by_form)
+    launches["sp_full_sweep"] = sp_sweep.sp_full_sweep.launches
     return launches
 
 
@@ -382,6 +737,8 @@ def main():
             f"B={batch.batch_size}")
         rows = check_kernels(batch, torch, np)
         rows.update(check_reduce2d(batch, torch))
+        rows.update(check_reduce(batch, torch, np))
+        rows.update(check_sp_sweep(batch, torch))
         log("phase 2 kernel checks: all kernels match their plain versions")
         del batch
 
@@ -411,14 +768,72 @@ def main():
         require(nfrac >= MIN_SOLVED_NEURAL,
                 f"np-nd-np solved fraction {nfrac} < {MIN_SOLVED_NEURAL}")
 
+        from pdp_solver_tpu_torch.utils.classical import (
+            solve_reinforce, solve_walk_sat)
+        wres, wlaunches = run_path(lambda: solve_walk_sat(insts, seed=0))
+        log(f"phase 5 walk-sat path: solved {wres['solved']}/{len(insts)} "
+            f"(verified with numpy) in {wres['wall_s']:.2f} s; walksat "
+            f"{wres['ls_wall_s']} s")
+        log(f"launches on the walk-sat path: {json.dumps(wlaunches)}")
+        require(wres["solved"] >= MIN_SOLVED_WALK_SAT,
+                f"walk-sat solved {wres['solved']} < {MIN_SOLVED_WALK_SAT}")
+        require(wlaunches["walksat_block"] > 0,
+                "walk-sat never launched walksat_block")
+
+        rres, rlaunches = run_path(lambda: solve_reinforce(insts, seed=0))
+        log(f"phase 6 reinforce path: solved {rres['solved']}/{len(insts)} "
+            f"(verified with numpy; {rres['loop_solved']} by the REINFORCE "
+            f"loop before WalkSAT) in {rres['wall_s']:.2f} s; loop "
+            f"{rres['loop_wall_s']} s, walksat {rres['ls_wall_s']} s, "
+            f"{rres['chunks']} chunks, progress {rres['progress']}")
+        log(f"launches on the reinforce path: {json.dumps(rlaunches)}")
+        require(rres["solved"] >= MIN_SOLVED_REINFORCE,
+                f"reinforce solved {rres['solved']} < "
+                f"{MIN_SOLVED_REINFORCE}")
+        cmp = reinforce_card_vs_cpu(insts, torch)
+        log(f"phase 6 reinforce card vs cpu: forces, predictions and flags "
+            f"equal after 1 iteration except at {cmp['score_ties']} "
+            f"variables with |score| < {SCORE_TIE}; SP messages max abs err "
+            f"{cmp['message_max_abs_err']:.3g}; "
+            f"{cmp['force_diff_share_10']:.4%} of the forces differ after "
+            "10 iterations")
+
+        os.environ["PDP_SP_SWEEP"] = "on"
+        try:
+            sres, slaunches = run_path(lambda: solve_headline(insts, seed=0))
+        finally:
+            os.environ.pop("PDP_SP_SWEEP")
+        sfrac = sres["solved_fraction"]
+        log(f"phase 7 p-d-p with PDP_SP_SWEEP=on: solved {sfrac:.4f} "
+            f"({sres['solved']}/{len(insts)}, verified with numpy; the two-"
+            f"launch run solved {res['solved']}: "
+            f"{'reproduced' if sres['solved'] == res['solved'] else 'not reproduced'}"
+            f") in {sres['wall_s']:.2f} s")
+        log(f"launches on the p-d-p sweep path: {json.dumps(slaunches)}")
+        require(sfrac >= MIN_SOLVED, f"p-d-p with the one-launch sweep "
+                f"solved {sfrac} < {MIN_SOLVED}")
+        # one sweep and one decimator pass per iteration, no two-launch
+        # sweep left
+        require(slaunches["sp_full_sweep"] == slaunches.get("smax_scorer")
+                and slaunches.get("sp_chain", 0) == 0
+                and slaunches.get("sp_pass_c", 0) == 0,
+                "the one-launch sweep did not replace every sweep: "
+                f"{slaunches['sp_full_sweep']} launches for "
+                f"{slaunches.get('smax_scorer')} iterations")
+
+        # each row carries the launches of the path it serves
+        serves = {"segment_sum_2d": nlaunches, "gather_2d": nlaunches,
+                  "scorer": rlaunches, "segment_sum_cols": rlaunches,
+                  "segment_sum_cols[ragged]": rlaunches,
+                  "sorted_segment_sum": rlaunches,
+                  "sp_full_sweep": slaunches}
         path_rows = []
         for name, row in rows.items():
-            path = (nlaunches if name in ("segment_sum_2d", "gather_2d")
-                    else launches)
-            n = path.get(name, 0)
-            if name == "scorer":
-                log(f"{row['name']}: checked, not on the main path")
-                continue
+            path = serves.get(name, launches)
+            # rows 5 and 8 run the CUDA kernel of row 4
+            key = ("segment_sum_cols" if name.startswith(
+                ("segment_sum_cols", "sorted_segment_sum")) else name)
+            n = path.get(key, 0)
             require(n > 0, f"{row['name']} never launched on its path")
             path_rows.append(dict(row, launches=n))
     except SmokeFailure as e:

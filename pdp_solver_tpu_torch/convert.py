@@ -10,7 +10,8 @@ import re
 import numpy as np
 import torch
 
-from pdp_solver_tpu_torch.modules.decimate import SeqDecimatorState
+from pdp_solver_tpu_torch.modules.decimate import (
+    ReinforceDecimatorState, SeqDecimatorState)
 from pdp_solver_tpu_torch.modules.propagate import SPMessages
 from pdp_solver_tpu_torch.problem.state import ProblemState
 from pdp_solver_tpu_torch.solvers.base import (
@@ -138,6 +139,20 @@ def seq_decimator_state_from_jax(np_aux, device="cuda") -> SeqDecimatorState:
                              has_prev=_t(has_prev, device).reshape(()))
 
 
+def reinforce_decimator_state_from_jax(np_aux, device="cuda"
+                                       ) -> ReinforceDecimatorState:
+    """A JAX ReinforceDecimatorState (prev_eta, has_prev)."""
+    prev_eta, has_prev = np_aux
+    return ReinforceDecimatorState(prev_eta=_t(prev_eta, device),
+                                   has_prev=_t(has_prev, device).reshape(()))
+
+
+def _aux_from_jax(np_aux, device):
+    if type(np_aux).__name__ == "ReinforceDecimatorState":
+        return reinforce_decimator_state_from_jax(np_aux, device)
+    return seq_decimator_state_from_jax(np_aux, device)
+
+
 def problem_from_jax(np_problem, device="cuda") -> ProblemState:
     """A JAX ProblemState (active_vars, active_clauses, solution, is_sat)."""
     return ProblemState(*(_t(x, device) for x in np_problem))
@@ -150,23 +165,26 @@ def _is_neural_pair(x):
 
 def state_from_jax(np_state, device="cuda"):
     """A JAX SolverState (prop, dec, aux), SPMessages, SeqDecimatorState,
-    ProblemState or neural (var [E, h], fn [E, h]) pair as numpy arrays ->
-    the port's counterpart on `device`."""
+    ReinforceDecimatorState, ProblemState or neural (var [E, h], fn [E, h])
+    pair as numpy arrays -> the port's counterpart on `device`. walk-sat's
+    empty state ((), (), ()) stays empty."""
     kind = type(np_state).__name__
     if kind == "SPMessages":
         return messages_from_jax(np_state, device)
-    if kind == "SeqDecimatorState":
-        return seq_decimator_state_from_jax(np_state, device)
+    if kind in ("SeqDecimatorState", "ReinforceDecimatorState"):
+        return _aux_from_jax(np_state, device)
     if kind == "ProblemState":
         return problem_from_jax(np_state, device)
     if _is_neural_pair(np_state):
         return tuple(_t(x, device) for x in np_state)
     if kind == "SolverState" or len(np_state) == 3:
         prop, dec, aux = np_state
+        if prop == () and dec == () and aux == ():
+            return SolverState(prop=(), dec=(), aux=())
         if _is_neural_pair(prop):
             return SolverState(prop=state_from_jax(prop, device),
                                dec=state_from_jax(dec, device), aux=())
         return SolverState(prop=messages_from_jax(prop, device),
                            dec=messages_from_jax(dec, device),
-                           aux=seq_decimator_state_from_jax(aux, device))
+                           aux=_aux_from_jax(aux, device))
     raise TypeError(f"cannot convert {kind}")

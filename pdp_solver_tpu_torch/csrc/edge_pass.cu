@@ -47,23 +47,9 @@ struct SpPassC {
   static constexpr int SIDE = 0, NIN = 10, NR = 0, NE = 3;
   __device__ static void f(const Cols& a, int e, float*, float* o) {
     const int v = a.ev[e];
-    const float pos = a.in[0][v], neg = a.in[1][v];
-    const float eta_in = a.in[2][e], em = a.in[3][e], mask = a.in[4][e];
-    const float sign = a.in[5][e], force = a.in[6][e];
-    const float pi = a.s;
-    const float lm = safe_log(1.0f - eta_in, PDP_LOG_EPS_PROP) * em;
-    float same = 0.5f * (1.0f + sign) * pos + 0.5f * (1.0f - sign) * neg - lm;
-    same = same + safe_log(1.0f - pi * flag(force == sign), PDP_LOG_EPS_PROP);
-    float opp = 0.5f * (1.0f - sign) * pos + 0.5f * (1.0f + sign) * neg;
-    opp = opp + safe_log(1.0f - pi * flag(force == -sign), PDP_LOG_EPS_PROP);
-    const float b = fmaxf(same, opp);
-    const float sx = safe_exp(same - b), ox = safe_exp(opp - b);
-    const float d = safe_exp(same + opp - b);
-    const float qu = fmaxf(sx - d, 0.0f), qs = fmaxf(ox - d, 0.0f);
-    const float total = fmaxf(qu + qs + d, 1e-20f);
-    o[0] = mask * (qu / total) + (1.0f - mask) * a.in[7][e];
-    o[1] = mask * (qs / total) + (1.0f - mask) * a.in[8][e];
-    o[2] = mask * (d / total) + (1.0f - mask) * a.in[9][e];
+    sp_q_triplet(a.in[0][v], a.in[1][v], a.in[2][e], a.in[3][e], a.in[4][e],
+                 a.in[5][e], a.in[6][e], a.s, a.in[7][e], a.in[8][e],
+                 a.in[9][e], o);
   }
 };
 
@@ -151,7 +137,7 @@ struct SpChain {
   static constexpr int NIN = 6, NCRED = 1, NCOUT = 0, NBC = 1, NVRED = 2,
                        NE = 1, NIRED = 0;
   __device__ static void f1(const Cols& a, int e, float* cr) {
-    cr[0] = safe_log(a.in[0][e], PDP_LOG_EPS_PROP) * a.in[2][e];
+    cr[0] = sp_log_u(a.in[0][e], a.in[2][e]);
   }
   __device__ static void f2(const Cols&, int, const float* cred, float*,
                             float* bc, float*) {
@@ -159,11 +145,10 @@ struct SpChain {
   }
   __device__ static void f3(const Cols& a, int e, const float* bc, float* vr,
                             float* o) {
-    const float em = a.in[2][e], mask = a.in[3][e], sign = a.in[5][e];
-    const float log_u = safe_log(a.in[0][e], PDP_LOG_EPS_PROP) * em;
-    const float eta = safe_exp(bc[0] - log_u);
-    o[0] = mask * eta + (1.0f - mask) * a.in[4][e];
-    const float lm = safe_log(1.0f - a.in[1][e], PDP_LOG_EPS_PROP) * em;
+    const float em = a.in[2][e], sign = a.in[5][e];
+    o[0] = sp_new_eta(bc[0], sp_log_u(a.in[0][e], em), a.in[3][e],
+                      a.in[4][e]);
+    const float lm = sp_lm(a.in[1][e], em);
     vr[0] = lm * flag(sign == 1.0f);
     vr[1] = lm * flag(sign == -1.0f);
   }

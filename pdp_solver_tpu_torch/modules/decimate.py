@@ -1,7 +1,9 @@
-"""Decimators: the neural (GRU) decimator and the sequential (greedy) one.
+"""Decimators: the neural (GRU) decimator, the sequential (greedy) one and
+the REINFORCE (concurrent) one.
 
-Counterpart of `neural_decimator_apply` (:59) and
-`sequential_decimator_apply` (:185) in `pdp_solver_tpu/modules/decimate.py`.
+Counterpart of `neural_decimator_apply` (:59),
+`sequential_decimator_apply` (:185) and `reinforce_decimator_apply` (:374)
+in `pdp_solver_tpu/modules/decimate.py`.
 
 The neural decimator keeps a (var, fn) pair of [E, h] states and updates
 each with a GRU cell over the propagator's messages; its init state is
@@ -16,6 +18,13 @@ decimation_threshold band) and the problem is re-simplified.
 Everything stays on the device: the JAX `lax.cond` on "anything to
 decimate" becomes a select between the simplified and the unchanged
 problem, so the loop needs no host sync.
+
+The REINFORCE decimator never changes the problem. Per iteration: the
+per-instance convergence test (the smooth-max over each variable's edges
+of |eta - prev eta|, an instance stops once its max is <= 0.01), then,
+with probability decimation_probability, every live edge's external force
+becomes the sign of its variable's SP bias. The coin is drawn by the
+caller on the host and passed in as a bool, so it needs no device sync.
 """
 
 import dataclasses
@@ -24,8 +33,10 @@ import torch
 from torch import nn
 
 from pdp_solver_tpu_torch.modules import mlp
-from pdp_solver_tpu_torch.modules.common import col
-from pdp_solver_tpu_torch.modules.predict import survey_scorer_tail
+from pdp_solver_tpu_torch.modules.common import col, var_smooth_max
+from pdp_solver_tpu_torch.modules.predict import (
+    survey_scorer_apply, survey_scorer_tail)
+from pdp_solver_tpu_torch.modules.propagate import SPMessages
 from pdp_solver_tpu_torch.ops import fused
 from pdp_solver_tpu_torch.ops.segment import (
     segment_argmax_first, segment_max, segment_max_shifted, segment_sum)
@@ -178,3 +189,60 @@ def sequential_decimator_apply(cfg: SeqDecimatorConfig, scorer_cfg, batch,
                                   has_prev=torch.ones_like(
                                       seq_state.has_prev))
     return new_state, problem, active_instances
+
+
+# --------------------------------------------------------------------------
+# REINFORCE (concurrent) decimator
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ReinforceDecimatorState:
+    prev_eta: torch.Tensor   # f32[E] previous clause->var survey
+    has_prev: torch.Tensor   # f32[]  0 on the first iteration
+
+
+def reinforce_decimator_init_state(batch):
+    return ReinforceDecimatorState(
+        prev_eta=torch.zeros_like(batch.edge_mask),
+        has_prev=torch.zeros((), device=batch.device))
+
+
+@dataclasses.dataclass(frozen=True)
+class ReinforceDecimatorConfig:
+    decimation_probability: float = 0.5
+
+
+def reinforce_decimator_apply(cfg: ReinforceDecimatorConfig, scorer_cfg,
+                              batch, rf_state: ReinforceDecimatorState,
+                              message_state, problem: ProblemState,
+                              edge_mask, active_instances, active_edge,
+                              coin: bool):
+    """decimate.py :374 (reference pdp_decimate.py:202-234). `coin` is the
+    caller's draw of uniform < decimation_probability. Returns
+    (new_state, messages with the new external force, new active
+    instances); active_instances may be None (no termination tracking)."""
+    B = batch.batch_size
+    eta, old_force = message_state.fn
+
+    if active_instances is not None:
+        gate = rf_state.has_prev * (torch.sum(problem.active_vars) > 0).to(
+            torch.float32)
+        diff = torch.abs(rf_state.prev_eta - eta) * edge_mask
+        diff_v = var_smooth_max(batch, diff) * problem.active_vars
+        diff_b = segment_max_shifted(diff_v, batch.var_batch, B,
+                                     valid=batch.var_mask)
+        deactivate = (diff_b <= 0.01) & (gate > 0)
+        active_instances = torch.where(
+            deactivate, torch.zeros_like(active_instances), active_instances)
+
+    force = old_force
+    if coin:
+        score = survey_scorer_apply(scorer_cfg, batch, message_state,
+                                    problem)[0]
+        score_e = torch.sign(score[:, 0])[batch.edge_var]
+        force = active_edge * score_e + (1.0 - active_edge) * old_force
+
+    new_state = ReinforceDecimatorState(
+        prev_eta=eta, has_prev=torch.ones_like(rf_state.has_prev))
+    return (new_state, SPMessages(var=message_state.var, fn=(eta, force)),
+            active_instances)

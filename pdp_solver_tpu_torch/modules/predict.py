@@ -1,8 +1,9 @@
-"""Predictors and scorers: the neural predictor, the survey scorer and the
-identity predictor.
+"""Predictors and scorers: the neural predictor, the survey scorer, the
+identity predictor and the REINFORCE predictor.
 
 Counterpart of `pdp_solver_tpu/modules/predict.py` (the neural predictor
-:51, the identity predictor :73, the survey scorer :107).
+:51, the identity predictor :73, the survey scorer :107, the REINFORCE
+predictor :178).
 """
 
 import dataclasses
@@ -11,7 +12,7 @@ import torch
 from torch import nn
 
 from pdp_solver_tpu_torch.modules import mlp
-from pdp_solver_tpu_torch.modules.common import col
+from pdp_solver_tpu_torch.modules.common import col, scatter_to_vars_cols
 from pdp_solver_tpu_torch.modules.propagate import SPMessages
 from pdp_solver_tpu_torch.ops import fused
 from pdp_solver_tpu_torch.ops.segment import (
@@ -119,6 +120,14 @@ def survey_scorer_tail(cfg: SurveyScorerConfig, agg):
     total = safe_log(q_0 + q_1 + dont_care, LOG_EPS_SCORE)
     return (safe_exp(safe_log(q_1, LOG_EPS_SCORE) - total)
             - safe_exp(safe_log(q_0, LOG_EPS_SCORE) - total))
+
+
+def reinforce_predictor_apply(batch, dec_state):
+    """1 where the sum of a variable's external forces is positive, else 0
+    (predict.py :178, reference pdp_predict.py:214-226): [V, 1]."""
+    force = dec_state.fn[1]
+    pred = (scatter_to_vars_cols(batch, (force,))[0] > 0).to(torch.float32)
+    return pred[:, None], None
 
 
 def scorer_message_init_state(generator, num_edges, randomized, device):

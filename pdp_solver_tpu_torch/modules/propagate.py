@@ -14,6 +14,7 @@ messages, masks and reductions in separate kernels.
 """
 
 import dataclasses
+import os
 
 import torch
 from torch import nn
@@ -22,6 +23,7 @@ from pdp_solver_tpu_torch.modules import mlp
 from pdp_solver_tpu_torch.modules.common import col
 from pdp_solver_tpu_torch.ops import fused
 from pdp_solver_tpu_torch.ops.fused import q_triplet_stable  # noqa: F401
+from pdp_solver_tpu_torch.ops.sp_sweep import sp_full_sweep, use_sp_sweep
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,12 +106,22 @@ def survey_propagator_apply(cfg: SurveyPropagatorConfig, batch, prop_state,
                             dec_state, edge_mask, active_edge):
     """One SP sweep in log space (propagate.py :526): a chained pass (clause
     log-u sums, the eta survey, the polarity-split variable sums of
-    log(1 - eta)) then pass C (the q-triplet per edge)."""
+    log(1 - eta)) then pass C (the q-triplet per edge). With
+    PDP_SP_SWEEP=on (read at each call, default off, as in the JAX
+    package) and a batch `use_sp_sweep` accepts, the whole sweep is one
+    launch of `ops/sp_sweep.py` instead."""
     v0, v1, v2 = prop_state.var
     eta_state = prop_state.fn[0]
     u_like = dec_state.var[0]
     eta_in, force = dec_state.fn
     sign = batch.edge_sign
+    if (use_sp_sweep(batch)
+            and os.environ.get("PDP_SP_SWEEP", "off") == "on"):
+        new_eta, nv0, nv1, nv2 = sp_full_sweep(
+            batch, u_like=u_like, eta_in=eta_in, em=edge_mask,
+            mask=active_edge, eta_state=eta_state, sign=sign, force=force,
+            v0=v0, v1=v1, v2=v2, pi=float(cfg.pi))
+        return SPMessages(var=(nv0, nv1, nv2), fn=(new_eta, force))
     _, pn, (new_eta,), _ = fused.chained_edge_pass(
         fused.SP_CHAIN, batch,
         (u_like, eta_in, edge_mask, active_edge, eta_state, sign))

@@ -46,6 +46,9 @@ _SIGNATURES = {
                               I, ctypes.c_float, P]),
     "pdp_segment_sum_2d": (I, [P, I, P, P, I, P, P]),
     "pdp_gather_2d": (I, [P, I, P, P, ctypes.c_long, P, P]),
+    "pdp_segment_sum_cols": (I, [P, I, ctypes.c_long, P, P, I, P, P]),
+    "pdp_sp_sweep": (I, [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P,
+                         ctypes.c_float, P]),
 }
 
 

@@ -33,6 +33,7 @@ from typing import Callable
 import torch
 
 from pdp_solver_tpu_torch.ops import _build
+from pdp_solver_tpu_torch.ops.reduce import segment_sum_cols_plain
 from pdp_solver_tpu_torch.ops.segment import (
     LOG_EPS_PROP, LOG_EPS_SCORE, safe_exp, safe_log)
 
@@ -293,10 +294,7 @@ def _check_inputs(fn, batch, ins):
 
 def _sum_real_edges(batch, cols, ids, n):
     """Sum edge columns into n nodes over the real edges only."""
-    e = batch.num_real_edges
-    out = torch.zeros((len(cols), n), dtype=torch.float32,
-                      device=batch.device)
-    return out.index_add_(1, ids[:e], torch.stack(cols)[:, :e])
+    return segment_sum_cols_plain(cols, ids, n, batch.num_real_edges)
 
 
 def fused_edge_pass_plain(fn: EdgeFn, batch, ins, scalar=0.0):

@@ -3,13 +3,17 @@ post-processing.
 
 Counterpart of `pdp_solver_tpu/solvers/base.py` (`SolverConfig`,
 `PDPSolver.forward`/`_forward`/`_forward_core` :332-603,
-`local_search`/`_local_search` :607-828) for two of its six assemblies:
+`local_search`/`_local_search` :607-828) for four of its six assemblies:
   p-d-p     SP propagator + sequential decimator (SP scorer) + identity
             predictor;
   np-nd-np  neural propagator + neural (GRU) decimator + neural predictor,
             with parameters (`init_params`, or a JAX checkpoint through
-            `convert.params_from_jax`).
-The other four raise NotImplementedError.
+            `convert.params_from_jax`);
+  walk-sat  no hot loop: WalkSAT from the simplified problem's identity
+            prediction (random fill on the active variables);
+  reinforce SP propagator with the external-force factor pi + REINFORCE
+            decimator (SP scorer with pi) + REINFORCE predictor.
+p-nd-np and np-d-np raise NotImplementedError.
 
 The JAX hot loop is one `lax.while_loop` that stops once no instance is
 active. Here it is a Python loop of `iteration_num` iterations with no host
@@ -21,9 +25,10 @@ so running out the chunk gives what the JAX loop gives. (The neural
 states of a stopped instance are frozen, and its prediction and solution
 are recomputed from them unchanged.)
 
-The p-d-p draws come from one CPU `torch.Generator` (the same numbers on
-the CPU and on the card for the same seed); what the device needs is
-copied there. The four [E, h] neural states are drawn on the batch's
+The classical draws (message inits, REINFORCE's per-iteration coin, the
+random fills) come from one CPU `torch.Generator` (the same numbers on the
+CPU and on the card for the same seed); what the device needs is copied
+there. The four [E, h] neural states are drawn on the batch's
 device, from a generator seeded by the CPU one.
 """
 
@@ -52,8 +57,8 @@ WALKSAT_K = 8
 
 @dataclasses.dataclass(frozen=True)
 class SolverConfig:
-    """The p-d-p and np-nd-np fields of the JAX package's SolverConfig
-    (same names and defaults)."""
+    """The fields of the JAX package's SolverConfig that the ported
+    assemblies read (same names and defaults)."""
     model_type: str
     name: str = "pdp-solver"
     edge_dim: int = 1
@@ -68,6 +73,10 @@ class SolverConfig:
     dropout: float = 0.0
     tolerance: float = 0.02
     t_max: float = 100.0
+    # REINFORCE: the external-force factor of SP and the scorer, and the
+    # per-iteration probability of rewriting the forces
+    pi: float = 0.0
+    decimation_probability: float = 0.5
     # fix every variable within this fraction of the instance's max
     # |score| per convergence event (1.0 = argmax only, the reference rule)
     decimation_threshold: float = 1.0
@@ -82,7 +91,9 @@ class SolverConfig:
 @dataclasses.dataclass
 class SolverState:
     """p-d-p: SPMessages, SPMessages, SeqDecimatorState.
-    np-nd-np: (var, fn) [E, h] pairs for prop and dec, and aux ()."""
+    reinforce: SPMessages, SPMessages, ReinforceDecimatorState.
+    np-nd-np: (var, fn) [E, h] pairs for prop and dec, and aux ().
+    walk-sat: (), (), ()."""
     prop: object      # propagator message state
     dec: object       # decimator state / the messages it hands back
     aux: object       # sequential decimator bookkeeping, or ()
@@ -99,7 +110,7 @@ def _uniform(generator, shape, device):
 
 
 class PDPSolver:
-    """The p-d-p and np-nd-np assemblies."""
+    """The p-d-p, np-nd-np, walk-sat and reinforce assemblies."""
 
     def __init__(self, config: SolverConfig):
         self.cfg = config
@@ -107,11 +118,14 @@ class PDPSolver:
         if t not in ("np-nd-np", "p-nd-np", "np-d-np", "p-d-p", "walk-sat",
                      "reinforce"):
             raise ValueError(f"unknown model_type {t!r}")
-        if t not in ("p-d-p", "np-nd-np"):
+        if t in ("p-nd-np", "np-d-np"):
             raise NotImplementedError(
-                f"model_type {t!r} is not ported yet (p-d-p and np-nd-np "
-                "are)")
+                f"model_type {t!r} is not ported yet (p-d-p, np-nd-np, "
+                "walk-sat and reinforce are)")
         c = config
+        self.prop_cfg = self.dec_cfg = self.scorer_cfg = None
+        if t == "walk-sat":
+            return
         if t == "p-d-p":
             self.prop_cfg = PR.SurveyPropagatorConfig()
             self.dec_cfg = D.SeqDecimatorConfig(
@@ -120,6 +134,12 @@ class PDPSolver:
                 decimation_guard=c.decimation_guard,
                 simplify_rounds=c.simplify_rounds)
             self.scorer_cfg = P.SurveyScorerConfig()
+            return
+        if t == "reinforce":
+            self.prop_cfg = PR.SurveyPropagatorConfig(pi=c.pi)
+            self.dec_cfg = D.ReinforceDecimatorConfig(
+                decimation_probability=c.decimation_probability)
+            self.scorer_cfg = P.SurveyScorerConfig(pi=c.pi)
             return
         if c.meta_dim:
             raise NotImplementedError("per-instance meta features are not "
@@ -147,7 +167,8 @@ class PDPSolver:
         return self.cfg.model_type == "np-nd-np"
 
     def init_params(self, device="cuda"):
-        """Freshly initialised parameters: {} for p-d-p, for np-nd-np a
+        """Freshly initialised parameters: {} for the classical assemblies
+        (p-d-p, walk-sat, reinforce), for np-nd-np a
         ModuleDict of the propagator ("prop"), the decimator ("dec") and
         the predictor ("predictor"), in eval mode."""
         if not self.neural:
@@ -160,10 +181,13 @@ class PDPSolver:
 
     def get_init_state(self, generator, batch, randomized: bool
                        ) -> SolverState:
-        """p-d-p: random (or uniform) SP messages for the propagator and
-        for the decimator's first hand-back, and fresh decimator
-        bookkeeping. np-nd-np: random U(-1, 1) (or zero) [E, h] states."""
+        """p-d-p and reinforce: random (or uniform) SP messages for the
+        propagator and for the decimator's first hand-back, and fresh
+        decimator bookkeeping. np-nd-np: random U(-1, 1) (or zero) [E, h]
+        states. walk-sat: no state."""
         E, dev = batch.num_edges, batch.device
+        if self.cfg.model_type == "walk-sat":
+            return SolverState(prop=(), dec=(), aux=())
         if self.neural:
             g = torch.Generator(device=dev)
             g.manual_seed(random_seed32(generator))
@@ -178,15 +202,18 @@ class PDPSolver:
         def to_dev(m):
             return PR.SPMessages(var=tuple(x.to(dev) for x in m.var),
                                  fn=tuple(x.to(dev) for x in m.fn))
-        return SolverState(prop=to_dev(prop), dec=to_dev(dec),
-                           aux=D.seq_decimator_init_state(batch))
+        aux = (D.reinforce_decimator_init_state(batch)
+               if self.cfg.model_type == "reinforce"
+               else D.seq_decimator_init_state(batch))
+        return SolverState(prop=to_dev(prop), dec=to_dev(dec), aux=aux)
 
     # -- building blocks ------------------------------------------------
 
     def _check_params(self, params):
         if not self.neural:
             if params:
-                raise ValueError("p-d-p takes no parameters")
+                raise ValueError(f"{self.cfg.model_type} takes no "
+                                 "parameters")
             return
         missing = {"prop", "dec", "predictor"} - set(params or {})
         if missing:
@@ -203,6 +230,8 @@ class PDPSolver:
         """The variable prediction [V, 1]."""
         if self.neural:
             return params["predictor"](batch, dec, em)[0]
+        if self.cfg.model_type == "reinforce":
+            return P.reinforce_predictor_apply(batch, dec)[0]
         return P.identity_predictor_apply(generator, problem,
                                           random_fill=True,
                                           last_call=last_call)[0]
@@ -217,8 +246,10 @@ class PDPSolver:
 
         finalize=True returns ((variable_prediction [V, 1], None), state):
         the decimated solution with random fill on still-active variables
-        (p-d-p) or the neural prediction (np-nd-np), improved by local
-        search when local_search_iterations > 0.
+        (p-d-p, walk-sat), the sign of the summed forces (reinforce) or the
+        neural prediction (np-nd-np), improved by local search when
+        local_search_iterations > 0. walk-sat runs no hot loop: its state
+        comes back untouched and every instance stays active.
         finalize=False returns ((None, None), state, carry) with carry =
         (problem, active instances, edge mask); pass it back as `carry=` to
         continue the same solve."""
@@ -230,9 +261,12 @@ class PDPSolver:
             problem, active_b0, em0 = carry
             resume = (active_b0, em0)
 
-        problem, state, active_b = self._forward_core(
-            params, batch, problem, init_state, iteration_num,
-            check_termination, resume)
+        if self.cfg.model_type == "walk-sat":
+            state, active_b = init_state, batch.instance_mask.clone()
+        else:
+            problem, state, active_b = self._forward_core(
+                params, generator, batch, problem, init_state,
+                iteration_num, check_termination, resume)
 
         em = compute_edge_mask(batch, problem)
         if not finalize:
@@ -246,9 +280,10 @@ class PDPSolver:
         var_pred, problem = _update_solution(problem, var_pred)
         return (var_pred, None), state
 
-    def _forward_core(self, params, batch, problem, state, iteration_num,
-                      check_termination, resume=None):
-        """The hot loop (solvers/base.py :456-603, unfolded path)."""
+    def _forward_core(self, params, generator, batch, problem, state,
+                      iteration_num, check_termination, resume=None):
+        """The hot loop (solvers/base.py :456-603, unfolded path).
+        REINFORCE draws its coin from `generator` once per iteration."""
         if resume is not None:
             active_b, em = resume
         else:
@@ -263,6 +298,18 @@ class PDPSolver:
                 # the neural decimator never changes the problem
                 dec = params["dec"](batch, state.dec, prop, ae)
                 state = SolverState(prop=prop, dec=dec, aux=())
+            elif self.cfg.model_type == "reinforce":
+                # once no instance is active every edge is frozen and the
+                # state stops moving, as when the JAX loop has exited
+                coin = (float(torch.rand((), generator=generator))
+                        < self.dec_cfg.decimation_probability)
+                aux, dec, maybe_active = D.reinforce_decimator_apply(
+                    self.dec_cfg, self.scorer_cfg, batch, state.aux, prop,
+                    problem, em, active_b if check_termination else None,
+                    ae, coin)
+                if check_termination:
+                    active_b = maybe_active
+                state = SolverState(prop=prop, dec=dec, aux=aux)
             else:
                 aux, problem, maybe_active = D.sequential_decimator_apply(
                     self.dec_cfg, self.scorer_cfg, batch, state.aux, prop,
@@ -354,7 +401,7 @@ class PDPSolver:
 
 def build_solver(config) -> PDPSolver:
     """A PDPSolver from a SolverConfig or a flat dict with the reference's
-    key names (keys of the unported assemblies are ignored)."""
+    key names (keys that no ported assembly reads are ignored)."""
     if isinstance(config, SolverConfig):
         return PDPSolver(config)
     c = dict(config)
@@ -372,6 +419,8 @@ def build_solver(config) -> PDPSolver:
         dropout=c.get("dropout", 0.0),
         tolerance=c.get("tolerance", 0.02),
         t_max=float(c.get("t_max", 100)),
+        pi=c.get("pi", 0.0),
+        decimation_probability=c.get("decimation_probability", 0.5),
         decimation_threshold=c.get("decimation_threshold", 1.0),
         decimation_guard=c.get("decimation_guard", 0.0),
         simplify_rounds=int(c.get("simplify_rounds", 0)),

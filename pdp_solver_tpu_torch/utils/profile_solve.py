@@ -1,10 +1,13 @@
 """Where the time of the port's solves goes, on one CUDA card.
 
     python -m pdp_solver_tpu_torch.utils.profile_solve [--seeds 0 1 2]
-        [--model p-d-p|np-nd-np]
+        [--model p-d-p|np-nd-np|walk-sat|reinforce]
+        [--settings headline|reference] [--no-profile]
 
-On the shared set, with p-d-p at the headline settings or np-nd-np with
-the r3 checkpoint (the settings of chip_smoke.py), it prints one JSON line
+On the shared set, with p-d-p at the headline settings (or, with
+--settings reference, at the JAX solver table's reference settings),
+np-nd-np with the r3 checkpoint, or walk-sat and reinforce at the solver
+table's settings (the settings of chip_smoke.py), it prints one JSON line
 with:
   - per seed: the numpy-verified solved fraction and the wall time of
     compacting_solve (split into the iteration loop and WalkSAT);
@@ -13,6 +16,7 @@ with:
   - a torch.profiler trace of the same chunk run again: device busy time
     by kernel, the kernel launches per iteration, and the device's idle
     share (1 - busy / the unprofiled wall).
+walk-sat has no hot loop, and --no-profile skips it for any model.
 Needs a CUDA card; exits 2 without one.
 """
 
@@ -27,8 +31,10 @@ import torch
 from pdp_solver_tpu_torch.fg.batch import pack_instances
 from pdp_solver_tpu_torch.utils.benchdata import (
     dataset_fingerprint, make_ksat_set)
+from pdp_solver_tpu_torch.utils.classical import (
+    CLASSICAL, REINFORCE, reinforce_solver, solve_reinforce, solve_walk_sat)
 from pdp_solver_tpu_torch.utils.headline import (
-    HEADLINE, headline_solver, solve_headline)
+    HEADLINE, REFERENCE, headline_solver, solve_headline)
 from pdp_solver_tpu_torch.utils.neural import (
     NP_ND_NP, np_nd_np_params, np_nd_np_solver, solve_np_nd_np)
 
@@ -91,8 +97,12 @@ def hot_loop(insts, solver, params, n=50):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
-    ap.add_argument("--model", choices=("p-d-p", "np-nd-np"),
-                    default="p-d-p")
+    ap.add_argument("--model", default="p-d-p",
+                    choices=("p-d-p", "np-nd-np", "walk-sat", "reinforce"))
+    ap.add_argument("--settings", choices=("headline", "reference"),
+                    default="headline", help="p-d-p's settings")
+    ap.add_argument("--no-profile", action="store_true",
+                    help="skip the hot-loop timing and trace")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_solve: no CUDA card", file=sys.stderr)
@@ -104,16 +114,29 @@ def main(argv=None):
     out = {"device": torch.cuda.get_device_name(0),
            "card": smi.stdout.strip().splitlines()[0] if smi.stdout else None,
            "fingerprint": dataset_fingerprint(insts), "model": args.model}
+    profile = not args.no_profile
     if args.model == "p-d-p":
-        out["settings"] = HEADLINE
-        out["hot_loop"] = hot_loop(insts, headline_solver(), {})
-        out["seeds"] = [solve_headline(insts, s) for s in args.seeds]
-    else:
+        h = REFERENCE if args.settings == "reference" else HEADLINE
+        out["settings"] = dict(h, name=args.settings)
+        if profile:
+            out["hot_loop"] = hot_loop(insts, headline_solver(h), {})
+        out["seeds"] = [solve_headline(insts, s, settings=h)
+                        for s in args.seeds]
+    elif args.model == "np-nd-np":
         params = np_nd_np_params()
         out["settings"] = NP_ND_NP
-        out["hot_loop"] = hot_loop(insts, np_nd_np_solver(), params)
+        if profile:
+            out["hot_loop"] = hot_loop(insts, np_nd_np_solver(), params)
         out["seeds"] = [solve_np_nd_np(insts, s, params=params)
                         for s in args.seeds]
+    elif args.model == "reinforce":
+        out["settings"] = dict(CLASSICAL, **REINFORCE)
+        if profile:
+            out["hot_loop"] = hot_loop(insts, reinforce_solver(), {})
+        out["seeds"] = [solve_reinforce(insts, s) for s in args.seeds]
+    else:
+        out["settings"] = CLASSICAL
+        out["seeds"] = [solve_walk_sat(insts, s) for s in args.seeds]
     print(json.dumps(out), flush=True)
     return 0
 
