@@ -23,7 +23,15 @@ Phases, one flushed line each with the elapsed seconds:
      atol 1e-6 on floats, timed beside index_add_ and kernel 6; the
      one-launch SP sweep (kernel 9) for pi = 0 and 0.01 against its plain
      version and against the two launches it replaces (rtol 1e-5 / atol
-     1e-6), timed beside both;
+     1e-6), timed beside both, and in its log-input form (login=True,
+     p-nd-np's) bit for bit against its two launches (`sp_chain_login`,
+     checked above with the other functors, and `sp_pass_c`);
+     the verification with the freeze and the next masks in one launch
+     (kernel 10) exactly against its plain version and the split path it
+     replaces (cnf_chain, the freeze, em_ae), on the shared set's graphs
+     with planted signs, some variables and clauses inactive, some
+     instances stopped and a prediction that solves half of them, timed
+     beside both;
   3. p-d-p path: compacting_solve at the headline settings (tolerance
      0.08, t_max 50, 1000 iterations, 1000 WalkSAT flips, restart schedule
      0.35/0.35/0.3, chunk 50, simplify_rounds 1) on the shared set
@@ -46,7 +54,15 @@ Phases, one flushed line each with the elapsed seconds:
      1e-5 / atol 1e-6; after 10 iterations under 1% of the forces differ;
   7. p-d-p with PDP_SP_SWEEP=on: phase 3's solve through the one-launch
      sweep; >= 0.60 solved and kernel 9 launched once per iteration;
-  8. the {"kernels": [...]} line, the card's name and power limit, and as
+  8. p-nd-np path: compacting_solve with the trained r4 checkpoint at full
+     width (hidden 150; 1000 iterations, 1000 WalkSAT flips, chunk 50),
+     every solution verified with numpy; >= 28/128 solved and the log-input
+     sweep, kernel 6, the verification, the masks and WalkSAT launched;
+  9. p-nd-np with PDP_SP_SWEEP=on PDP_VERIFY_MASKS=on: phase 8's solve
+     through kernel 9 (login) and kernel 10, each launched once per
+     iteration (equal counts) and no `sp_chain_login` or `em_ae` left;
+     >= 28/128 solved, printed beside phase 8's count;
+ 10. the {"kernels": [...]} line, the card's name and power limit, and as
      the last line {"ok": true, "device": {...}}.
 
 Every launch count is set to 0 just before each path and read just after
@@ -80,6 +96,15 @@ MIN_SOLVED_NEURAL = 0.45
 # broken WalkSAT solves 0
 MIN_SOLVED_WALK_SAT = 7
 MIN_SOLVED_REINFORCE = 5
+# p-nd-np with the r4 weights: the JAX records are 38, 45 and 43 of 128
+# (seeds 0-2, docs/r5_solver_table.json); WalkSAT alone solves about 15
+MIN_SOLVED_P_ND_NP = 28
+# the kernels p-nd-np's path must launch: the SP sweep with log input,
+# the predictor's per-variable sum (kernel 6; the predictor keeps the
+# variable rows, so kernel 7's gather back to the edges is not on this
+# path, in the JAX package either), the verification, the masks, WalkSAT
+P_ND_NP_KERNELS = ("sp_chain_login", "sp_pass_c", "segment_sum_2d",
+                   "cnf_chain", "em_ae", "walksat_block")
 # card-vs-CPU REINFORCE forward: variables whose CPU |score| is below this
 # may take either sign; the share of differing forces after 10 iterations
 SCORE_TIE = 1e-5
@@ -152,6 +177,8 @@ def fn_inputs(fn, batch, seed):
             x = torch.floor(u * 3.0) / 2.0
         elif name in ("pos", "neg"):
             x = -5.0 * u
+        elif name == "log_u_in":
+            x = torch.log(u * 0.96 + 0.02)
         else:
             x = u * 0.96 + 0.02
         out.append(x.contiguous())
@@ -520,7 +547,9 @@ def check_reduce(batch, torch, np):
     return rows
 
 
-def sweep_inputs(batch, torch, seed, pi):
+def sweep_inputs(batch, torch, seed, pi, login=False):
+    """The sweep's columns; with login, u is handed over as log u (p-nd-np's
+    adaptors)."""
     g = torch.Generator().manual_seed(seed)
     E = batch.num_edges
 
@@ -529,7 +558,9 @@ def sweep_inputs(batch, torch, seed, pi):
 
     v = torch.rand(E, 3, generator=g)
     v = (v / v.sum(1, keepdim=True)).cuda()
-    return dict(u_like=u(0.01, 1.0), eta_in=u(0.0, 0.99),
+    u_like = u(0.01, 1.0)
+    return dict(u_like=torch.log(u_like) if login else u_like,
+                eta_in=u(0.0, 0.99),
                 em=batch.edge_mask * (u() > 0.1).float(),
                 mask=(u() > 0.2).float(), eta_state=u(), sign=batch.edge_sign,
                 force=(torch.where(u() > 0.5, 1.0, -1.0) if pi
@@ -540,31 +571,35 @@ def sweep_inputs(batch, torch, seed, pi):
 
 def check_sp_sweep(batch, torch):
     """Kernel 9 against its plain version and the two launches it
-    replaces, for pi = 0 (p-d-p) and 0.01 (reinforce)."""
+    replaces, for pi = 0 (p-d-p) and 0.01 (reinforce), and in its
+    log-input form at pi = 0 (p-nd-np), which must give the two login
+    launches' bits."""
     from pdp_solver_tpu_torch.ops import fused, sp_sweep
     E, V, F, B = (batch.num_edges, batch.num_vars, batch.num_clauses,
                   batch.batch_size)
     e = batch.num_real_edges
-    per_pi = {}
-    for pi in (0.0, 0.01):
-        kw = sweep_inputs(batch, torch, 31, pi)
+    per_case = {}
+    for pi, login in ((0.0, False), (0.01, False), (0.0, True)):
+        kw = sweep_inputs(batch, torch, 31, pi, login)
         cols = tuple(kw.values())
+        chain = fused.SP_CHAIN_LOGIN if login else fused.SP_CHAIN
 
         def one():
-            return sp_sweep.sp_full_sweep(batch, pi=pi, **kw)
+            return sp_sweep.sp_full_sweep(batch, pi=pi, login=login, **kw)
 
         def two():
-            _, pn, (eta,), _ = fused.chained_edge_pass(
-                fused.SP_CHAIN, batch, cols[:6])
+            _, pn, (eta,), _ = fused.chained_edge_pass(chain, batch,
+                                                       cols[:6])
             _, q = fused.fused_edge_pass(
                 fused.SP_PASS_C, batch,
                 (pn[0], pn[1]) + cols[1:2] + cols[2:4] + cols[5:],
                 scalar=pi)
             return (eta,) + tuple(q)
 
-        got = one()
-        ref = sp_sweep.sp_full_sweep_plain(batch, cols, pi)
-        twin = two()
+        def plain():
+            return sp_sweep.sp_full_sweep_plain(batch, cols, pi, login)
+
+        got, ref, twin = one(), plain(), two()
         torch.cuda.synchronize()
         err = err_two = 0.0
         for a, b, c in zip(got, ref, twin):
@@ -572,34 +607,147 @@ def check_sp_sweep(batch, torch):
             err_two = max(err_two, _check_sum(
                 torch, "sp_full_sweep vs the two launches", a, c, False))
         bits = all(torch.equal(a, c) for a, c in zip(got, twin))
-        per_pi[pi] = {
+        require(bits or not login, "sp_full_sweep(login=True): not "
+                f"bit-equal to the two login launches ({err_two:.3g})")
+        case = f"login, pi {pi}" if login else f"pi {pi}"
+        per_case[case] = {
             "max_abs_err": err, "max_abs_diff_two_launch": err_two,
             "bit_equal_two_launch": bits,
-            "ms": cuda_ms(one, reps=50),
-            "plain_ms": cuda_ms(
-                lambda: sp_sweep.sp_full_sweep_plain(batch, cols, pi),
-                reps=10),
+            "ms": cuda_ms(one, reps=50), "plain_ms": cuda_ms(plain, reps=10),
             "two_launch_ms": cuda_ms(two, reps=50)}
-        log(f"kernel sp_full_sweep (pi {pi}): ok, max abs err {err:.3g} vs "
+        r = per_case[case]
+        log(f"kernel sp_full_sweep ({case}): ok, max abs err {err:.3g} vs "
             f"plain, {err_two:.3g} vs the two launches (bit-equal {bits}); "
-            f"{per_pi[pi]['ms']:.4f} ms (plain {per_pi[pi]['plain_ms']:.4f}"
-            f", two launches {per_pi[pi]['two_launch_ms']:.4f} ms)")
+            f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, two launches "
+            f"{r['two_launch_ms']:.4f} ms)")
     # 10 edge columns in, 4 out; edge_var, var_perm, the padding edges'
     # clause ids and the CSR offsets read once
     nbytes = ((10 + 4 + 1) * E + e + (E - e) + (V + 1) + (F + 1)
               + 2 * (B + 1)) * 4
-    b_ms, b_by = bound_ms(nbytes, (fused.SP_CHAIN.flops
-                                   + fused.SP_PASS_C.flops) * E)
-    main = per_pi[0.0]
-    return {"sp_full_sweep": {
-        "name": "sp_full_sweep", "route": "cuda",
-        "source": "pdp_solver_tpu_torch/csrc/sp_sweep.cu",
-        "replaces": "pdp_solver_tpu/ops/pallas_sp.py:166",
-        "max_abs_err": max(r["max_abs_err"] for r in per_pi.values()),
-        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": b_ms,
+    rows = {}
+    for name, chain, case in (
+            ("sp_full_sweep", fused.SP_CHAIN, "pi 0.0"),
+            ("sp_full_sweep[login]", fused.SP_CHAIN_LOGIN, "login, pi 0.0")):
+        b_ms, b_by = bound_ms(nbytes, (chain.flops
+                                       + fused.SP_PASS_C.flops) * E)
+        main = per_case[case]
+        cases = {k: v for k, v in per_case.items()
+                 if k.startswith("login") == name.endswith("[login]")}
+        rows[name] = {
+            "name": name, "route": "cuda",
+            "source": "pdp_solver_tpu_torch/csrc/sp_sweep.cu",
+            "replaces": "pdp_solver_tpu/ops/pallas_sp.py:166",
+            "max_abs_err": max(r["max_abs_err"] for r in cases.values()),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
+            "library": "none exists; two_launch_ms times the two launches "
+                       "it replaces",
+            "two_launch_ms": main["two_launch_ms"], "cases": cases}
+    return rows
+
+
+def planted_like(insts, np, seed):
+    """The instances with the same graphs and each a random assignment
+    that satisfies it (a clause the assignment leaves unsatisfied gets the
+    sign of its first literal flipped), and those assignments (0/1)."""
+    rng = np.random.default_rng(seed)
+    out, xs = [], []
+    for n, m, gmap, signs, label in insts:
+        x = rng.integers(0, 2, size=n)
+        v, c = gmap[0], gmap[1]
+        s = np.asarray(signs, np.float32).reshape(-1).copy()
+        true = (s > 0) == (x[v] > 0)
+        sat = np.bincount(c, weights=true, minlength=m) > 0
+        _, first = np.unique(c, return_index=True)
+        flip = first[~sat[c[first]]]
+        s[flip] = -s[flip]
+        out.append((n, m, gmap, s, label))
+        xs.append(x.astype(np.float32))
+    return out, xs
+
+
+def check_verify(insts, torch, np):
+    """Kernel 10 at the shared-set shapes against its plain version and
+    the split path it replaces, exactly on all four outputs: the shared
+    set's graphs with planted signs, some variables and clauses inactive,
+    every fourth instance already stopped, and a prediction that solves
+    the even instances (so some stopped instances are solved, and some
+    active ones are frozen by this verification)."""
+    from pdp_solver_tpu_torch.fg.batch import pack_instances
+    from pdp_solver_tpu_torch.ops import verify
+    from pdp_solver_tpu_torch.problem.state import (
+        edge_masks_pair, init_problem_state)
+    from pdp_solver_tpu_torch.train.loss import cnf_evaluate
+    planted, xs = planted_like(insts, np, 41)
+    batch = pack_instances(planted, device="cuda")
+    require(verify.use_verify_masks(batch), "verify_and_masks: the "
+            "planted batch is not eligible")
+    g = torch.Generator().manual_seed(43)
+    V, F, B, E = (batch.num_vars, batch.num_clauses, batch.batch_size,
+                  batch.num_edges)
+    pred = torch.rand(V, generator=g)
+    off = 0
+    for b, x in enumerate(xs):
+        if b % 2 == 0:
+            pred[off:off + len(x)] = torch.from_numpy(x)
+        off += len(x)
+    p = pred.cuda()[:, None]
+    problem = init_problem_state(batch)
+    av = problem.active_vars * (torch.rand(V, generator=g) > 0.1).float(
+        ).cuda()
+    ac = problem.active_clauses * (torch.rand(F, generator=g) > 0.1).float(
+        ).cuda()
+    problem = problem.replace(active_vars=av, active_clauses=ac)
+    act = batch.instance_mask.clone()
+    act[::4] = 0.0
+
+    def one():
+        return verify.verify_and_masks(batch, problem, act, p)
+
+    def plain():
+        return verify.verify_and_masks_plain(batch, av, ac, act, p[:, 0])
+
+    def split():
+        solved, unsat = cnf_evaluate(batch, p)
+        return (solved, unsat) + edge_masks_pair(
+            batch, problem, act * (solved <= 0.5).float())
+
+    got, ref, two = one(), plain(), split()
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("solved", "unsat", "em", "ae"), got, ref,
+                             two):
+        require(torch.equal(a, b), f"verify_and_masks: {name} differs "
+                "from the plain version")
+        require(torch.equal(a, c), f"verify_and_masks: {name} differs "
+                "from the split path")
+    n_inst = len(insts)
+    solved = got[0][:n_inst].cpu()
+    frozen = int(((act[:n_inst].cpu() > 0) & (solved > 0)).sum())
+    require(int(solved.sum()) == (n_inst + 1) // 2 and frozen > 0,
+            f"verify_and_masks: {int(solved.sum())} solved, {frozen} "
+            "frozen; the check needs both")
+    e = batch.num_real_edges
+    # ev, sign and edge_mask, the prediction and av, ac and cm, the clause
+    # and instance offsets, the instance flags read once; em and ae, solved
+    # and unsat written once; a few operations an edge
+    nbytes = (3 * E + 2 * V + 3 * F + 1 + 2 * (B + 1) + 2 * E + 2 * B) * 4
+    b_ms, b_by = bound_ms(nbytes, 8 * e)
+    row = {
+        "name": "verify_and_masks", "route": "cuda",
+        "source": "pdp_solver_tpu_torch/csrc/verify.cu",
+        "replaces": "pdp_solver_tpu/ops/pallas_verify.py:170",
+        "max_abs_err": 0.0, "ms": cuda_ms(one, reps=50),
+        "plain_ms": cuda_ms(plain, reps=10), "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": None,
-        "two_launch_ms": main["two_launch_ms"],
-        "by_pi": {str(k): v for k, v in per_pi.items()}}}
+        "library": "none exists; split_path_ms times the split path it "
+                   "replaces (cnf_chain, the freeze, em_ae)",
+        "split_path_ms": cuda_ms(split, reps=50),
+        "solved": int(solved.sum()), "frozen_by_this_call": frozen}
+    log(f"kernel verify_and_masks: exact against the plain version and the "
+        f"split path ({row['solved']} of {n_inst} solved, {frozen} frozen "
+        f"by this call); {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
+        f"split path {row['split_path_ms']:.4f}, bound {b_ms:.5f} ms)")
+    return {"verify_and_masks": row}
 
 
 def reinforce_card_vs_cpu(insts, torch):
@@ -662,7 +810,7 @@ def reinforce_card_vs_cpu(insts, torch):
 
 def reset_counts():
     from pdp_solver_tpu_torch.ops import (
-        fused, reduce, reduce2d, sp_sweep, walksat)
+        fused, reduce, reduce2d, sp_sweep, verify, walksat)
     fused.fused_edge_pass.launches = 0
     fused.fused_edge_pass.launches_by_fn = {}
     fused.chained_edge_pass.launches = 0
@@ -673,11 +821,13 @@ def reset_counts():
     reduce.segment_sum_cols.launches = 0
     reduce.segment_sum_cols.launches_by_form = {}
     sp_sweep.sp_full_sweep.launches = 0
+    sp_sweep.sp_full_sweep.launches_by_form = {}
+    verify.verify_and_masks.launches = 0
 
 
 def read_counts():
     from pdp_solver_tpu_torch.ops import (
-        fused, reduce, reduce2d, sp_sweep, walksat)
+        fused, reduce, reduce2d, sp_sweep, verify, walksat)
     launches = dict(fused.fused_edge_pass.launches_by_fn)
     launches.update(fused.chained_edge_pass.launches_by_fn)
     launches["walksat_block"] = walksat.walksat_block.launches
@@ -687,6 +837,9 @@ def read_counts():
     launches["segment_sum_cols_by_form"] = dict(
         reduce.segment_sum_cols.launches_by_form)
     launches["sp_full_sweep"] = sp_sweep.sp_full_sweep.launches
+    launches["sp_full_sweep[login]"] = (
+        sp_sweep.sp_full_sweep.launches_by_form.get("login", 0))
+    launches["verify_and_masks"] = verify.verify_and_masks.launches
     return launches
 
 
@@ -739,8 +892,9 @@ def main():
         rows.update(check_reduce2d(batch, torch))
         rows.update(check_reduce(batch, torch, np))
         rows.update(check_sp_sweep(batch, torch))
-        log("phase 2 kernel checks: all kernels match their plain versions")
         del batch
+        rows.update(check_verify(insts, torch, np))
+        log("phase 2 kernel checks: all kernels match their plain versions")
 
         from pdp_solver_tpu_torch.utils.headline import solve_headline
         res, launches = run_path(lambda: solve_headline(insts, seed=0))
@@ -821,12 +975,57 @@ def main():
                 f"{slaunches['sp_full_sweep']} launches for "
                 f"{slaunches.get('smax_scorer')} iterations")
 
+        from pdp_solver_tpu_torch.utils.neural import solve_p_nd_np
+        pres, plaunches = run_path(lambda: solve_p_nd_np(insts, seed=0))
+        log(f"phase 8 p-nd-np path: solved {pres['solved']}/{len(insts)} "
+            f"(verified with numpy) in {pres['wall_s']:.2f} s; loop "
+            f"{pres['loop_wall_s']} s, walksat {pres['ls_wall_s']} s, "
+            f"{pres['chunks']} chunks, {pres['compactions']} compactions, "
+            f"progress {pres['progress']}")
+        log(f"launches on the p-nd-np path: {json.dumps(plaunches)}")
+        require(pres["solved"] >= MIN_SOLVED_P_ND_NP,
+                f"p-nd-np solved {pres['solved']} < {MIN_SOLVED_P_ND_NP}")
+        for name in P_ND_NP_KERNELS:
+            require(plaunches.get(name, 0) > 0,
+                    f"p-nd-np never launched {name}")
+
+        os.environ.update(PDP_SP_SWEEP="on", PDP_VERIFY_MASKS="on")
+        try:
+            qres, qlaunches = run_path(lambda: solve_p_nd_np(insts, seed=0))
+        finally:
+            os.environ.pop("PDP_SP_SWEEP")
+            os.environ.pop("PDP_VERIFY_MASKS")
+        log(f"phase 9 p-nd-np with PDP_SP_SWEEP=on PDP_VERIFY_MASKS=on: "
+            f"solved {qres['solved']}/{len(insts)} (verified with numpy; "
+            f"phase 8 solved {pres['solved']}: "
+            f"{'reproduced' if qres['solved'] == pres['solved'] else 'not reproduced'}"
+            f") in {qres['wall_s']:.2f} s; loop {qres['loop_wall_s']} s, "
+            f"progress {qres['progress']}")
+        log(f"launches on the p-nd-np one-launch path: "
+            f"{json.dumps(qlaunches)}")
+        require(qres["solved"] >= MIN_SOLVED_P_ND_NP,
+                f"p-nd-np with the one-launch kernels solved "
+                f"{qres['solved']} < {MIN_SOLVED_P_ND_NP}")
+        # one login sweep and one verification per iteration; no two-launch
+        # sweep and no split verification left in the loop
+        n_sweep = qlaunches["sp_full_sweep[login]"]
+        require(n_sweep > 0 and n_sweep == qlaunches["verify_and_masks"]
+                and qlaunches.get("sp_chain_login", 0) == 0
+                and qlaunches.get("em_ae", 0) == 0,
+                "the one-launch kernels did not replace every sweep and "
+                f"verification: {n_sweep} sweeps, "
+                f"{qlaunches['verify_and_masks']} verifications, "
+                f"{qlaunches.get('sp_chain_login', 0)} sp_chain_login, "
+                f"{qlaunches.get('em_ae', 0)} em_ae")
+
         # each row carries the launches of the path it serves
         serves = {"segment_sum_2d": nlaunches, "gather_2d": nlaunches,
                   "scorer": rlaunches, "segment_sum_cols": rlaunches,
                   "segment_sum_cols[ragged]": rlaunches,
                   "sorted_segment_sum": rlaunches,
-                  "sp_full_sweep": slaunches}
+                  "sp_full_sweep": slaunches, "sp_chain_login": plaunches,
+                  "sp_full_sweep[login]": qlaunches,
+                  "verify_and_masks": qlaunches}
         path_rows = []
         for name, row in rows.items():
             path = serves.get(name, launches)

@@ -21,7 +21,7 @@ from pdp_solver_tpu_torch.solvers.base import (
 _LEAVES = {"w": ("weight", True), "b": ("bias", False),
            "w_ih": ("weight_ih", True), "w_hh": ("weight_hh", True),
            "b_ih": ("bias_ih", False), "b_hh": ("bias_hh", False)}
-_KEY_PART = re.compile(r"\['([^']*)'\]|\[(\d+)\]")
+_KEY_PART = re.compile(r"\['([^']*)'\]|\[(\d+)\]|\.(\w+)")
 
 
 def _t(x, device):
@@ -31,11 +31,13 @@ def _t(x, device):
 def load_jax_checkpoint(path):
     """A JAX checkpoint .npz as a nested dict of numpy arrays. Its keys are
     `jax.tree_util.keystr` paths such as "['params']['dec']['fn_gru']
-    ['w_ih']"; a list index "[0]" becomes the int key 0."""
+    ['w_ih']"; a list index "[0]" becomes the int key 0, and a NamedTuple
+    field ".mu" (the optimizer state's) the key "mu"."""
     tree = {}
     with np.load(path) as data:
         for key in data.files:
-            parts = [a if a else int(b) for a, b in _KEY_PART.findall(key)]
+            parts = [a or c or int(b)
+                     for a, b, c in _KEY_PART.findall(key)]
             if not parts or "".join(
                     m.group(0) for m in _KEY_PART.finditer(key)) != key:
                 raise ValueError(f"{path}: cannot parse key {key!r}")
@@ -76,6 +78,34 @@ def _np_nd_np_config(tree):
         raise KeyError(f"not an np-nd-np parameter tree: lacks {e}") from e
 
 
+def _p_nd_np_config(tree):
+    """The p-nd-np widths, read off the parameter shapes: the decimator's
+    GRU takes the 3 stacked SP columns and the sign (edge_dim = w_ih rows
+    - 3); the predictor's aggregator has no feature input, so its widths
+    come from its own layers."""
+    try:
+        gru = tree["dec"]["var_gru"]
+        agg = tree["predictor"]["var_agg"]
+        cls = tree["predictor"]["classifier"]
+        return SolverConfig(
+            model_type="p-nd-np", hidden_dim=np.shape(gru["w_hh"])[0],
+            edge_dim=np.shape(gru["w_ih"])[0] - 3,
+            mem_hidden_dim=np.shape(agg["w1_m"]["w"])[1],
+            mem_agg_hidden_dim=np.shape(agg["w2_m"]["w"])[1],
+            agg_hidden_dim=np.shape(agg["w1_a"]["w"])[1],
+            classifier_dim=np.shape(cls["l1"]["w"])[1],
+            prediction_dim=np.shape(cls["l2"]["w"])[1])
+    except (KeyError, TypeError, IndexError) as e:
+        raise KeyError(f"not a p-nd-np parameter tree: lacks {e}") from e
+
+
+def _is_p_nd_np(tree):
+    """A p-nd-np tree: its propagator holds the SP adaptors only."""
+    prop = tree.get("prop")
+    return (isinstance(prop, dict) and "var_agg" not in prop
+            and ("var_proj" in prop or "fn_proj" in prop))
+
+
 def load_into(module, np_tree):
     """Copy a JAX parameter tree of numpy arrays into `module` (an
     Aggregator, GRUCell, ... or a ModuleDict of them): every leaf must land
@@ -111,16 +141,17 @@ def params_from_jax(np_params, device="cuda"):
     (`init_params` output, or `load_jax_checkpoint(path)["params"]`).
 
     {} (p-d-p) gives {}. A tree with "prop", "dec" and "predictor" gives
-    the np-nd-np ModuleDict of PDPSolver.init_params, its widths read off
-    the shapes, loaded by `load_into` (which raises on an unknown, missing
-    or misshapen key)."""
+    the ModuleDict of PDPSolver.init_params: p-nd-np when "prop" holds the
+    SP adaptors (`var_proj`, `fn_proj`) and no aggregator, else np-nd-np.
+    Its widths are read off the shapes, and it is loaded by `load_into`
+    (which raises on an unknown, missing or misshapen key)."""
     tree = dict(np_params)
     if not tree:
         return {}
     unknown = sorted(set(tree) - {"prop", "dec", "predictor"})
     if unknown:
         raise KeyError(f"no ported module takes parameters {unknown}")
-    cfg = _np_nd_np_config(tree)
+    cfg = (_p_nd_np_config if _is_p_nd_np(tree) else _np_nd_np_config)(tree)
     return load_into(PDPSolver(cfg).init_params(device), tree)
 
 
@@ -167,7 +198,8 @@ def state_from_jax(np_state, device="cuda"):
     """A JAX SolverState (prop, dec, aux), SPMessages, SeqDecimatorState,
     ReinforceDecimatorState, ProblemState or neural (var [E, h], fn [E, h])
     pair as numpy arrays -> the port's counterpart on `device`. walk-sat's
-    empty state ((), (), ()) stays empty."""
+    empty state ((), (), ()) stays empty; p-nd-np's mixed state (SP
+    messages, a neural pair, ()) keeps its mix."""
     kind = type(np_state).__name__
     if kind == "SPMessages":
         return messages_from_jax(np_state, device)
@@ -181,7 +213,7 @@ def state_from_jax(np_state, device="cuda"):
         prop, dec, aux = np_state
         if prop == () and dec == () and aux == ():
             return SolverState(prop=(), dec=(), aux=())
-        if _is_neural_pair(prop):
+        if _is_neural_pair(dec):
             return SolverState(prop=state_from_jax(prop, device),
                                dec=state_from_jax(dec, device), aux=())
         return SolverState(prop=messages_from_jax(prop, device),

@@ -30,13 +30,17 @@ __device__ __forceinline__ float safe_exp(float x) {
 __device__ __forceinline__ float flag(bool b) { return b ? 1.0f : 0.0f; }
 
 // --- the SP sweep's per-edge arithmetic (propagate.py _sp_chain_f1/_f3,
-// _sp_pass_c), shared by the two-launch path (edge_pass.cu SpChain,
+// _sp_pass_c), shared by the two-launch path (edge_pass.cu SpChainOps,
 // SpPassC) and the one-launch sweep (sp_sweep.cu) so both compile to the
 // same operations ---
 
-// log u of an edge, masked by its liveness: the clause sum's term
+// log u of an edge, masked by its liveness: the clause sum's term. With
+// LOGIN the input already is log u (p-nd-np's adaptors, propagate.py
+// _sp_chain_f1_login); its product is rounded on its own (no FMA
+// contraction), so every caller gets the same bits.
+template <bool LOGIN>
 __device__ __forceinline__ float sp_log_u(float u, float em) {
-  return safe_log(u, PDP_LOG_EPS_PROP) * em;
+  return LOGIN ? __fmul_rn(u, em) : safe_log(u, PDP_LOG_EPS_PROP) * em;
 }
 
 // the eta survey from its clause's log-u sum, frozen where mask is 0

@@ -132,12 +132,12 @@ struct Ae {
 
 // SP sweep A+B (propagate.py _sp_chain_f1/_f2/_f3). in: u_in, eta_in, em,
 // mask, eta_state, sign. vred: polarity-split log(1 - eta_in); eout: eta.
-struct SpChain {
-  static const char* name() { return "sp_chain"; }
-  static constexpr int NIN = 6, NCRED = 1, NCOUT = 0, NBC = 1, NVRED = 2,
-                       NE = 1, NIRED = 0;
+// LOGIN: u_in is already log u, p-nd-np's adaptor output
+// (_sp_chain_f1_login / _sp_chain_f3(login=True)).
+template <bool LOGIN>
+struct SpChainOps {
   __device__ static void f1(const Cols& a, int e, float* cr) {
-    cr[0] = sp_log_u(a.in[0][e], a.in[2][e]);
+    cr[0] = sp_log_u<LOGIN>(a.in[0][e], a.in[2][e]);
   }
   __device__ static void f2(const Cols&, int, const float* cred, float*,
                             float* bc, float*) {
@@ -146,13 +146,43 @@ struct SpChain {
   __device__ static void f3(const Cols& a, int e, const float* bc, float* vr,
                             float* o) {
     const float em = a.in[2][e], sign = a.in[5][e];
-    o[0] = sp_new_eta(bc[0], sp_log_u(a.in[0][e], em), a.in[3][e],
+    o[0] = sp_new_eta(bc[0], sp_log_u<LOGIN>(a.in[0][e], em), a.in[3][e],
                       a.in[4][e]);
     const float lm = sp_lm(a.in[1][e], em);
     vr[0] = lm * flag(sign == 1.0f);
     vr[1] = lm * flag(sign == -1.0f);
   }
 };
+
+#define PDP_SP_CHAIN_FORWARD(LOGIN)                                      \
+  __device__ static void f1(const Cols& a, int e, float* cr) {            \
+    SpChainOps<LOGIN>::f1(a, e, cr);                                      \
+  }                                                                       \
+  __device__ static void f2(const Cols& a, int c, const float* cred,      \
+                            float* co, float* bc, float* ir) {            \
+    SpChainOps<LOGIN>::f2(a, c, cred, co, bc, ir);                        \
+  }                                                                       \
+  __device__ static void f3(const Cols& a, int e, const float* bc,        \
+                            float* vr, float* o) {                        \
+    SpChainOps<LOGIN>::f3(a, e, bc, vr, o);                               \
+  }
+
+struct SpChain {
+  static const char* name() { return "sp_chain"; }
+  static constexpr int NIN = 6, NCRED = 1, NCOUT = 0, NBC = 1, NVRED = 2,
+                       NE = 1, NIRED = 0;
+  PDP_SP_CHAIN_FORWARD(false)
+};
+
+// the same with u_in = log u (in: log_u_in, eta_in, em, mask, eta_state,
+// sign)
+struct SpChainLogin {
+  static const char* name() { return "sp_chain_login"; }
+  static constexpr int NIN = 6, NCRED = 1, NCOUT = 0, NBC = 1, NVRED = 2,
+                       NE = 1, NIRED = 0;
+  PDP_SP_CHAIN_FORWARD(true)
+};
+#undef PDP_SP_CHAIN_FORWARD
 
 // one fused simplify round (simplify.py _sround_f1/_f2/_f3). in: av[V],
 // sol[V], sign, mask, ac[F]. cout: new active clauses; vred: unit forcing
@@ -244,7 +274,7 @@ struct WalksatChain {
 #define PDP_FUSED_FNS(X) \
   X(SpPassC) X(SmaxScorer) X(Scorer) X(EmAe) X(Em) X(Ae)
 #define PDP_CHAINED_FNS(X) \
-  X(SpChain) X(SimplifyRound) X(CnfChain) X(WalksatChain)
+  X(SpChain) X(SpChainLogin) X(SimplifyRound) X(CnfChain) X(WalksatChain)
 
 enum {
 #define PDP_ENUM(F) FN_##F,

@@ -1,10 +1,13 @@
-// The whole Survey Propagation sweep in one launch (plain SP, pi >= 0).
+// The whole Survey Propagation sweep in one launch (pi >= 0).
 //
 // Replaces the TPU kernel pdp_solver_tpu/ops/pallas_sp.py sp_full_sweep
-// (:166, body _build_sp_sweep :51, pallas_call :152) for login=False. It
-// computes the same function: the clause-direction log-u sums and the eta
-// surveys, and the var-direction polarity-split sums of log(1 - eta_in)
-// and the (q_u, q_s, q_dc) triplet with the REINFORCE force factor pi.
+// (:166, body _build_sp_sweep :51, pallas_call :152), for login=False
+// (plain SP) and login=True (p-nd-np's adaptors hand over u already in log
+// space; a compile-time flag of the same kernel, sp_log_u<LOGIN> in
+// common.cuh). It computes the same function: the clause-direction log-u
+// sums and the eta surveys, and the var-direction polarity-split sums of
+// log(1 - eta_in) and the (q_u, q_s, q_dc) triplet with the REINFORCE
+// force factor pi.
 // The TPU kernel runs a two-phase sequential grid over edge tiles, with
 // one-hot windows on the matrix unit and a [2, N] VMEM scratch carried
 // from the first phase to the second. None of that is carried over.
@@ -24,8 +27,8 @@
 //      q-triplet from their variable's two sums.
 // Each sum is taken in the same order, with the same operations (the
 // sp_* helpers of common.cuh), as the two-launch path (edge_pass.cu
-// chained_clause_kernel / chained_var_kernel with SpChain, then SpPassC),
-// so the two give the same bits.
+// chained_clause_kernel / chained_var_kernel with SpChain or SpChainLogin,
+// then SpPassC), so the two give the same bits.
 // The two sums of an instance's variables take 8 bytes a variable of
 // shared memory; when the caller passes a global scratch f32[2, V] (it
 // does above 6,144 variables per instance, 48 KB) they go there instead,
@@ -69,11 +72,13 @@ struct SweepArgs {
   float pi;
 };
 
+template <bool LOGIN>
 __device__ __forceinline__ float clause_log_u_sum(const SweepArgs& a,
                                                   int c) {
   float s = 0.0f;
   const int e1 = a.clause_ptr[c + 1];
-  for (int e = a.clause_ptr[c]; e < e1; ++e) s += sp_log_u(a.u[e], a.em[e]);
+  for (int e = a.clause_ptr[c]; e < e1; ++e)
+    s += sp_log_u<LOGIN>(a.u[e], a.em[e]);
   return s;
 }
 
@@ -92,11 +97,12 @@ __device__ __forceinline__ void var_lm_sums(const SweepArgs& a, int v,
   *neg = n;
 }
 
+template <bool LOGIN>
 __device__ __forceinline__ void edge_outputs(const SweepArgs& a, int e,
                                              float cl, float pos,
                                              float neg) {
   const float mask = a.mask[e];
-  a.eta_out[e] = sp_new_eta(cl, sp_log_u(a.u[e], a.em[e]), mask,
+  a.eta_out[e] = sp_new_eta(cl, sp_log_u<LOGIN>(a.u[e], a.em[e]), mask,
                             a.eta_state[e]);
   float o[3];
   sp_q_triplet(pos, neg, a.eta_in[e], a.em[e], mask, a.sign[e], a.force[e],
@@ -106,6 +112,7 @@ __device__ __forceinline__ void edge_outputs(const SweepArgs& a, int e,
   a.nv2[e] = o[2];
 }
 
+template <bool LOGIN>
 __global__ void sp_sweep_kernel(SweepArgs a) {
   extern __shared__ float sh[];
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -118,11 +125,11 @@ __global__ void sp_sweep_kernel(SweepArgs a) {
     float* neg = a.scratch ? a.scratch + a.n_vars + vb : sh + nv;
     // phase 1: the clause sums and eta; the variables' polarity sums
     for (int c = c0 + tid; c < c1; c += nt) {
-      const float cl = clause_log_u_sum(a, c);
+      const float cl = clause_log_u_sum<LOGIN>(a, c);
       const int e1 = a.clause_ptr[c + 1];
       for (int e = a.clause_ptr[c]; e < e1; ++e)
-        a.eta_out[e] = sp_new_eta(cl, sp_log_u(a.u[e], a.em[e]), a.mask[e],
-                                  a.eta_state[e]);
+        a.eta_out[e] = sp_new_eta(cl, sp_log_u<LOGIN>(a.u[e], a.em[e]),
+                                  a.mask[e], a.eta_state[e]);
     }
     for (int i = tid; i < nv; i += nt) var_lm_sums(a, vb + i, pos + i, neg + i);
     __syncthreads();
@@ -145,16 +152,16 @@ __global__ void sp_sweep_kernel(SweepArgs a) {
   const int e1 = min(a.e_total, e0 + PDP_SWEEP_PAD_CHUNK);
   const int c_last = a.ec[a.e_real], v_last = a.ev[a.e_real];
   if (tid == 0) {
-    sh[0] = clause_log_u_sum(a, c_last);
+    sh[0] = clause_log_u_sum<LOGIN>(a, c_last);
     var_lm_sums(a, v_last, sh + 1, sh + 2);
   }
   __syncthreads();
   for (int e = e0 + tid; e < e1; e += nt) {
     const int c = a.ec[e], v = a.ev[e];
     float cl = sh[0], pos = sh[1], neg = sh[2];
-    if (c != c_last) cl = clause_log_u_sum(a, c);
+    if (c != c_last) cl = clause_log_u_sum<LOGIN>(a, c);
     if (v != v_last) var_lm_sums(a, v, &pos, &neg);
-    edge_outputs(a, e, cl, pos, neg);
+    edge_outputs<LOGIN>(a, e, cl, pos, neg);
   }
 }
 
@@ -164,13 +171,14 @@ extern "C" {
 // v0, v1, v2; outs: the 4 f32[E] outputs eta, nv0, nv1, nv2. ev, ec:
 // i32[E]; the CSR tables as in FGBatch. scratch: f32[2, n_vars] for the
 // variables' sums, or null to keep them in 8 * max_inst_vars bytes of
-// shared memory. Returns cudaGetLastError().
+// shared memory. login: u holds log u (p-nd-np's adaptors). Returns
+// cudaGetLastError().
 int pdp_sp_sweep(const void* const* cols, float* const* outs, const int* ev,
                  const int* ec, const int* clause_ptr, const int* var_ptr,
                  const int* var_perm, const int* inst_clause_ptr,
                  const int* inst_var_ptr, int n_inst, int n_vars,
                  int max_inst_vars, int e_real, int e_total, float* scratch,
-                 float pi, void* stream) {
+                 float pi, int login, void* stream) {
   SweepArgs a;
   const float* const* in = reinterpret_cast<const float* const*>(cols);
   a.u = in[0];
@@ -209,8 +217,12 @@ int pdp_sp_sweep(const void* const* cols, float* const* outs, const int* ev,
       (size_t)(in_smem ? 2 * (max_inst_vars > 2 ? max_inst_vars : 2) : 3) *
       sizeof(float);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_inst + n_pad > 0)
-    sp_sweep_kernel<<<n_inst + n_pad, PDP_THREADS, smem, st>>>(a);
+  if (n_inst + n_pad > 0) {
+    if (login)
+      sp_sweep_kernel<true><<<n_inst + n_pad, PDP_THREADS, smem, st>>>(a);
+    else
+      sp_sweep_kernel<false><<<n_inst + n_pad, PDP_THREADS, smem, st>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -56,7 +56,10 @@ class NeuralDecimatorConfig:
 
 class NeuralDecimator(nn.Module):
     """Reference pdp_decimate.py:51-87: two GRU cells over persistent edge
-    states, frozen on the edges of instances that have stopped."""
+    states, frozen on the edges of instances that have stopped. The
+    messages are the neural propagator's (var, fn) [E, h] pair (np-nd-np)
+    or SPMessages (p-nd-np), whose 1-D columns are stacked into [E, 3] and
+    [E, 2] blocks first (JAX decimate.py:67-71)."""
 
     def __init__(self, cfg: NeuralDecimatorConfig):
         super().__init__()
@@ -70,7 +73,11 @@ class NeuralDecimator(nn.Module):
 
     def forward(self, batch, dec_state, message_state, active_edge):
         old_var, old_fn = dec_state
-        msg_var, msg_fn = message_state
+        if isinstance(message_state, SPMessages):
+            msg_var = torch.stack(message_state.var, dim=1)
+            msg_fn = torch.stack(message_state.fn, dim=1)
+        else:
+            msg_var, msg_fn = message_state
         feat = col(batch.edge_sign)
         keep = col(active_edge) > 0
         var_new = self.var_gru(torch.cat([msg_var, feat], dim=1), old_var)

@@ -18,6 +18,7 @@ import os
 
 import torch
 from torch import nn
+from torch.nn import functional as Fn
 
 from pdp_solver_tpu_torch.modules import mlp
 from pdp_solver_tpu_torch.modules.common import col
@@ -98,32 +99,74 @@ class SPMessages:
 
 @dataclasses.dataclass(frozen=True)
 class SurveyPropagatorConfig:
-    """Classical SP (the learned adaptors of p-nd-np are not ported yet)."""
+    """Classical SP, or with include_adaptors p-nd-np's SP, which reads its
+    inputs off the neural decimator's [E, decimator_dim] states through
+    two learned projections (`SurveyAdaptors`)."""
     pi: float = 0.0     # REINFORCE external-force factor; 0 for p-d-p
+    include_adaptors: bool = False
+    decimator_dim: int = 1
+
+
+class SurveyAdaptors(nn.Module):
+    """The learned projections of the neural decimator's states into SP
+    inputs (reference pdp_propagate.py:128-131; JAX propagate.py :129,
+    :545-554): `var_proj` [h -> 2] and `fn_proj` [h -> 1], both without
+    a bias. forward(dec_state) -> (log u, eta_in, force), f32[E] each:
+    log u = log_sigmoid(fn_proj(dec_var)), eta_in =
+    sigmoid(var_proj(dec_fn)[:, 0]), force = sign(var_proj(dec_fn)[:, 1]).
+    The two small products stay matrix products, as the JAX package leaves
+    them to XLA."""
+
+    def __init__(self, cfg: SurveyPropagatorConfig):
+        super().__init__()
+        self.var_proj = nn.Linear(cfg.decimator_dim, 2, bias=False)
+        self.fn_proj = nn.Linear(cfg.decimator_dim, 1, bias=False)
+
+    def forward(self, dec_state):
+        dec_var, dec_fn = dec_state
+        log_u = Fn.logsigmoid(self.fn_proj(dec_var))[:, 0].contiguous()
+        proj = self.var_proj(dec_fn)
+        eta_in = torch.sigmoid(proj[:, 0]).contiguous()
+        force = torch.sign(proj[:, 1]).contiguous()
+        return log_u, eta_in, force
 
 
 def survey_propagator_apply(cfg: SurveyPropagatorConfig, batch, prop_state,
-                            dec_state, edge_mask, active_edge):
+                            dec_state, edge_mask, active_edge,
+                            adaptors=None):
     """One SP sweep in log space (propagate.py :526): a chained pass (clause
     log-u sums, the eta survey, the polarity-split variable sums of
     log(1 - eta)) then pass C (the q-triplet per edge). With
     PDP_SP_SWEEP=on (read at each call, default off, as in the JAX
     package) and a batch `use_sp_sweep` accepts, the whole sweep is one
-    launch of `ops/sp_sweep.py` instead."""
+    launch of `ops/sp_sweep.py` instead.
+
+    dec_state: SPMessages (u = var[0], eta_in and force = fn), or with
+    cfg.include_adaptors the neural decimator's (var, fn) [E, h] pair,
+    read through `adaptors` (a SurveyAdaptors); u then arrives as log u
+    and both routes take their log-input form (`sp_chain_login`,
+    `sp_full_sweep(login=True)`)."""
     v0, v1, v2 = prop_state.var
     eta_state = prop_state.fn[0]
-    u_like = dec_state.var[0]
-    eta_in, force = dec_state.fn
+    login = cfg.include_adaptors
+    if login:
+        if adaptors is None:
+            raise ValueError("a propagator with adaptors needs their "
+                             "parameters")
+        u_like, eta_in, force = adaptors(dec_state)
+    else:
+        u_like = dec_state.var[0]
+        eta_in, force = dec_state.fn
     sign = batch.edge_sign
     if (use_sp_sweep(batch)
             and os.environ.get("PDP_SP_SWEEP", "off") == "on"):
         new_eta, nv0, nv1, nv2 = sp_full_sweep(
             batch, u_like=u_like, eta_in=eta_in, em=edge_mask,
             mask=active_edge, eta_state=eta_state, sign=sign, force=force,
-            v0=v0, v1=v1, v2=v2, pi=float(cfg.pi))
+            v0=v0, v1=v1, v2=v2, pi=float(cfg.pi), login=login)
         return SPMessages(var=(nv0, nv1, nv2), fn=(new_eta, force))
     _, pn, (new_eta,), _ = fused.chained_edge_pass(
-        fused.SP_CHAIN, batch,
+        fused.SP_CHAIN_LOGIN if login else fused.SP_CHAIN, batch,
         (u_like, eta_in, edge_mask, active_edge, eta_state, sign))
     _, (nv0, nv1, nv2) = fused.fused_edge_pass(
         fused.SP_PASS_C, batch,

@@ -48,7 +48,8 @@ _SIGNATURES = {
     "pdp_gather_2d": (I, [P, I, P, P, ctypes.c_long, P, P]),
     "pdp_segment_sum_cols": (I, [P, I, ctypes.c_long, P, P, I, P, P]),
     "pdp_sp_sweep": (I, [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P,
-                         ctypes.c_float, P]),
+                         ctypes.c_float, I, P]),
+    "pdp_verify_and_masks": (I, [P] * 16 + [I, I, I, P]),
 }
 
 

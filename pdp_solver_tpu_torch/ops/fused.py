@@ -178,17 +178,24 @@ def _sp_f1(ins, ev, ec):
     return (safe_log(u_in, LOG_EPS_PROP) * em,)
 
 
+def _sp_f1_login(ins, ev, ec):
+    log_u_in, eta_in, em, mask, eta_state, sign = ins
+    return (log_u_in * em,)
+
+
 def _sp_f2(cred, ins):
     return (), cred, ()
 
 
-def _sp_f3(bc, ins, ev, ec):
-    u_in, eta_in, em, mask, eta_state, sign = ins
-    log_u = safe_log(u_in, LOG_EPS_PROP) * em
-    eta = safe_exp(bc[0] - log_u)
-    new_eta = mask * eta + (1.0 - mask) * eta_state
-    lm = safe_log(1.0 - eta_in, LOG_EPS_PROP) * em
-    return (lm * _flag(sign == 1), lm * _flag(sign == -1)), (new_eta,)
+def _sp_f3_of(login):
+    def f3(bc, ins, ev, ec):
+        u_in, eta_in, em, mask, eta_state, sign = ins
+        log_u = (u_in if login else safe_log(u_in, LOG_EPS_PROP)) * em
+        eta = safe_exp(bc[0] - log_u)
+        new_eta = mask * eta + (1.0 - mask) * eta_state
+        lm = safe_log(1.0 - eta_in, LOG_EPS_PROP) * em
+        return (lm * _flag(sign == 1), lm * _flag(sign == -1)), (new_eta,)
+    return f3
 
 
 def _sround_f1(ins, ev, ec):
@@ -253,7 +260,13 @@ def _no_f3(bc, ins, ev, ec):
 SP_CHAIN = ChainFn(
     "sp_chain", "EEEEEE",
     ("u_in", "eta_in", "em", "mask", "eta_state", "sign"), 1, 0, 1, 2, 1, 0,
-    _sp_f1, _sp_f2, _sp_f3, 20)
+    _sp_f1, _sp_f2, _sp_f3_of(False), 20)
+# the same sweep for u already in log space (p-nd-np's adaptors,
+# propagate.py _sp_chain_f1_login :250, _sp_chain_f3(login=True) :260)
+SP_CHAIN_LOGIN = ChainFn(
+    "sp_chain_login", "EEEEEE",
+    ("log_u_in", "eta_in", "em", "mask", "eta_state", "sign"), 1, 0, 1, 2,
+    1, 0, _sp_f1_login, _sp_f2, _sp_f3_of(True), 16)
 SROUND = ChainFn("sround", "VVEEF", ("av", "sol", "sign", "mask", "ac"),
                  2, 1, 2, 4, 0, 0, _sround_f1, _sround_f2, _sround_f3, 12)
 CNF_CHAIN = ChainFn("cnf_chain", "VEEF", ("p", "sign", "mask", "cm"),
@@ -263,7 +276,21 @@ WS_CHAIN = ChainFn("ws_chain", "VVEEEF",
                    2, 0, 3, 2, 0, 1, _ws_f1, _ws_f2, _ws_f3, 14)
 
 FUSED_FNS = (SP_PASS_C, SMAX_SCORER, SCORER, EM_AE, EM, AE)
-CHAINED_FNS = (SP_CHAIN, SROUND, CNF_CHAIN, WS_CHAIN)
+CHAINED_FNS = (SP_CHAIN, SP_CHAIN_LOGIN, SROUND, CNF_CHAIN, WS_CHAIN)
+
+# the JAX package's uniform clause widths for its chained passes
+# (pallas_fused.py _TILES, k > 0)
+CHAINED_WIDTHS = (2, 3, 4, 5, 6, 7, 8)
+
+
+def use_chained_pass(batch) -> bool:
+    """The JAX package's eligibility for its chained passes and the
+    one-launch kernels built on them (`pallas_fused.py use_chained_pass`
+    :434): a uniform clause width it has tiles for, on a batch that meets
+    the window invariants. The CUDA kernels need neither; the rule keeps
+    the two packages on one route."""
+    return bool(batch.fast_var and batch.fast_clause
+                and batch.clause_width in CHAINED_WIDTHS)
 
 
 # ---------------------------------------------------------------------------

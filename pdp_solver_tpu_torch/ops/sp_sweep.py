@@ -10,23 +10,21 @@ sp_full_sweep(batch, *, u_like, eta_in, em, mask, eta_state, sign, force,
               v0, v1, v2, pi=0.0, login=False) -> (new_eta, nv0, nv1, nv2)
     the JAX function's column arguments (its gather ids, clause width and
     variable count come from the batch); every input and output is f32[E].
-    Only login=False is ported: the log-input variant serves p-nd-np's
-    adaptors, which are not ported.
+    With login=True u_like already is log u (p-nd-np's adaptors).
 
 The wrapper runs its plain version (`sp_full_sweep_plain`: the two-step
-plain path, `chained_edge_pass_plain[sp_chain]` then
-`fused_edge_pass_plain[sp_pass_c]`) when the batch lies on the CPU and
-launches the CUDA kernel (`csrc/sp_sweep.cu`, one CTA per instance) when it
-lies on the card, or raises. Launches are counted in
-`sp_full_sweep.launches`.
+plain path, `chained_edge_pass_plain[sp_chain]` (`[sp_chain_login]` with
+login) then `fused_edge_pass_plain[sp_pass_c]`) when the batch lies on the
+CPU and launches the CUDA kernel (`csrc/sp_sweep.cu`, one CTA per
+instance, login a compile-time flag) when it lies on the card, or raises.
+Launches are counted in `sp_full_sweep.launches`, and per form ("plain",
+"login") in `sp_full_sweep.launches_by_form`.
 """
 
 import torch
 
 from pdp_solver_tpu_torch.ops import _build, fused
 
-# the JAX kernel's supported uniform clause widths (pallas_fused.py _TILES)
-SWEEP_WIDTHS = (2, 3, 4, 5, 6, 7, 8)
 # instances with more variables keep their sums in a global scratch: two
 # f32 sums a variable fill the 48 KB of shared memory a launch may take
 # without opting in to more
@@ -36,18 +34,17 @@ _COLS = ("u_like", "eta_in", "em", "mask", "eta_state", "sign", "force",
 
 
 def use_sp_sweep(batch) -> bool:
-    """The JAX package's eligibility: a uniform clause width it has tiles
-    for, on a batch that meets the window invariants (the CUDA kernel
-    itself needs neither; the rule keeps the two packages on one route)."""
-    return bool(batch.fast_var and batch.fast_clause
-                and batch.clause_width in SWEEP_WIDTHS)
+    """The JAX package's eligibility (`pallas_sp.py use_sp_sweep` :159,
+    which is its chained passes' rule)."""
+    return fused.use_chained_pass(batch)
 
 
-def sp_full_sweep_plain(batch, cols, pi=0.0):
+def sp_full_sweep_plain(batch, cols, pi=0.0, login=False):
     """The plain version: the propagator's two plain steps."""
     u_like, eta_in, em, mask, eta_state, sign, force, v0, v1, v2 = cols
+    chain = fused.SP_CHAIN_LOGIN if login else fused.SP_CHAIN
     _, pn, (new_eta,), _ = fused.chained_edge_pass_plain(
-        fused.SP_CHAIN, batch, (u_like, eta_in, em, mask, eta_state, sign))
+        chain, batch, (u_like, eta_in, em, mask, eta_state, sign))
     _, (nv0, nv1, nv2) = fused.fused_edge_pass_plain(
         fused.SP_PASS_C, batch,
         (pn[0], pn[1], eta_in, em, mask, sign, force, v0, v1, v2),
@@ -58,10 +55,6 @@ def sp_full_sweep_plain(batch, cols, pi=0.0):
 def sp_full_sweep(batch, *, u_like, eta_in, em, mask, eta_state, sign,
                   force, v0, v1, v2, pi=0.0, login=False):
     """One complete SP sweep; see the module docstring."""
-    if login:
-        raise NotImplementedError(
-            "sp_full_sweep(login=True) serves p-nd-np's adaptors, which "
-            "come with the p-nd-np slice")
     cols = (u_like, eta_in, em, mask, eta_state, sign, force, v0, v1, v2)
     E = batch.num_edges
     for name, x in zip(_COLS, cols):
@@ -72,7 +65,7 @@ def sp_full_sweep(batch, *, u_like, eta_in, em, mask, eta_state, sign,
             raise ValueError(f"sp_full_sweep: {name} is on {x.device}, the "
                              f"batch on {batch.device}")
     if batch.device.type == "cpu":
-        return sp_full_sweep_plain(batch, cols, pi)
+        return sp_full_sweep_plain(batch, cols, pi, login)
     if batch.device.type != "cuda":
         raise ValueError(f"sp_full_sweep: unsupported device {batch.device}")
     dev = batch.device
@@ -92,10 +85,14 @@ def sp_full_sweep(batch, *, u_like, eta_in, em, mask, eta_state, sign,
         batch.inst_clause_ptr.data_ptr(), batch.inst_var_ptr.data_ptr(),
         batch.batch_size, V, batch.max_instance_vars, batch.num_real_edges,
         E, None if scratch is None else scratch.data_ptr(), float(pi),
-        torch.cuda.current_stream(dev).cuda_stream)
+        int(bool(login)), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "sp_full_sweep")
     sp_full_sweep.launches += 1
+    key = "login" if login else "plain"
+    sp_full_sweep.launches_by_form[key] = (
+        sp_full_sweep.launches_by_form.get(key, 0) + 1)
     return tuple(outs)
 
 
 sp_full_sweep.launches = 0
+sp_full_sweep.launches_by_form = {}

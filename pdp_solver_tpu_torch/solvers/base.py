@@ -3,24 +3,31 @@ post-processing.
 
 Counterpart of `pdp_solver_tpu/solvers/base.py` (`SolverConfig`,
 `PDPSolver.forward`/`_forward`/`_forward_core` :332-603,
-`local_search`/`_local_search` :607-828) for four of its six assemblies:
+`local_search`/`_local_search` :607-828) for five of its six assemblies:
   p-d-p     SP propagator + sequential decimator (SP scorer) + identity
             predictor;
   np-nd-np  neural propagator + neural (GRU) decimator + neural predictor,
             with parameters (`init_params`, or a JAX checkpoint through
             `convert.params_from_jax`);
+  p-nd-np   SP propagator reading the neural decimator's states through
+            learned adaptors + neural (GRU) decimator over the stacked SP
+            columns + neural predictor, with parameters as np-nd-np;
   walk-sat  no hot loop: WalkSAT from the simplified problem's identity
             prediction (random fill on the active variables);
   reinforce SP propagator with the external-force factor pi + REINFORCE
             decimator (SP scorer with pi) + REINFORCE predictor.
-p-nd-np and np-d-np raise NotImplementedError.
+np-d-np raises NotImplementedError.
 
 The JAX hot loop is one `lax.while_loop` that stops once no instance is
 active. Here it is a Python loop of `iteration_num` iterations with no host
 sync: the caller runs it in chunks (the resumable `carry=` /
 `finalize=False` API) and reads the per-instance active flags once per
-chunk. Once no instance is active an iteration changes nothing but the
-sequential decimator's counters, which are held with a device-side flag,
+chunk. With check_termination and PDP_VERIFY_MASKS=on (read at each call,
+default off, as in the JAX package) an eligible batch verifies the
+prediction and builds the next edge masks in one launch (`ops/verify.py`)
+instead of `cnf_evaluate`, the freeze and `edge_masks_pair`. Once no
+instance is active an iteration changes nothing but the sequential
+decimator's counters, which are held with a device-side flag,
 so running out the chunk gives what the JAX loop gives. (The neural
 states of a stopped instance are frozen, and its prediction and solution
 are recomputed from them unchanged.)
@@ -28,11 +35,13 @@ are recomputed from them unchanged.)
 The classical draws (message inits, REINFORCE's per-iteration coin, the
 random fills) come from one CPU `torch.Generator` (the same numbers on the
 CPU and on the card for the same seed); what the device needs is copied
-there. The four [E, h] neural states are drawn on the batch's
-device, from a generator seeded by the CPU one.
+there. The [E, h] neural states (four for np-nd-np, two for p-nd-np's
+decimator) are drawn on the batch's device, from a generator seeded by
+the CPU one.
 """
 
 import dataclasses
+import os
 
 import torch
 from torch import nn
@@ -42,6 +51,7 @@ from pdp_solver_tpu_torch.modules import predict as P
 from pdp_solver_tpu_torch.modules import propagate as PR
 from pdp_solver_tpu_torch.ops import fused
 from pdp_solver_tpu_torch.ops.segment import segment_argmax_first, segment_sum
+from pdp_solver_tpu_torch.ops.verify import use_verify_masks, verify_and_masks
 from pdp_solver_tpu_torch.ops.walksat import (
     use_walksat_block, walksat_block, walksat_edge_constants)
 from pdp_solver_tpu_torch.problem.simplify import fused_simplify
@@ -93,6 +103,8 @@ class SolverState:
     """p-d-p: SPMessages, SPMessages, SeqDecimatorState.
     reinforce: SPMessages, SPMessages, ReinforceDecimatorState.
     np-nd-np: (var, fn) [E, h] pairs for prop and dec, and aux ().
+    p-nd-np: SPMessages for prop, a (var, fn) [E, h] pair for dec, and
+    aux ().
     walk-sat: (), (), ()."""
     prop: object      # propagator message state
     dec: object       # decimator state / the messages it hands back
@@ -110,7 +122,7 @@ def _uniform(generator, shape, device):
 
 
 class PDPSolver:
-    """The p-d-p, np-nd-np, walk-sat and reinforce assemblies."""
+    """The p-d-p, np-nd-np, p-nd-np, walk-sat and reinforce assemblies."""
 
     def __init__(self, config: SolverConfig):
         self.cfg = config
@@ -118,12 +130,16 @@ class PDPSolver:
         if t not in ("np-nd-np", "p-nd-np", "np-d-np", "p-d-p", "walk-sat",
                      "reinforce"):
             raise ValueError(f"unknown model_type {t!r}")
-        if t in ("p-nd-np", "np-d-np"):
+        if t == "np-d-np":
             raise NotImplementedError(
                 f"model_type {t!r} is not ported yet (p-d-p, np-nd-np, "
-                "walk-sat and reinforce are)")
+                "p-nd-np, walk-sat and reinforce are)")
         c = config
         self.prop_cfg = self.dec_cfg = self.scorer_cfg = None
+        # which parts are neural: the propagator (np-nd-np), the GRU
+        # decimator and the neural predictor (np-nd-np, p-nd-np)
+        self.neural_prop = t == "np-nd-np"
+        self.neural_dec = t in ("np-nd-np", "p-nd-np")
         if t == "walk-sat":
             return
         if t == "p-d-p":
@@ -144,14 +160,22 @@ class PDPSolver:
         if c.meta_dim:
             raise NotImplementedError("per-instance meta features are not "
                                       "ported yet")
-        self.prop_cfg = PR.NeuralPropagatorConfig(
-            edge_dim=c.edge_dim, decimator_dim=c.hidden_dim,
-            meta_dim=c.meta_dim, hidden_dim=c.hidden_dim,
-            mem_hidden_dim=c.mem_hidden_dim,
-            mem_agg_hidden_dim=c.mem_agg_hidden_dim,
-            agg_hidden_dim=c.agg_hidden_dim, dropout=c.dropout)
+        if t == "p-nd-np":
+            self.prop_cfg = PR.SurveyPropagatorConfig(
+                include_adaptors=True, decimator_dim=c.hidden_dim)
+            # SP messages arrive as [E, 3] var / [E, 2] fn blocks (the JAX
+            # package's fix of the reference's (3, 1), solvers/base.py:170)
+            msg_dims = (3, 2)
+        else:
+            self.prop_cfg = PR.NeuralPropagatorConfig(
+                edge_dim=c.edge_dim, decimator_dim=c.hidden_dim,
+                meta_dim=c.meta_dim, hidden_dim=c.hidden_dim,
+                mem_hidden_dim=c.mem_hidden_dim,
+                mem_agg_hidden_dim=c.mem_agg_hidden_dim,
+                agg_hidden_dim=c.agg_hidden_dim, dropout=c.dropout)
+            msg_dims = (c.hidden_dim, c.hidden_dim)
         self.dec_cfg = D.NeuralDecimatorConfig(
-            var_message_dim=c.hidden_dim, fn_message_dim=c.hidden_dim,
+            var_message_dim=msg_dims[0], fn_message_dim=msg_dims[1],
             meta_dim=c.meta_dim, hidden_dim=c.hidden_dim,
             edge_dim=c.edge_dim, dropout=c.dropout)
         self.pred_cfg = P.NeuralPredictorConfig(
@@ -162,19 +186,18 @@ class PDPSolver:
             mem_agg_hidden_dim=c.mem_agg_hidden_dim,
             classifier_dim=c.classifier_dim, classifier_kind="sigmoid")
 
-    @property
-    def neural(self):
-        return self.cfg.model_type == "np-nd-np"
-
     def init_params(self, device="cuda"):
         """Freshly initialised parameters: {} for the classical assemblies
-        (p-d-p, walk-sat, reinforce), for np-nd-np a
-        ModuleDict of the propagator ("prop"), the decimator ("dec") and
-        the predictor ("predictor"), in eval mode."""
-        if not self.neural:
+        (p-d-p, walk-sat, reinforce), for np-nd-np and p-nd-np a
+        ModuleDict of the propagator ("prop": the neural propagator, or
+        p-nd-np's SP adaptors), the decimator ("dec") and the predictor
+        ("predictor"), in eval mode."""
+        if not self.neural_dec:
             return {}
+        prop = (PR.NeuralPropagator(self.prop_cfg) if self.neural_prop
+                else PR.SurveyAdaptors(self.prop_cfg))
         return nn.ModuleDict({
-            "prop": PR.NeuralPropagator(self.prop_cfg),
+            "prop": prop,
             "dec": D.NeuralDecimator(self.dec_cfg),
             "predictor": P.NeuralPredictor(self.pred_cfg),
         }).to(device).eval()
@@ -184,51 +207,59 @@ class PDPSolver:
         """p-d-p and reinforce: random (or uniform) SP messages for the
         propagator and for the decimator's first hand-back, and fresh
         decimator bookkeeping. np-nd-np: random U(-1, 1) (or zero) [E, h]
-        states. walk-sat: no state."""
+        states. p-nd-np: SP messages for the propagator (from the CPU
+        generator) and U(-1, 1) (or zero) [E, h] states for the decimator.
+        walk-sat: no state."""
         E, dev = batch.num_edges, batch.device
         if self.cfg.model_type == "walk-sat":
             return SolverState(prop=(), dec=(), aux=())
-        if self.neural:
+
+        def neural_states(n):
             g = torch.Generator(device=dev)
             g.manual_seed(random_seed32(generator))
-            h = self.cfg.hidden_dim
-            return SolverState(
-                prop=PR.neural_init_state(g, E, h, randomized, dev),
-                dec=PR.neural_init_state(g, E, h, randomized, dev), aux=())
-        prop = PR.survey_propagator_init_state(generator, E, randomized,
-                                               "cpu")
-        dec = P.scorer_message_init_state(generator, E, randomized, "cpu")
+            return [PR.neural_init_state(g, E, self.cfg.hidden_dim,
+                                         randomized, dev) for _ in range(n)]
 
         def to_dev(m):
             return PR.SPMessages(var=tuple(x.to(dev) for x in m.var),
                                  fn=tuple(x.to(dev) for x in m.fn))
+        if self.neural_prop:
+            prop, dec = neural_states(2)
+            return SolverState(prop=prop, dec=dec, aux=())
+        prop = to_dev(PR.survey_propagator_init_state(generator, E,
+                                                      randomized, "cpu"))
+        if self.neural_dec:
+            return SolverState(prop=prop, dec=neural_states(1)[0], aux=())
+        dec = P.scorer_message_init_state(generator, E, randomized, "cpu")
         aux = (D.reinforce_decimator_init_state(batch)
                if self.cfg.model_type == "reinforce"
                else D.seq_decimator_init_state(batch))
-        return SolverState(prop=to_dev(prop), dec=to_dev(dec), aux=aux)
+        return SolverState(prop=prop, dec=to_dev(dec), aux=aux)
 
     # -- building blocks ------------------------------------------------
 
     def _check_params(self, params):
-        if not self.neural:
+        if not self.neural_dec:
             if params:
                 raise ValueError(f"{self.cfg.model_type} takes no "
                                  "parameters")
             return
         missing = {"prop", "dec", "predictor"} - set(params or {})
         if missing:
-            raise ValueError(f"np-nd-np parameters lack {sorted(missing)}")
+            raise ValueError(f"{self.cfg.model_type} parameters lack "
+                             f"{sorted(missing)}")
 
     def _propagate(self, params, batch, prop, dec, em, ae):
-        if self.neural:
+        if self.neural_prop:
             return params["prop"](batch, prop, dec, em, ae)
-        return PR.survey_propagator_apply(self.prop_cfg, batch, prop, dec,
-                                          em, ae)
+        return PR.survey_propagator_apply(
+            self.prop_cfg, batch, prop, dec, em, ae,
+            adaptors=params["prop"] if self.neural_dec else None)
 
     def _predict(self, params, generator, batch, problem, dec, em,
                  last_call):
         """The variable prediction [V, 1]."""
-        if self.neural:
+        if self.neural_dec:
             return params["predictor"](batch, dec, em)[0]
         if self.cfg.model_type == "reinforce":
             return P.reinforce_predictor_apply(batch, dec)[0]
@@ -247,7 +278,7 @@ class PDPSolver:
         finalize=True returns ((variable_prediction [V, 1], None), state):
         the decimated solution with random fill on still-active variables
         (p-d-p, walk-sat), the sign of the summed forces (reinforce) or the
-        neural prediction (np-nd-np), improved by local search when
+        neural prediction (np-nd-np, p-nd-np), improved by local search when
         local_search_iterations > 0. walk-sat runs no hot loop: its state
         comes back untouched and every instance stays active.
         finalize=False returns ((None, None), state, carry) with carry =
@@ -284,6 +315,8 @@ class PDPSolver:
                       iteration_num, check_termination, resume=None):
         """The hot loop (solvers/base.py :456-603, unfolded path).
         REINFORCE draws its coin from `generator` once per iteration."""
+        use_vm = (check_termination and use_verify_masks(batch)
+                  and os.environ.get("PDP_VERIFY_MASKS", "off") == "on")
         if resume is not None:
             active_b, em = resume
         else:
@@ -294,7 +327,7 @@ class PDPSolver:
         for _ in range(iteration_num):
             prop = self._propagate(params, batch, state.prop, state.dec, em,
                                    ae)
-            if self.neural:
+            if self.neural_dec:
                 # the neural decimator never changes the problem
                 dec = params["dec"](batch, state.dec, prop, ae)
                 state = SolverState(prop=prop, dec=dec, aux=())
@@ -332,9 +365,16 @@ class PDPSolver:
                 pred = self._predict(params, None, batch, problem, state.dec,
                                      em, last_call=False)
                 var_pred, problem = _update_solution(problem, pred)
-                solved, _ = cnf_evaluate(batch, var_pred)
+                if use_vm:
+                    # verification, the freeze of the instances it solved
+                    # and the next masks in one launch
+                    solved, _, em, ae = verify_and_masks(batch, problem,
+                                                         active_b, var_pred)
+                else:
+                    solved, _ = cnf_evaluate(batch, var_pred)
                 active_b = active_b * (solved <= 0.5).to(torch.float32)
-            em, ae = edge_masks_pair(batch, problem, active_b)
+            if not use_vm:
+                em, ae = edge_masks_pair(batch, problem, active_b)
         return problem, state, active_b
 
     # -- WalkSAT local search -------------------------------------------

@@ -1,27 +1,36 @@
 """Where the time of the port's solves goes, on one CUDA card.
 
     python -m pdp_solver_tpu_torch.utils.profile_solve [--seeds 0 1 2]
-        [--model p-d-p|np-nd-np|walk-sat|reinforce]
-        [--settings headline|reference] [--no-profile]
+        [--model p-d-p|np-nd-np|p-nd-np|walk-sat|reinforce]
+        [--settings headline|reference] [--sp-sweep] [--verify-masks]
+        [--no-profile]
 
 On the shared set, with p-d-p at the headline settings (or, with
 --settings reference, at the JAX solver table's reference settings),
-np-nd-np with the r3 checkpoint, or walk-sat and reinforce at the solver
-table's settings (the settings of chip_smoke.py), it prints one JSON line
-with:
+np-nd-np with the r3 checkpoint, p-nd-np with the r4 checkpoint, or
+walk-sat and reinforce at the solver table's settings (the settings of
+chip_smoke.py), it prints one JSON line with:
   - per seed: the numpy-verified solved fraction and the wall time of
     compacting_solve (split into the iteration loop and WalkSAT);
   - the hot loop at full size: ms per iteration over one 50-iteration
     chunk (host clock around synchronised work, after a warm-up chunk);
   - a torch.profiler trace of the same chunk run again: device busy time
-    by kernel, the kernel launches per iteration, and the device's idle
-    share (1 - busy / the unprofiled wall).
+    by kernel (the top 15, and every kernel of the port's own library
+    with its microseconds a call), the kernel launches per iteration, and
+    the device's idle share (1 - busy / the unprofiled wall).
 walk-sat has no hot loop, and --no-profile skips it for any model.
+--sp-sweep and --verify-masks set PDP_SP_SWEEP=on and PDP_VERIFY_MASKS=on
+for the whole run (the profiled chunk and the seeds' solves): the
+one-launch sweep (kernel 9) and the one-launch verification with masks
+(kernel 10).
 Needs a CUDA card; exits 2 without one.
 """
 
 import argparse
+import glob
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -36,7 +45,19 @@ from pdp_solver_tpu_torch.utils.classical import (
 from pdp_solver_tpu_torch.utils.headline import (
     HEADLINE, REFERENCE, headline_solver, solve_headline)
 from pdp_solver_tpu_torch.utils.neural import (
-    NP_ND_NP, np_nd_np_params, np_nd_np_solver, solve_np_nd_np)
+    NP_ND_NP, P_ND_NP, np_nd_np_params, np_nd_np_solver, p_nd_np_params,
+    p_nd_np_solver, solve_np_nd_np, solve_p_nd_np)
+
+
+def own_kernel_names():
+    """The __global__ kernels of the port's CUDA sources."""
+    csrc = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "csrc")
+    names = set()
+    for path in glob.glob(os.path.join(csrc, "*.cu")):
+        with open(path) as f:
+            names |= set(re.findall(r"__global__ void (\w+)", f.read()))
+    return names
 
 
 def _device_us(evt):
@@ -80,6 +101,9 @@ def hot_loop(insts, solver, params, n=50):
             launches += evt.count
     busy_us = sum(us for us, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
+    own_names = own_kernel_names()
+    own = sorted((k, v) for k, v in kernels.items()
+                 if any(re.search(rf"\b{n}\b", k) for n in own_names))
     # the profiler slows the host, not the device: the idle share is the
     # profiled device time against the unprofiled wall of the same chunk
     return {
@@ -91,19 +115,33 @@ def hot_loop(insts, solver, params, n=50):
         "kernel_launches_per_iteration": launches / n,
         "top_kernels": [{"name": k[:80], "device_ms": us / 1e3,
                          "count": c} for k, (us, c) in top],
+        "own_kernels": [{"name": k[:120], "device_ms": us / 1e3,
+                         "count": c, "us_per_call": us / c}
+                        for k, (us, c) in own],
     }
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
+    ap.add_argument("--seeds", type=int, nargs="*", default=[0, 1, 2],
+                    help="the seeds to solve (none: only the hot loop)")
     ap.add_argument("--model", default="p-d-p",
-                    choices=("p-d-p", "np-nd-np", "walk-sat", "reinforce"))
+                    choices=("p-d-p", "np-nd-np", "p-nd-np", "walk-sat",
+                             "reinforce"))
     ap.add_argument("--settings", choices=("headline", "reference"),
                     default="headline", help="p-d-p's settings")
+    ap.add_argument("--sp-sweep", action="store_true",
+                    help="PDP_SP_SWEEP=on: the one-launch SP sweep")
+    ap.add_argument("--verify-masks", action="store_true",
+                    help="PDP_VERIFY_MASKS=on: verification and masks in "
+                         "one launch")
     ap.add_argument("--no-profile", action="store_true",
                     help="skip the hot-loop timing and trace")
     args = ap.parse_args(argv)
+    for flag, name in ((args.sp_sweep, "PDP_SP_SWEEP"),
+                       (args.verify_masks, "PDP_VERIFY_MASKS")):
+        if flag:
+            os.environ[name] = "on"
     if not torch.cuda.is_available():
         print("profile_solve: no CUDA card", file=sys.stderr)
         return 2
@@ -113,7 +151,9 @@ def main(argv=None):
                          text=True)
     out = {"device": torch.cuda.get_device_name(0),
            "card": smi.stdout.strip().splitlines()[0] if smi.stdout else None,
-           "fingerprint": dataset_fingerprint(insts), "model": args.model}
+           "fingerprint": dataset_fingerprint(insts), "model": args.model,
+           "env": {k: os.environ.get(k, "off")
+                   for k in ("PDP_SP_SWEEP", "PDP_VERIFY_MASKS")}}
     profile = not args.no_profile
     if args.model == "p-d-p":
         h = REFERENCE if args.settings == "reference" else HEADLINE
@@ -128,6 +168,13 @@ def main(argv=None):
         if profile:
             out["hot_loop"] = hot_loop(insts, np_nd_np_solver(), params)
         out["seeds"] = [solve_np_nd_np(insts, s, params=params)
+                        for s in args.seeds]
+    elif args.model == "p-nd-np":
+        params = p_nd_np_params()
+        out["settings"] = P_ND_NP
+        if profile:
+            out["hot_loop"] = hot_loop(insts, p_nd_np_solver(), params)
+        out["seeds"] = [solve_p_nd_np(insts, s, params=params)
                         for s in args.seeds]
     elif args.model == "reinforce":
         out["settings"] = dict(CLASSICAL, **REINFORCE)

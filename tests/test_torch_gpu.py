@@ -8,7 +8,11 @@ chip_smoke.py: flags and counts exact, float sums rtol 1e-5 / atol 1e-6
 [E, d] gather bit-exact. The multi-column segment sum (kernels 4, 5 and
 8) is exact on signed integer-valued columns, its sums of non-negative
 floats (as the path's are) and the one-launch SP sweep (kernel 9) to rtol
-1e-5 / atol 1e-6 (the plain versions sum with atomics on the card).
+1e-5 / atol 1e-6 (the plain versions sum with atomics on the card). The
+log-input sweep (kernel 9, login=True) also bit for bit against the two
+launches it replaces (`sp_chain_login`, `sp_pass_c`), and the verification
+with masks (kernel 10) exactly against its plain version and the split
+path, on every edge.
 """
 
 import numpy as np
@@ -16,7 +20,10 @@ import pytest
 import torch
 
 from pdp_solver_tpu_torch.fg.batch import pack_instances
-from pdp_solver_tpu_torch.ops import fused, reduce, sp_sweep, walksat
+from pdp_solver_tpu_torch.ops import fused, reduce, sp_sweep, verify, walksat
+from pdp_solver_tpu_torch.problem.state import (
+    edge_masks_pair, init_problem_state)
+from pdp_solver_tpu_torch.train.loss import cnf_evaluate
 from pdp_solver_tpu_torch.utils.benchdata import make_ksat_set
 
 pytestmark = pytest.mark.gpu
@@ -206,3 +213,79 @@ def test_sp_sweep_matches_plain_and_two_launch_path(batches, case, pi):
         assert bool(torch.isfinite(a).all())
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
         torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-6)
+
+
+def test_sp_sweep_login_bit_equal_to_two_launch_path(batches):
+    """login=True (u given as log u): against its plain version, and bit
+    for bit against `sp_chain_login` + `sp_pass_c`."""
+    gpu = batches[1]
+    kw = _sweep_inputs(gpu, 12, 0.0)
+    kw["u_like"] = torch.log(kw["u_like"])
+    got = sp_sweep.sp_full_sweep(gpu, login=True, **kw)
+    ref = sp_sweep.sp_full_sweep_plain(gpu, tuple(kw.values()), 0.0,
+                                       login=True)
+    _, pn, (eta2,), _ = fused.chained_edge_pass(
+        fused.SP_CHAIN_LOGIN, gpu, (kw["u_like"], kw["eta_in"], kw["em"],
+                                    kw["mask"], kw["eta_state"], kw["sign"]))
+    _, two = fused.fused_edge_pass(
+        fused.SP_PASS_C, gpu,
+        (pn[0], pn[1], kw["eta_in"], kw["em"], kw["mask"], kw["sign"],
+         kw["force"], kw["v0"], kw["v1"], kw["v2"]), scalar=0.0)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, ref, (eta2,) + tuple(two)):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        assert torch.equal(a, c)
+
+
+def _planted(rng, count, n, m, k):
+    """Instances satisfied by a random assignment each (a clause that the
+    assignment leaves unsatisfied gets its first literal flipped), and
+    the assignments (0/1)."""
+    insts, xs = [], []
+    for _ in range(count):
+        x = rng.integers(0, 2, size=n)
+        v = rng.random((m, n)).argsort(1)[:, :k]
+        s = rng.integers(0, 2, size=(m, k)) * 2 - 1
+        sat = ((s > 0) == (x[v] > 0)).any(1)
+        s[~sat, 0] *= -1
+        insts.append((n, m, np.stack([v.reshape(-1), np.repeat(
+            np.arange(m), k)]).astype(np.int32),
+            s.reshape(-1).astype(np.float32), -1.0))
+        xs.append(x.astype(np.float32))
+    return insts, xs
+
+
+def test_verify_and_masks_matches_plain_and_split_path():
+    """Exactly, on solved, unsat, em and ae, on every edge: some variables
+    and clauses inactive, instance 2 already stopped, a prediction that
+    solves the even instances."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(9)
+    insts, xs = _planted(rng, 6, 60, 540, 4)
+    gpu = pack_instances(insts, device="cuda")
+    assert verify.use_verify_masks(gpu)
+    pred = rng.uniform(size=gpu.num_vars).astype(np.float32)
+    for b in range(0, 6, 2):
+        pred[b * 60:(b + 1) * 60] = xs[b]
+    p = torch.from_numpy(pred)[:, None].cuda()
+    problem = init_problem_state(gpu)
+    av, ac = problem.active_vars.clone(), problem.active_clauses.clone()
+    av[::7] = 0.0
+    ac[::5] = 0.0
+    problem = problem.replace(active_vars=av, active_clauses=ac)
+    act = gpu.instance_mask.clone()
+    act[2] = 0.0
+    got = verify.verify_and_masks(gpu, problem, act, p)
+    ref = verify.verify_and_masks_plain(gpu, av, ac, act, p[:, 0])
+    solved, unsat = cnf_evaluate(gpu, p)
+    split = (solved, unsat) + edge_masks_pair(
+        gpu, problem, act * (solved <= 0.5).float())
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("solved", "unsat", "em", "ae"), got, ref,
+                             split):
+        assert torch.equal(a, b), name
+        assert torch.equal(a, c), name
+    assert got[0][:6].tolist() == [1, 0, 1, 0, 1, 0]
+    assert gpu.num_edges > gpu.num_real_edges

@@ -286,9 +286,11 @@ def test_build_solver_and_convert():
     assert solver.prop_cfg.pi == solver.scorer_cfg.pi == 0.01
     assert solver.dec_cfg.decimation_probability == 0.25
     assert build_solver({"model_type": "walk-sat"}).dec_cfg is None
-    for t in ("p-nd-np", "np-d-np"):
-        with pytest.raises(NotImplementedError):
-            PDPSolver(SolverConfig(model_type=t))
+    with pytest.raises(NotImplementedError):
+        PDPSolver(SolverConfig(model_type="np-d-np"))
+    # p-nd-np is ported: the assembly builds, with its SP adaptors
+    assert PDPSolver(SolverConfig(model_type="p-nd-np")
+                     ).prop_cfg.include_adaptors
     with pytest.raises(ValueError):
         PDPSolver(SolverConfig(model_type="walk-sat")).forward(
             {"x": 1}, None, None, None, 1)

@@ -199,8 +199,11 @@ def test_convert_and_build():
                            "local_search_iteration": 7})
     assert solver.cfg.tolerance == 0.1
     assert solver.cfg.local_search_iterations == 7
+    # p-nd-np is ported: the assembly builds, with its SP adaptors
+    assert PDPSolver(SolverConfig(model_type="p-nd-np")
+                     ).prop_cfg.include_adaptors
     with pytest.raises(NotImplementedError):
-        PDPSolver(SolverConfig(model_type="p-nd-np"))
+        PDPSolver(SolverConfig(model_type="np-d-np"))
     with pytest.raises(ValueError):
         PDPSolver(SolverConfig(model_type="nope"))
     jb = jax_pack(_instances(4, n_inst=2))

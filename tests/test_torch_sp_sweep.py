@@ -24,6 +24,10 @@ enters the edge's variable sum and is subtracted out again in `same`, so
 0.17897151 in the port, 0.17896591 in float64). The triplet of such an
 edge is held to atol 4 * ulp(87.3) = 3.05e-5; every other value to the
 tolerance above.
+
+The log-input form (login=True, p-nd-np's adaptors hand over log u) is
+held against the JAX kernel at the same tolerances, and against the
+port's own two-launch `sp_chain_login` + `sp_pass_c` path bit for bit.
 """
 
 import jax
@@ -41,7 +45,7 @@ from pdp_solver_tpu.ops import pallas_sp
 from pdp_solver_tpu_torch import convert
 from pdp_solver_tpu_torch.fg.batch import pack_instances
 from pdp_solver_tpu_torch.modules import propagate
-from pdp_solver_tpu_torch.ops import sp_sweep
+from pdp_solver_tpu_torch.ops import fused, sp_sweep
 
 FLOAT = dict(rtol=1e-5, atol=1e-6)
 
@@ -194,11 +198,65 @@ def test_route_follows_env_and_eligibility(sweep_env, monkeypatch):
 
 
 def test_login_and_bad_inputs_raise():
+    """Misshapen inputs raise, with and without login (which is ported and
+    runs)."""
     _, tb = _both(1, 3, n_inst=2)
     z = torch.zeros(tb.num_edges)
     cols = dict(u_like=z, eta_in=z, em=z, mask=z, eta_state=z,
                 sign=tb.edge_sign, force=z, v0=z, v1=z, v2=z)
-    with pytest.raises(NotImplementedError, match="p-nd-np"):
-        sp_sweep.sp_full_sweep(tb, login=True, **cols)
-    with pytest.raises(ValueError):
-        sp_sweep.sp_full_sweep(tb, **dict(cols, v2=z[:-1]))
+    assert len(sp_sweep.sp_full_sweep(tb, login=True, **cols)) == 4
+    for login in (False, True):
+        with pytest.raises(ValueError):
+            sp_sweep.sp_full_sweep(tb, login=login, **dict(cols, v2=z[:-1]))
+        with pytest.raises(ValueError):
+            sp_sweep.sp_full_sweep(tb, login=login,
+                                   **dict(cols, em=z.double()))
+
+
+def _login_inputs(jb, seed):
+    """The log-input sweep's columns as p-nd-np's adaptors make them: log u
+    = log_sigmoid(.), eta_in = sigmoid(.), force = sign(.) (numpy f32)."""
+    rng = np.random.default_rng(seed)
+    E = jb.num_edges
+    x = rng.normal(0.0, 2.0, size=(3, E)).astype(np.float64)
+    v = rng.uniform(size=(E, 3))
+    v = v / v.sum(1, keepdims=True)
+    em, ae = _masks(jb, seed + 1)
+    cols = dict(u_like=-np.logaddexp(0.0, -x[0]),
+                eta_in=1.0 / (1.0 + np.exp(-x[1])), em=em, mask=ae,
+                eta_state=rng.uniform(size=E), sign=np.asarray(jb.edge_sign),
+                force=np.sign(x[2]), v0=v[:, 0], v1=v[:, 1], v2=v[:, 2])
+    return {k: np.ascontiguousarray(c, dtype=np.float32)
+            for k, c in cols.items()}
+
+
+@pytest.mark.parametrize("k", [3, 4])
+def test_login_sweep_matches_jax_kernel(sweep_env, k):
+    """login=True against the JAX kernel in interpret mode, and the port's
+    one-call form against its two-launch `sp_chain_login` + `sp_pass_c`
+    path bit for bit."""
+    jb, tb = _both(30 + k, k)
+    cols = _login_inputs(jb, k)
+    ref = pallas_sp.sp_full_sweep(
+        gather_ids=jb.edge_var, clause_width=jb.clause_width,
+        num_vars=jb.num_vars, login=True, interpret=True,
+        **{n: jnp.asarray(c) for n, c in cols.items()})
+    t = {n: torch.from_numpy(c) for n, c in cols.items()}
+    got = sp_sweep.sp_full_sweep(tb, login=True, **t)
+    _real_close(jb, ref[0], got[0])
+    for r, g in zip(ref[1:], got[1:]):
+        _real_close(jb, r, g, t["eta_in"], cols["em"])
+    order = tuple(t[n] for n in sp_sweep._COLS)
+    _, pn, (eta,), _ = fused.chained_edge_pass(
+        fused.SP_CHAIN_LOGIN, tb, order[:6])
+    _, q = fused.fused_edge_pass(
+        fused.SP_PASS_C, tb, (pn[0], pn[1]) + order[1:2] + order[2:4]
+        + order[5:], scalar=0.0)
+    for a, b in zip(got, (eta,) + tuple(q)):
+        assert torch.equal(a, b)
+    # the login form reads u as log u: the plain sweep of exp(log u) gives
+    # the same clause sums up to rounding
+    plain = sp_sweep.sp_full_sweep(
+        tb, **dict(t, u_like=torch.exp(t["u_like"])))
+    for a, b in zip(got, plain):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
