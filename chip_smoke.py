@@ -20,7 +20,18 @@ Phases, one flushed line each with the elapsed seconds:
      C = 1 over the clause CSR), the same kernel on a ragged batch of
      mixed clause widths (kernel 5's function) and over sorted ids
      (kernel 8's function), exact on integer columns and to rtol 1e-5 /
-     atol 1e-6 on floats, timed beside index_add_ and kernel 6; the
+     atol 1e-6 on floats, timed beside index_add_ and kernel 6. Kernels
+     4, 5, 8 and kernel 1's var side run the group walk (csrc/common.cuh):
+     each gives the same bits on two calls, and kernels 4, 5 and 8 the
+     bits of the walk's order emulated in PyTorch (ops/reduce.py
+     walk_order_sum). Kernels 1, 4, 5 and 8 and their PyTorch calls are
+     timed three ways (utils/bench_kernels.py timed): ms / call with CUDA
+     events, host us / call with perf_counter and no synchronize, device
+     us / call from the profiler; and again at a compacted shape (the 8
+     instances of a 32,768-edge bucket) and at high degree (a var CSR
+     with one 63,488-edge node; kernel 8 over the shared set's clause ids
+     with the padding's 63,488-edge last run), whose float sums are held
+     against the plain version in float64; the
      one-launch SP sweep (kernel 9) for pi = 0 and 0.01 against its plain
      version and against the two launches it replaces (rtol 1e-5 / atol
      1e-6), timed beside both, and in its log-input form (login=True,
@@ -62,7 +73,9 @@ Phases, one flushed line each with the elapsed seconds:
      through kernel 9 (login) and kernel 10, each launched once per
      iteration (equal counts) and no `sp_chain_login` or `em_ae` left;
      >= 28/128 solved, printed beside phase 8's count;
- 10. the {"kernels": [...]} line, the card's name and power limit, and as
+ 10. seeds 1 and 2 of p-d-p and reinforce, printed with seed 0 beside
+     the counts from before the group walk;
+ 11. the {"kernels": [...]} line, the card's name and power limit, and as
      the last line {"ok": true, "device": {...}}.
 
 Every launch count is set to 0 just before each path and read just after
@@ -105,6 +118,9 @@ MIN_SOLVED_P_ND_NP = 28
 # path, in the JAX package either), the verification, the masks, WalkSAT
 P_ND_NP_KERNELS = ("sp_chain_login", "sp_pass_c", "segment_sum_2d",
                    "cnf_chain", "em_ae", "walksat_block")
+# solved counts of seeds 0-2 on an H100 when kernels 1 and 4 walked one
+# thread a node (utils/profile_solve.py --seeds 0 1 2 on that tree)
+PRIOR_SOLVED = {"p-d-p": [86, 84, 87], "reinforce": [12, 16, 10]}
 # card-vs-CPU REINFORCE forward: variables whose CPU |score| is below this
 # may take either sign; the share of differing forces after 10 iterations
 SCORE_TIE = 1e-5
@@ -144,6 +160,11 @@ def cuda_ms(fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timing_note(t):
+    return (f"{t['ms']:.4f} ms, host {t['host_us']:.1f} us, device "
+            f"{t['device_us']:.2f} us")
 
 
 def bound_ms(nbytes, flops):
@@ -207,6 +228,7 @@ def fused_bytes(fn, batch, chained):
 
 def check_kernels(batch, torch, np):
     from pdp_solver_tpu_torch.ops import fused, walksat
+    from pdp_solver_tpu_torch.utils.bench_kernels import timed
     rows = {}
     for fn in fused.FUSED_FNS + fused.CHAINED_FNS:
         chained = fn in fused.CHAINED_FNS
@@ -241,23 +263,44 @@ def check_kernels(batch, torch, np):
                 require(ok, f"{fn.name}: max abs err {err} beyond "
                         f"rtol {FLOAT_TOL['rtol']} / atol "
                         f"{FLOAT_TOL['atol']}")
-        ms = cuda_ms(lambda: call(fn, batch, ins), reps=50)
+        extra = {}
+        if chained:
+            ms = cuda_ms(lambda: call(fn, batch, ins), reps=50)
+        else:
+            if fn.side == "var":
+                # the group walk: the same bits on a second call
+                require(torch.equal(call(fn, batch, ins)[0], got[0]),
+                        f"{fn.name}: two calls differ")
+                extra["twice_equal"] = True
+            extra.update(timed(lambda: call(fn, batch, ins)))
+            ms = extra.pop("ms")
         plain_ms = cuda_ms(lambda: plain(fn, batch, ins), reps=10)
         # one PyTorch call computes the same function only for the plain
         # gather `ae` (an index_select); the others have none
-        library_ms = (cuda_ms(lambda: ins[0][batch.edge_var], reps=50)
-                      if fn.name == "ae" else None)
+        library_ms = None
+        if fn.name == "ae":
+            lib = timed(lambda: ins[0][batch.edge_var])
+            library_ms = lib["ms"]
+            extra.update(library_host_us=lib["host_us"],
+                         library_device_us=lib["device_us"])
         b_ms, b_by = bound_ms(fused_bytes(fn, batch, chained),
                               fn.flops * batch.num_edges)
         name = ("chained_edge_pass" if chained else "fused_edge_pass")
-        rows[fn.name] = {
+        rows[fn.name] = dict({
             "name": f"{name}[{fn.name}]", "route": "cuda",
             "source": "pdp_solver_tpu_torch/csrc/edge_pass.cu",
             "replaces": f"{PALLAS_FUSED}:{442 if chained else 553}",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms},
+            **extra)
+        more = ("" if chained else f", host {extra['host_us']:.1f} us, "
+                f"device {extra['device_us']:.2f} us")
+        lib = ("" if library_ms is None else f", library {library_ms:.4f} ms"
+               f" (host {extra['library_host_us']:.1f} us, device "
+               f"{extra['library_device_us']:.2f} us)")
         log(f"kernel {rows[fn.name]['name']}: ok, max abs err {err:.3g}, "
-            f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms)")
+            f"{ms:.4f} ms{more} (plain {plain_ms:.4f} ms, bound "
+            f"{b_ms:.5f} ms{lib})")
 
     # walksat_block: bit for bit, greedy and seeded, K = 8 as on the path
     g = torch.Generator().manual_seed(7)
@@ -402,10 +445,38 @@ def _check_sum(torch, name, got, ref, exact):
     return err
 
 
+def walk_reference(torch, x, ids, ptr=None, perm=None, n=None):
+    """The sums of x f32[C, E] in the group walk's order, emulated in
+    PyTorch (ops/reduce.py walk_order_sum): over the CSR (ptr, perm), or
+    over the runs of sorted ids when ptr is None."""
+    from pdp_solver_tpu_torch.ops import _build, reduce
+    if ptr is not None:
+        lo, hi = reduce.csr_bounds(ptr)
+        slot_edge = None if perm is None else perm.long()
+        n_slots = int(ptr[-1])
+    else:
+        lo, hi = reduce.sorted_bounds(ids, n)
+        n_slots, slot_edge = ids.shape[0], None
+    gw = _build.group_width(n_slots, lo.shape[0])
+    return reduce.walk_order_sum(x, lo, hi, slot_edge, gw)
+
+
+def check_walk_sum(torch, name, call, x, ids, **csr):
+    """A group-walk sum: the same bits on two calls and the bits of the
+    walk's order emulated in PyTorch."""
+    got, again = call(), call()
+    ref = walk_reference(torch, x, ids, **csr)
+    torch.cuda.synchronize()
+    require(torch.equal(got, again), f"{name}: two calls differ")
+    require(torch.equal(got, ref), f"{name}: not the walk's order (max "
+            f"abs diff {float((got - ref).abs().max()):.3g})")
+
+
 def check_reduce(batch, torch, np):
     """Kernel 4 (csrc/reduce.cu) at the shared-set shapes, on a ragged
     batch (kernel 5's function) and over sorted ids (kernel 8's)."""
     from pdp_solver_tpu_torch.ops import reduce, reduce2d
+    from pdp_solver_tpu_torch.utils.bench_kernels import timed
     E, V, F = batch.num_edges, batch.num_vars, batch.num_clauses
     e = batch.num_real_edges
     g = torch.Generator().manual_seed(23)
@@ -426,21 +497,33 @@ def check_reduce(batch, torch, np):
     # test's smooth-max), one column over the var CSR (the predictor), and
     # one column over the clause CSR
     shapes = {}
-    for label, C, ids, n, ptr, perm in (
-            ("var C=2", 2, batch.edge_var, V, batch.var_ptr, batch.var_perm),
-            ("var C=1", 1, batch.edge_var, V, batch.var_ptr, batch.var_perm),
+    for label, C, ids, n, ptr, perm, md in (
+            ("var C=2", 2, batch.edge_var, V, batch.var_ptr, batch.var_perm,
+             batch.var_max_degree),
+            ("var C=1", 1, batch.edge_var, V, batch.var_ptr, batch.var_perm,
+             batch.var_max_degree),
             ("clause C=1", 1, batch.edge_clause, F, batch.clause_ptr,
-             None)):
+             None, batch.clause_max_degree)):
         err = 0.0
         for integer in (True, False):
             cols = cols_of(C, E, integer)
             ref = reduce.segment_sum_cols_plain(cols, ids, n, e)
-            got = reduce.segment_sum_cols(cols, ids, n, e, ptr, perm)
+            got = reduce.segment_sum_cols(cols, ids, n, e, ptr, perm,
+                                          max_degree=md)
             torch.cuda.synchronize()
             err = max(err, _check_sum(torch, f"segment_sum_cols[{label}]",
                                       got, ref, integer))
+        check_walk_sum(torch, f"segment_sum_cols[{label}]",
+                       lambda: reduce.segment_sum_cols(
+                           cols, ids, n, e, ptr, perm, max_degree=md),
+                       torch.stack(cols), ids, ptr=ptr, perm=perm)
+        # the same bits when the launch does not know the largest degree
+        # (its anchored blocks then look for heavy nodes and find none)
+        require(torch.equal(got, reduce.segment_sum_cols(
+            cols, ids, n, e, ptr, perm)), f"segment_sum_cols[{label}]: "
+            "other bits without max_degree")
         x = torch.stack(cols, 1).contiguous()
-        got = reduce.segment_sum(x, ids, n, e, ptr, perm)
+        got = reduce.segment_sum(x, ids, n, e, ptr, perm, max_degree=md)
         torch.cuda.synchronize()
         require(torch.equal(got.reshape(n, C).T, reduce.segment_sum_cols(
             cols, ids, n, e, ptr, perm)), f"segment_sum[{label}]: [E, C] "
@@ -449,30 +532,34 @@ def check_reduce(batch, torch, np):
         out = torch.zeros(C, n, device="cuda")
         ids_real = ids[:e]
         b_ms, b_by = bound_ms(csr_bytes(C, n, e, perm is not None), C * e)
-        shapes[label] = {
-            "max_abs_err": err,
-            "ms": cuda_ms(lambda: reduce.segment_sum(x, ids, n, e, ptr, perm)
-                          if C > 1 else reduce.segment_sum_cols(
-                              cols, ids, n, e, ptr, perm), reps=50),
-            "plain_ms": cuda_ms(lambda: reduce.segment_sum_cols_plain(
+        kern = timed(lambda: reduce.segment_sum(
+            x, ids, n, e, ptr, perm, max_degree=md) if C > 1
+            else reduce.segment_sum_cols(cols, ids, n, e, ptr, perm,
+                                         max_degree=md))
+        lib = timed(lambda: out.index_add_(1, ids_real, xs))
+        shapes[label] = dict(
+            kern, max_abs_err=err, twice_equal=True, walk_order_bits=True,
+            plain_ms=cuda_ms(lambda: reduce.segment_sum_cols_plain(
                 cols, ids, n, e), reps=20),
-            "library_ms": cuda_ms(lambda: out.index_add_(1, ids_real, xs),
-                                  reps=50),
-            "kernel6_ms": cuda_ms(lambda: reduce2d.segment_sum_2d(
+            library_ms=lib["ms"], library_host_us=lib["host_us"],
+            library_device_us=lib["device_us"],
+            kernel6_ms=cuda_ms(lambda: reduce2d.segment_sum_2d(
                 x, ids, n, e, ptr, perm), reps=50),
-            "bound_ms": b_ms, "bound_by": b_by}
+            bound_ms=b_ms, bound_by=b_by)
         log(f"kernel segment_sum_cols [{label}]: ok, max abs err {err:.3g}, "
-            f"{shapes[label]['ms']:.4f} ms (plain "
-            f"{shapes[label]['plain_ms']:.4f}, index_add_ "
-            f"{shapes[label]['library_ms']:.4f}, kernel 6 "
+            f"twice the same bits, the walk's order; {timing_note(kern)} "
+            f"(plain {shapes[label]['plain_ms']:.4f}, index_add_ "
+            f"{timing_note(lib)}, kernel 6 "
             f"{shapes[label]['kernel6_ms']:.4f}, bound {b_ms:.5f} ms)")
     main = shapes["var C=2"]
     rows["segment_sum_cols"] = dict(
         {"name": "segment_sum_cols", "route": "cuda", "source": REDUCE_CU,
          "replaces": "pdp_solver_tpu/ops/pallas_reduce.py:224",
          "library": "index_add_ of the stacked real edges", "shapes": shapes},
-        **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                "library_ms", "bound_ms", "bound_by")})
+        **{k: main[k] for k in ("max_abs_err", "ms", "host_us", "device_us",
+                                "plain_ms", "library_ms", "library_host_us",
+                                "library_device_us", "bound_ms",
+                                "bound_by")})
 
     # kernel 5's function: a batch that fails the window invariant
     rb = ragged_batch(np)
@@ -481,38 +568,45 @@ def check_reduce(batch, torch, np):
     err = 0.0
     for integer in (True, False):
         cols = cols_of(3, Er, integer)
-        for ids, n, ptr, perm in (
-                (rb.edge_var, rb.num_vars, rb.var_ptr, rb.var_perm),
-                (rb.edge_clause, rb.num_clauses, rb.clause_ptr, None)):
+        for ids, n, ptr, perm, md in (
+                (rb.edge_var, rb.num_vars, rb.var_ptr, rb.var_perm,
+                 rb.var_max_degree),
+                (rb.edge_clause, rb.num_clauses, rb.clause_ptr, None,
+                 rb.clause_max_degree)):
             ref = reduce.segment_sum_cols_plain(cols, ids, n, er)
-            got = reduce.segment_sum_cols(cols, ids, n, er, ptr, perm)
+            got = reduce.segment_sum_cols(cols, ids, n, er, ptr, perm,
+                                          max_degree=md)
             torch.cuda.synchronize()
             err = max(err, _check_sum(torch, "segment_sum_cols[ragged]",
                                       got, ref, integer))
+            check_walk_sum(torch, "segment_sum_cols[ragged]",
+                           lambda: reduce.segment_sum_cols(
+                               cols, ids, n, er, ptr, perm, max_degree=md),
+                           torch.stack(cols), ids, ptr=ptr, perm=perm)
     xs = torch.stack([c[:er] for c in cols])
     out = torch.zeros(3, rb.num_vars, device="cuda")
     ids_real = rb.edge_var[:er]
     b_ms, b_by = bound_ms(csr_bytes(3, rb.num_vars, er, True), 3 * er)
     args = (rb.edge_var, rb.num_vars, er, rb.var_ptr, rb.var_perm)
-    rows["segment_sum_cols[ragged]"] = {
-        "name": "segment_sum_cols[ragged]", "route": "cuda",
-        "source": REDUCE_CU,
-        "replaces": "pdp_solver_tpu/ops/pallas_reduce.py:209",
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: reduce.segment_sum_cols(cols, *args), reps=50),
-        "plain_ms": cuda_ms(lambda: reduce.segment_sum_cols_plain(
+    kern = timed(lambda: reduce.segment_sum_cols(
+        cols, *args, max_degree=rb.var_max_degree))
+    lib = timed(lambda: out.index_add_(1, ids_real, xs))
+    rows["segment_sum_cols[ragged]"] = dict(
+        kern, name="segment_sum_cols[ragged]", route="cuda",
+        source=REDUCE_CU,
+        replaces="pdp_solver_tpu/ops/pallas_reduce.py:209",
+        max_abs_err=err, twice_equal=True, walk_order_bits=True,
+        plain_ms=cuda_ms(lambda: reduce.segment_sum_cols_plain(
             cols, rb.edge_var, rb.num_vars, er), reps=20),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(lambda: out.index_add_(1, ids_real, xs),
-                              reps=50),
-        "library": "index_add_ of the stacked real edges",
-        "note": f"C = 3 over the var CSR of a batch of mixed clause widths "
-                f"(E = {Er}, {er} real)"}
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib["ms"],
+        library_host_us=lib["host_us"], library_device_us=lib["device_us"],
+        library="index_add_ of the stacked real edges",
+        note=f"C = 3 over the var CSR of a batch of mixed clause widths "
+             f"(E = {Er}, {er} real)")
     del rb
 
     # kernel 8's function: one column over sorted ids, the real edges'
-    # clause ids (the padding edges would put 63,488 edges in the last
-    # clause, and one thread walks each segment)
+    # clause ids (the padding's 63,488-edge run is check_walk's case)
     ids = batch.edge_clause[:e]
     x = torch.randint(-3, 4, (e,), generator=g).float().cuda()
     got = reduce.sorted_segment_sum(x, ids, F)
@@ -523,28 +617,163 @@ def check_reduce(batch, torch, np):
     err = _check_sum(torch, "sorted_segment_sum",
                      reduce.sorted_segment_sum(xf, ids, F),
                      reduce.sorted_segment_sum_plain(xf, ids, F), False)
+    check_walk_sum(torch, "sorted_segment_sum",
+                   lambda: reduce.sorted_segment_sum(xf, ids, F)[None],
+                   xf[None], ids, n=F)
     out = torch.zeros(F, device="cuda")
     b_ms, b_by = bound_ms((e + 2 * e + F) * 4, e)   # x, i64 ids, sums
-    rows["sorted_segment_sum"] = {
-        "name": "sorted_segment_sum", "route": "cuda", "source": REDUCE_CU,
-        "replaces": "pdp_solver_tpu/ops/pallas_segment.py:120",
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: reduce.sorted_segment_sum(xf, ids, F),
-                      reps=50),
-        "plain_ms": cuda_ms(lambda: reduce.sorted_segment_sum_plain(
+    kern = timed(lambda: reduce.sorted_segment_sum(xf, ids, F))
+    lib = timed(lambda: out.index_add_(0, ids, xf))
+    rows["sorted_segment_sum"] = dict(
+        kern, name="sorted_segment_sum", route="cuda", source=REDUCE_CU,
+        replaces="pdp_solver_tpu/ops/pallas_segment.py:120",
+        max_abs_err=err, twice_equal=True, walk_order_bits=True,
+        plain_ms=cuda_ms(lambda: reduce.sorted_segment_sum_plain(
             xf, ids, F), reps=20),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(lambda: out.index_add_(0, ids, xf), reps=50),
-        "library": "index_add_",
-        "note": "kernel checks only: on no solve path, in the JAX package "
-                "either; its CUDA kernel is segment_sum_cols, whose "
-                "launches on the reinforce path `launches` counts"}
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib["ms"],
+        library_host_us=lib["host_us"], library_device_us=lib["device_us"],
+        library="index_add_",
+        note="kernel checks only: on no solve path, in the JAX package "
+             "either; its CUDA kernel is segment_sum_cols, whose launches "
+             "on the reinforce path `launches` counts")
     for name in ("segment_sum_cols[ragged]", "sorted_segment_sum"):
         r = rows[name]
-        log(f"kernel {name}: ok, max abs err {r['max_abs_err']:.3g}, "
-            f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
-            f"{r['library_ms']:.4f}, bound {r['bound_ms']:.5f} ms)")
+        log(f"kernel {name}: ok, max abs err {r['max_abs_err']:.3g}, twice "
+            f"the same bits, the walk's order; {timing_note(r)} (plain "
+            f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f} ms, host "
+            f"{r['library_host_us']:.1f} us, device "
+            f"{r['library_device_us']:.2f} us; bound {r['bound_ms']:.5f} ms)")
     return rows
+
+
+def check_walk(insts, torch, np):
+    """The redesigned forms (kernel 4 over the var and clause CSRs,
+    kernel 8, kernel 1's var side and `ae`) at a compacted shape, the 8
+    instances that a 32,768-edge bucket holds, and at high degree: a var
+    CSR with one 63,488-edge node, and kernel 8 over all E edges of the
+    shared set, whose last run holds the 63,488 padding edges. Each is
+    checked (exact on integer columns, rtol 1e-5 / atol 1e-6 on floats,
+    the same bits twice, the walk's order where it is a plain sum) and
+    timed beside its PyTorch call. At high degree the float sums are held
+    against the plain version taken in float64: a float32 index_add_ of
+    63,488 terms in atomic order is itself ~1e-5 off, the walk's
+    tree ~1e-6. Returns {row: {case: numbers}}."""
+    from pdp_solver_tpu_torch.fg.batch import pack_instances
+    from pdp_solver_tpu_torch.ops import fused, reduce
+    from pdp_solver_tpu_torch.utils.bench_kernels import hub_batch, timed
+    g = torch.Generator().manual_seed(29)
+
+    def plain64(cols, ids, n, e):
+        out = torch.zeros((len(cols), n), dtype=torch.float64, device="cuda")
+        return out.index_add_(1, ids[:e], torch.stack(
+            [c[:e].double() for c in cols])).float()
+
+    cases = {"segment_sum_cols": {}, "sorted_segment_sum": {},
+             "smax_scorer": {}, "scorer": {}, "ae": {}}
+    compacted = pack_instances(insts[:8], device="cuda")
+    require(compacted.num_edges == 32768, "the compacted batch has "
+            f"{compacted.num_edges} edges")
+    hub = hub_batch()
+    for label, b in (("compacted", compacted), ("high_degree", hub)):
+        E, e = b.num_edges, b.num_real_edges
+        for form, C, ids, n, ptr, perm, md in (
+                ("var C=2", 2, b.edge_var, b.num_vars, b.var_ptr,
+                 b.var_perm, b.var_max_degree),
+                ("var C=1", 1, b.edge_var, b.num_vars, b.var_ptr,
+                 b.var_perm, b.var_max_degree),
+                ("clause C=1", 1, b.edge_clause, b.num_clauses,
+                 b.clause_ptr, None, b.clause_max_degree)):
+            if label == "high_degree" and form.startswith("clause"):
+                continue
+            name = f"segment_sum_cols[{label} {form}]"
+            icols = [torch.randint(-3, 4, (E,), generator=g).float().cuda()
+                     for _ in range(C)]
+            _check_sum(torch, name, reduce.segment_sum_cols(
+                icols, ids, n, e, ptr, perm, max_degree=md),
+                reduce.segment_sum_cols_plain(icols, ids, n, e), True)
+            cols = [torch.rand(E, generator=g).cuda() for _ in range(C)]
+            plain = (plain64 if label == "high_degree"
+                     else reduce.segment_sum_cols_plain)
+            err = _check_sum(torch, name, reduce.segment_sum_cols(
+                cols, ids, n, e, ptr, perm, max_degree=md),
+                plain(cols, ids, n, e), False)
+            check_walk_sum(torch, name, lambda: reduce.segment_sum_cols(
+                cols, ids, n, e, ptr, perm, max_degree=md),
+                torch.stack(cols), ids, ptr=ptr, perm=perm)
+            x = torch.stack(cols, 1).contiguous()
+            xs = torch.stack([c[:e] for c in cols])
+            out = torch.zeros(C, n, device="cuda")
+            kern = timed(lambda: reduce.segment_sum(
+                x, ids, n, e, ptr, perm, max_degree=md) if C > 1
+                else reduce.segment_sum_cols(cols, ids, n, e, ptr, perm,
+                                             max_degree=md))
+            lib = timed(lambda: out.index_add_(1, ids[:e], xs))
+            cases["segment_sum_cols"][f"{label} {form}"] = dict(
+                kern, max_abs_err=err, edges=E, max_degree=int(
+                    (ptr[1:] - ptr[:-1]).max()),
+                library_ms=lib["ms"], library_host_us=lib["host_us"],
+                library_device_us=lib["device_us"])
+            log(f"{name}: ok, twice the same bits, the walk's order; "
+                f"{timing_note(kern)} (index_add_ {timing_note(lib)})")
+        for fn in (fused.SMAX_SCORER, fused.SCORER):
+            name = f"fused_edge_pass[{fn.name}] {label}"
+            ins = fn_inputs(fn, b, seed=41)
+            if label == "high_degree":
+                terms, _ = fn.plain([x.double() for x in ins], b.edge_var,
+                                    b.edge_clause, 0.0)
+                ref = plain64(terms, b.edge_var, b.num_vars, e)
+            else:
+                ref, _ = fused.fused_edge_pass_plain(fn, b, ins)
+            got, _ = fused.fused_edge_pass(fn, b, ins)
+            again, _ = fused.fused_edge_pass(fn, b, ins)
+            torch.cuda.synchronize()
+            err = _check_sum(torch, name, got, ref, False)
+            require(torch.equal(got, again), f"{name}: two calls differ")
+            kern = timed(lambda: fused.fused_edge_pass(fn, b, ins))
+            cases[fn.name][label] = dict(kern, max_abs_err=err, edges=E)
+            log(f"{name}: ok, max abs err {err:.3g}, twice the same bits; "
+                f"{timing_note(kern)}")
+    # ae and kernel 8 at the compacted shape
+    b = compacted
+    (abv,) = fn_inputs(fused.AE, b, seed=43)
+    require(torch.equal(fused.fused_edge_pass(fused.AE, b, (abv,))[1][0],
+                        abv[b.edge_var]), "ae (compacted): not exact")
+    kern = timed(lambda: fused.fused_edge_pass(fused.AE, b, (abv,)))
+    lib = timed(lambda: abv[b.edge_var])
+    cases["ae"]["compacted"] = dict(
+        kern, library_ms=lib["ms"], library_host_us=lib["host_us"],
+        library_device_us=lib["device_us"], edges=b.num_edges)
+    log(f"fused_edge_pass[ae] compacted: exact; {timing_note(kern)} "
+        f"(index gather {timing_note(lib)})")
+    full = pack_instances(insts, device="cuda")
+    last = full.num_real_clauses - 1
+    for label, ids, n in (
+            ("compacted", b.edge_clause[:b.num_real_edges], b.num_clauses),
+            ("high_degree", full.edge_clause, full.num_clauses)):
+        name = f"sorted_segment_sum[{label}]"
+        xi = torch.randint(-3, 4, ids.shape, generator=g).float().cuda()
+        _check_sum(torch, name, reduce.sorted_segment_sum(xi, ids, n),
+                   reduce.sorted_segment_sum_plain(xi, ids, n), True)
+        xf = torch.rand(ids.shape, generator=g).cuda()
+        ref = (plain64([xf], ids, n, ids.shape[0])[0]
+               if label == "high_degree"
+               else reduce.sorted_segment_sum_plain(xf, ids, n))
+        err = _check_sum(torch, name, reduce.sorted_segment_sum(xf, ids, n),
+                         ref, False)
+        check_walk_sum(torch, name,
+                       lambda: reduce.sorted_segment_sum(xf, ids, n)[None],
+                       xf[None], ids, n=n)
+        out = torch.zeros(n, device="cuda")
+        kern = timed(lambda: reduce.sorted_segment_sum(xf, ids, n))
+        lib = timed(lambda: out.index_add_(0, ids, xf))
+        cases["sorted_segment_sum"][label] = dict(
+            kern, max_abs_err=err, edges=int(ids.shape[0]),
+            longest_run=int((ids == last).sum()) if label == "high_degree"
+            else None, library_ms=lib["ms"], library_host_us=lib["host_us"],
+            library_device_us=lib["device_us"])
+        log(f"{name}: ok, twice the same bits, the walk's order; "
+            f"{timing_note(kern)} (index_add_ {timing_note(lib)})")
+    return cases
 
 
 def sweep_inputs(batch, torch, seed, pi, login=False):
@@ -891,6 +1120,8 @@ def main():
         rows = check_kernels(batch, torch, np)
         rows.update(check_reduce2d(batch, torch))
         rows.update(check_reduce(batch, torch, np))
+        for name, per_case in check_walk(insts, torch, np).items():
+            rows[name]["walk_cases"] = per_case
         rows.update(check_sp_sweep(batch, torch))
         del batch
         rows.update(check_verify(insts, torch, np))
@@ -1017,6 +1248,16 @@ def main():
                 f"{qlaunches['verify_and_masks']} verifications, "
                 f"{qlaunches.get('sp_chain_login', 0)} sp_chain_login, "
                 f"{qlaunches.get('em_ae', 0)} em_ae")
+
+        # seeds 0-2 of p-d-p and reinforce beside earlier counts (seed 0
+        # is phases 3 and 6)
+        pdp = [res["solved"]] + [solve_headline(insts, seed=k)["solved"]
+                                 for k in (1, 2)]
+        rnf = [rres["solved"]] + [solve_reinforce(insts, seed=k)["solved"]
+                                  for k in (1, 2)]
+        log(f"seeds 0-2 (of {len(insts)}, verified with numpy): p-d-p "
+            f"{pdp} (before the walk: {PRIOR_SOLVED['p-d-p']}); reinforce "
+            f"{rnf} (before the walk: {PRIOR_SOLVED['reinforce']})")
 
         # each row carries the launches of the path it serves
         serves = {"segment_sum_2d": nlaunches, "gather_2d": nlaunches,

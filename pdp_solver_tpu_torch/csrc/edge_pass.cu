@@ -16,10 +16,13 @@
 // edges [e_real, e_total) take part in no reduce (their contributions are
 // masked to zero in every functor) but still get their edge outputs.
 //
-// Reduces: one thread per clause (its edges are contiguous) or one thread
-// per variable walking the var-major permutation. Each sum is taken in one
-// fixed order and no float atomics are used: the decimator takes an argmax
-// of |score|, so a sum in another order can change which variable is fixed.
+// Reduces: one thread per clause (its edges are contiguous) in the chained
+// pass; per variable, the chained pass's second phase walks the var-major
+// permutation with one thread a variable, and the fused pass with the
+// group walk of common.cuh (a group of lanes a variable, several blocks
+// for a variable of very high degree). Each sum is taken in one fixed
+// order and no float atomics are used: the decimator takes an argmax of
+// |score|, so a sum in another order can change which variable is fixed.
 //
 // Bound on the H100: at the bench batch (E = 524,288 padded edges) one pass
 // moves a few MB, i.e. a few microseconds at 3.35 TB/s, and does a few
@@ -298,33 +301,36 @@ __global__ void fused_edge_kernel(Cols a, int e_total) {
   for (int c = 0; c < F::NE; ++c) a.eo[c][e] = o[c];
 }
 
-// reduce to variables: threads [0, n_seg) own one variable each and walk
-// its edges in order through the var-major permutation; the threads after
-// them compute the padding edges' outputs.
+// reduce to variables: the group walk of common.cuh over the var-major
+// CSR (a group of lanes per variable, several blocks for a variable of
+// very high degree), lane by lane F::f on the variable's edges; the
+// blocks after the walk's compute the padding edges' outputs.
 template <class F>
-__global__ void fused_reduce_kernel(Cols a, const int* ptr, const int* perm,
-                                    int n_seg, float* red, int e_real,
+struct FnTerm {
+  Cols a;
+  __device__ __forceinline__ void operator()(int e, float* r) const {
+    float o[PDP_N1(F::NE)];
+    F::f(a, e, r, o);
+#pragma unroll
+    for (int c = 0; c < F::NE; ++c) a.eo[c][e] = o[c];
+  }
+};
+
+template <class F>
+__global__ void fused_reduce_kernel(WalkPlan p, Cols a, const int* ptr,
+                                    const int* perm, float* red, int e_real,
                                     int e_total) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  float r[PDP_N1(F::NR)], o[PDP_N1(F::NE)];
-  if (t < n_seg) {
-    float acc[PDP_N1(F::NR)];
-#pragma unroll
-    for (int c = 0; c < F::NR; ++c) acc[c] = 0.0f;
-    const int j1 = ptr[t + 1];
-    for (int j = ptr[t]; j < j1; ++j) {
-      const int e = perm[j];
-      F::f(a, e, r, o);
-#pragma unroll
-      for (int c = 0; c < F::NR; ++c) acc[c] += r[c];
-#pragma unroll
-      for (int c = 0; c < F::NE; ++c) a.eo[c][e] = o[c];
-    }
-#pragma unroll
-    for (int c = 0; c < F::NR; ++c) red[(size_t)c * n_seg + t] = acc[c];
-  } else if (F::NE > 0) {
-    const int e = e_real + (t - n_seg);
+  const int walk_blocks = p.group_blocks + p.anchor_blocks;
+  if ((int)blockIdx.x < walk_blocks) {
+    walk_block<F::NR>(p, CsrSeg<int>{ptr, perm, a.ev}, FnTerm<F>{a},
+                      SegOut{red, p.n_seg});
+    return;
+  }
+  if (F::NE > 0) {
+    const int e =
+        e_real + ((int)blockIdx.x - walk_blocks) * blockDim.x + threadIdx.x;
     if (e >= e_total) return;
+    float r[PDP_N1(F::NR)], o[PDP_N1(F::NE)];
     F::f(a, e, r, o);
 #pragma unroll
     for (int c = 0; c < F::NE; ++c) a.eo[c][e] = o[c];
@@ -430,19 +436,25 @@ static int blocks_for(long n) {
 }
 
 template <class F>
-static void launch_fused(const Cols& a, const int* ptr, const int* perm,
-                         int n_seg, int e_real, int e_total, float* red,
-                         cudaStream_t st) {
-  if (F::SIDE == 0) {
+static int launch_fused(const Cols& a, const int* ptr, const int* perm,
+                        int n_seg, int e_real, int e_total, int group,
+                        bool heavy, float* partials, int* counters,
+                        float* red, cudaStream_t st) {
+  if constexpr (F::SIDE == 0) {
     if (e_total > 0)
       fused_edge_kernel<F><<<blocks_for(e_total), PDP_THREADS, 0, st>>>(
           a, e_total);
   } else {
-    const long n = (long)n_seg + (F::NE > 0 ? e_total - e_real : 0);
-    if (n > 0)
-      fused_reduce_kernel<F><<<blocks_for(n), PDP_THREADS, 0, st>>>(
-          a, ptr, perm, n_seg, red, e_real, e_total);
+    WalkPlan p;
+    if (!make_walk_plan(n_seg, e_real, group, heavy, partials, counters, &p))
+      return -1;
+    const long n = (long)p.group_blocks + p.anchor_blocks +
+                   (F::NE > 0 ? blocks_for(e_total - e_real) : 0);
+    if (n_seg > 0 && n > 0)
+      fused_reduce_kernel<F><<<(int)n, PDP_THREADS, 0, st>>>(
+          p, a, ptr, perm, red, e_real, e_total);
   }
+  return 0;
 }
 
 template <class F>
@@ -532,26 +544,55 @@ int pdp_fn_lookup(const char* name, int* meta) {
   return -1;
 }
 
-// One fused pass. ptr/perm: var_ptr/var_perm for a var-side reduce,
-// unused otherwise. red: f32[n_red, n_seg]. Returns cudaGetLastError(), or -1 for an id
-// that is not a fused functor.
-int pdp_fused_edge_pass(int fn, const void* const* ins, int n_in,
-                        float* const* eouts, int n_eout, const int* ev,
-                        const int* ec, const int* ptr, const int* perm,
-                        int n_seg, int e_real, int e_total, float* red,
-                        float scalar, void* stream) {
-  const Cols a = make_cols(ins, n_in, eouts, n_eout, ev, ec, scalar);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (fn) {
-#define PDP_CASE(F)                                                    \
-  case FN_##F:                                                         \
-    launch_fused<F>(a, ptr, perm, n_seg, e_real, e_total, red, st);    \
+// One fused pass's arguments, filled once per (functor, batch) plan by
+// ops/fused.py and passed by pointer (the field order matches its ctypes
+// Structure). ptr/perm: var_ptr/var_perm for a var-side reduce, unused
+// otherwise; group: lanes a variable of the walk, heavy: a variable may
+// hold PDP_HEAVY_ITERS * group edges or more, partials/counters: the
+// walk's scratch with heavy (common.cuh WalkPlan); red: f32[n_red, n_seg].
+struct FusedArgs {
+  int fn;
+  int n_in;
+  int n_eout;
+  int n_seg;
+  const void* ins[PDP_MAX_IN];
+  float* eouts[PDP_MAX_EOUT];
+  const int* ev;
+  const int* ec;
+  const int* ptr;
+  const int* perm;
+  int e_real;
+  int e_total;
+  int group;
+  float scalar;
+  float* red;
+  int heavy;
+  float* partials;
+  int* counters;
+  void* stream;
+};
+
+// One fused pass. Returns cudaGetLastError(), or -1 for an id that is not
+// a fused functor, a group width that is not a power of two from 4 to 32,
+// or heavy without scratch.
+int pdp_fused_edge_pass(const FusedArgs* f) {
+  const Cols a = make_cols(f->ins, f->n_in, f->eouts, f->n_eout, f->ev,
+                           f->ec, f->scalar);
+  cudaStream_t st = static_cast<cudaStream_t>(f->stream);
+  int rc;
+  switch (f->fn) {
+#define PDP_CASE(F)                                                     \
+  case FN_##F:                                                          \
+    rc = launch_fused<F>(a, f->ptr, f->perm, f->n_seg, f->e_real,       \
+                         f->e_total, f->group, f->heavy != 0,           \
+                         f->partials, f->counters, f->red, st);         \
     break;
     PDP_FUSED_FNS(PDP_CASE)
 #undef PDP_CASE
     default:
       return -1;
   }
+  if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }
 

@@ -15,28 +15,32 @@
 // keep the whole [C, N] output in VMEM; the window invariant, the bases and
 // the residual scatter exist only to make that one-hot fit. None of it is
 // carried over: here each node's edges are listed by a CSR built at pack
-// time (FGBatch.var_ptr/var_perm for variables, clause_ptr for clauses) or
-// from the sorted ids, which needs no invariant, so every batch takes the
-// same kernel.
+// time (FGBatch.var_ptr/var_perm for variables, clause_ptr for clauses), or
+// found in the sorted ids by binary search in the same launch, which needs
+// no invariant, so every batch takes the same kernel.
 //
-// pdp_segment_sum_cols: out[c, n] = sum over j in [ptr[n], ptr[n+1]) of
+// pdp_segment_sum_cols: out[c, n] = sum over the slots j of node n of
 //   col_c[e_j * stride] with e_j = perm[j] (or j when perm is null), for
-//   c < C <= 8. One thread per node walks its CSR slice in increasing edge
-//   order and keeps the C sums in registers: each sum has one fixed order
-//   and no float atomics, so the result does not change from run to run.
-//   The columns are C separate f32[E] arrays (stride 1) or the C columns of
-//   one row-major f32[E, C] array (col_c = base + c, stride C). Edges
-//   outside the CSR (the padding edges) take part in no sum; nodes with no
-//   edges get 0.
+//   c < C <= 8. The columns are C separate f32[E] arrays (stride 1) or the C
+//   columns of one row-major f32[E, C] array (col_c = base + c, stride C).
+//   Edges outside the CSR (the padding edges) take part in no sum; nodes
+//   with no edges get 0. With sorted ids (C = 1, no perm) node n's slots
+//   are the run of ids equal to n, and ids outside [0, N) are dropped.
+//
+// The work is split by the group walk of common.cuh: G lanes per node (G
+// from the mean degree, chosen by the caller), and a node of
+// PDP_HEAVY_ITERS * G edges or more split among blocks of 256 threads.
+// Each sum has one fixed order and no float atomics, so the result is the
+// same from run to run.
 //
 // Bound on the H100 at the shared-set shapes (E = 524,288 padded / 460,800
 // real edges, V = 16,384): C = 2 reads 3.7 MB of columns, 1.8 MB of
 // var_perm and 66 KB of ptr and writes 131 KB, about 1.7 us at 3.35 TB/s;
-// one add per element. That is far below a launch's cost, so the kernel is
-// bound by latency: the launch and each thread's chain of ~28 dependent
-// gathers. One thread per node (rather than reduce2d.cu's warp per node,
-// which would leave 30 of 32 lanes idle at C = 2) keeps 16,384 threads in
-// flight.
+// one add per element. The time goes to latency: the launch, and the chain
+// perm[j] -> col[perm[j]] of gathers. One thread a node would leave 64 CTAs
+// on 132 SMs, each thread walking ~28 gathers; G = 8 lanes a node put 512
+// CTAs in flight with ~4 gathers a lane, and a node of 63,488 edges is cut
+// among 16 to 124 blocks.
 
 #include <cuda_runtime.h>
 
@@ -44,57 +48,111 @@
 
 #define PDP_RED_MAXC 8
 
+// One launch's arguments, filled once per plan by ops/reduce.py and
+// passed by pointer (the field order matches its ctypes Structure).
+struct SegSumArgs {
+  const void* cols[PDP_RED_MAXC];  // column base pointers
+  int n_cols;
+  int sorted;      // 1: segments are runs of sorted ids (ptr unused)
+  long stride;     // column c's edge e at cols[c][e * stride]
+  const int* ptr;  // i32[n_seg + 1]
+  const int* perm;  // i32[ptr[n_seg]] or null
+  const void* ids;  // edge -> node, i32 or i64
+  int ids64;
+  int n_seg;
+  int n_slots;  // ptr[n_seg] for a CSR; the number of ids when sorted
+  int group;    // lanes a node, a power of two from 4 to 32
+  int heavy;    // 1: a node may hold PDP_HEAVY_ITERS * group slots or more
+  float* out;   // f32[n_cols, n_seg]
+  float* partials;  // the walk's scratch (common.cuh WalkPlan), with heavy
+  int* counters;
+  void* stream;
+};
+
 struct ColPtrs {
   const float* c[PDP_RED_MAXC];
 };
 
 template <int C>
-__global__ void segment_sum_cols_kernel(ColPtrs x, long stride,
-                                        const int* __restrict__ ptr,
-                                        const int* __restrict__ perm,
-                                        int n_seg, float* __restrict__ out) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= n_seg) return;
-  float acc[C];
+struct ColTerm {
+  ColPtrs x;
+  long stride;
+  __device__ __forceinline__ void operator()(int e, float* r) const {
+    const long o = (long)e * stride;
 #pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = 0.0f;
-  const int j1 = ptr[n + 1];
-  for (int j = ptr[n]; j < j1; ++j) {
-    const long e = (perm ? perm[j] : j) * stride;
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[c] += x.c[c][e];
+    for (int c = 0; c < C; ++c) r[c] = x.c[c][o];
   }
-#pragma unroll
-  for (int c = 0; c < C; ++c) out[(size_t)c * n_seg + n] = acc[c];
+};
+
+template <int C, class Seg>
+__global__ void segment_sum_cols_kernel(WalkPlan p, Seg seg, ColTerm<C> term,
+                                        SegOut store) {
+  walk_block<C>(p, seg, term, store);
+}
+
+template <int C, class Seg>
+static void launch_cols(const WalkPlan& p, const Seg& seg, const ColPtrs& x,
+                        long stride, float* out, cudaStream_t st) {
+  const int blocks = p.group_blocks + p.anchor_blocks;
+  segment_sum_cols_kernel<C, Seg><<<blocks, PDP_THREADS, 0, st>>>(
+      p, seg, ColTerm<C>{x, stride}, SegOut{out, p.n_seg});
+}
+
+template <class Seg>
+static int launch_any(int n_cols, const WalkPlan& p, const Seg& seg,
+                      const ColPtrs& x, long stride, float* out,
+                      cudaStream_t st) {
+  switch (n_cols) {
+#define PDP_RED_CASE(C)                               \
+  case C:                                             \
+    launch_cols<C>(p, seg, x, stride, out, st);       \
+    break;
+    PDP_RED_CASE(1) PDP_RED_CASE(2) PDP_RED_CASE(3) PDP_RED_CASE(4)
+    PDP_RED_CASE(5) PDP_RED_CASE(6) PDP_RED_CASE(7) PDP_RED_CASE(8)
+#undef PDP_RED_CASE
+    default:
+      return -1;
+  }
+  return 0;
 }
 
 extern "C" {
 
-// cols: n_cols (1..8) column base pointers, column c's edge e at
-// cols[c][e * stride]; ptr: i32[n_seg + 1]; perm: i32[ptr[n_seg]] or null;
-// out: f32[n_cols, n_seg]. Returns cudaGetLastError(), or -1 for n_cols
-// outside 1..8.
-int pdp_segment_sum_cols(const void* const* cols, int n_cols, long stride,
-                         const int* ptr, const int* perm, int n_seg,
-                         float* out, void* stream) {
-  if (n_cols < 1 || n_cols > PDP_RED_MAXC) return -1;
+// Returns cudaGetLastError(), or -1 for n_cols outside 1..8 (1 when
+// sorted), a group width that is not a power of two from 4 to 32, a
+// missing id array, or heavy without scratch.
+int pdp_segment_sum_cols(const SegSumArgs* a) {
+  if (a->n_cols < 1 || a->n_cols > PDP_RED_MAXC || !a->ids) return -1;
+  if (a->sorted && a->n_cols != 1) return -1;
+  WalkPlan p;
+  if (!make_walk_plan(a->n_seg, a->n_slots, a->group, a->heavy != 0,
+                      a->partials, a->counters, &p))
+    return -1;
   ColPtrs x;
   for (int c = 0; c < PDP_RED_MAXC; ++c)
-    x.c[c] = static_cast<const float*>(cols[c < n_cols ? c : 0]);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_seg > 0) {
-    const int blocks = (n_seg + PDP_THREADS - 1) / PDP_THREADS;
-    switch (n_cols) {
-#define PDP_RED_CASE(C)                                              \
-  case C:                                                            \
-    segment_sum_cols_kernel<C><<<blocks, PDP_THREADS, 0, st>>>(      \
-        x, stride, ptr, perm, n_seg, out);                           \
-    break;
-      PDP_RED_CASE(1) PDP_RED_CASE(2) PDP_RED_CASE(3) PDP_RED_CASE(4)
-      PDP_RED_CASE(5) PDP_RED_CASE(6) PDP_RED_CASE(7) PDP_RED_CASE(8)
-#undef PDP_RED_CASE
+    x.c[c] = static_cast<const float*>(a->cols[c < a->n_cols ? c : 0]);
+  cudaStream_t st = static_cast<cudaStream_t>(a->stream);
+  if (a->n_seg <= 0) return (int)cudaGetLastError();
+  int rc;
+  if (a->sorted) {
+    if (a->ids64) {
+      SortedSeg<long long> seg{static_cast<const long long*>(a->ids),
+                               a->n_slots};
+      launch_cols<1>(p, seg, x, a->stride, a->out, st);
+    } else {
+      SortedSeg<int> seg{static_cast<const int*>(a->ids), a->n_slots};
+      launch_cols<1>(p, seg, x, a->stride, a->out, st);
     }
+    rc = 0;
+  } else if (a->ids64) {
+    CsrSeg<long long> seg{a->ptr, a->perm,
+                          static_cast<const long long*>(a->ids)};
+    rc = launch_any(a->n_cols, p, seg, x, a->stride, a->out, st);
+  } else {
+    CsrSeg<int> seg{a->ptr, a->perm, static_cast<const int*>(a->ids)};
+    rc = launch_any(a->n_cols, p, seg, x, a->stride, a->out, st);
   }
+  if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }
 

@@ -26,6 +26,9 @@ Added for the CUDA kernels (built once at pack time, int32):
                       [clause_ptr[f], clause_ptr[f+1]) (clause-major).
   inst_var_ptr /      the real variables / clauses of instance b.
   inst_clause_ptr
+  var_max_degree /    the largest number of real edges of one variable /
+  clause_max_degree   clause: the segment sums' group walk skips its
+                      blocks for very high degree when no node needs them.
 
 clause_width, fast_var, fast_clause and var_window are the JAX package's
 pack-time metadata, kept so the port takes the same paths (the WalkSAT
@@ -68,6 +71,8 @@ class FGBatch:
     num_real_edges: int
     num_real_clauses: int
     max_instance_vars: int
+    var_max_degree: int = None
+    clause_max_degree: int = None
     clause_width: int = 0
     fast_var: bool = False
     fast_clause: bool = False
@@ -231,6 +236,8 @@ def pack_instances(instances: Sequence[tuple], device="cuda",
 
     real_var = edge_var[:e_off]
     var_perm = np.argsort(real_var, kind="stable").astype(np.int32)
+    var_ptr = _ptr(real_var, pad_v)
+    clause_ptr = _ptr(edge_clause[:e_off], pad_f)
 
     def t(x, dtype):
         return torch.from_numpy(np.ascontiguousarray(x)).to(
@@ -249,14 +256,16 @@ def pack_instances(instances: Sequence[tuple], device="cuda",
         label=t(label, torch.float32),
         edge_var32=t(edge_var, torch.int32),
         edge_clause32=t(edge_clause, torch.int32),
-        var_ptr=t(_ptr(real_var, pad_v), torch.int32),
+        var_ptr=t(var_ptr, torch.int32),
         var_perm=t(var_perm, torch.int32),
-        clause_ptr=t(_ptr(edge_clause[:e_off], pad_f), torch.int32),
+        clause_ptr=t(clause_ptr, torch.int32),
         inst_var_ptr=t(_ptr(var_batch[:v_off], pad_b), torch.int32),
         inst_clause_ptr=t(_ptr(clause_batch[:f_off], pad_b), torch.int32),
         num_real_edges=e_off,
         num_real_clauses=f_off,
         max_instance_vars=max_vars,
+        var_max_degree=int(np.diff(var_ptr).max(initial=0)),
+        clause_max_degree=int(np.diff(clause_ptr).max(initial=0)),
         clause_width=clause_width,
         fast_var=fast_var,
         fast_clause=fast_clause,

@@ -42,14 +42,15 @@ def scatter_to_vars(batch, x_e):
             batch.var_ptr, batch.var_perm)
     if x_e.dim() == 2 and x_e.shape[1] >= MIN_2D_WIDTH:
         return segment_sum_2d(x_e, *args)
-    return reduce.segment_sum(x_e, *args)
+    return reduce.segment_sum(x_e, *args, max_degree=batch.var_max_degree)
 
 
 def scatter_to_vars_cols(batch, cols):
     """Sum each of C <= 8 edge columns per variable -> [C, V]."""
     return reduce.segment_sum_cols(cols, batch.edge_var, batch.num_vars,
                                    batch.num_real_edges, batch.var_ptr,
-                                   batch.var_perm)
+                                   batch.var_perm,
+                                   max_degree=batch.var_max_degree)
 
 
 def scatter_to_clauses_cols(batch, cols):
@@ -62,7 +63,8 @@ def scatter_to_clauses_cols(batch, cols):
             len(cols), f, k).sum(2)
         return out
     return reduce.segment_sum_cols(cols, batch.edge_clause, F,
-                                   batch.num_real_edges, batch.clause_ptr)
+                                   batch.num_real_edges, batch.clause_ptr,
+                                   max_degree=batch.clause_max_degree)
 
 
 def scatter_to_clauses(batch, x_e):

@@ -15,6 +15,7 @@ those takes minutes).
 """
 
 import ctypes
+import functools
 import glob
 import hashlib
 import os
@@ -22,6 +23,9 @@ import shutil
 import subprocess
 import threading
 import time
+import weakref
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -38,19 +42,119 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 _SIGNATURES = {
     "pdp_fn_lookup": (I, [ctypes.c_char_p, P]),
-    "pdp_fused_edge_pass": (I, [I, P, I, P, I, P, P, P, P, I, I, I, P,
-                                ctypes.c_float, P]),
+    "pdp_fused_edge_pass": (I, [P]),
     "pdp_chained_edge_pass": (I, [I, P, I, P, I, P, P, P, P, P, P, I, I, I,
                                   I, I, P, P, P, P, P, ctypes.c_float, P]),
     "pdp_walksat_block": (I, [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I,
                               I, ctypes.c_float, P]),
     "pdp_segment_sum_2d": (I, [P, I, P, P, I, P, P]),
     "pdp_gather_2d": (I, [P, I, P, P, ctypes.c_long, P, P]),
-    "pdp_segment_sum_cols": (I, [P, I, ctypes.c_long, P, P, I, P, P]),
+    "pdp_segment_sum_cols": (I, [P]),
     "pdp_sp_sweep": (I, [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P,
                          ctypes.c_float, I, P]),
     "pdp_verify_and_masks": (I, [P] * 16 + [I, I, I, P]),
 }
+
+
+MAX_IN = 12       # PDP_MAX_IN, common.cuh
+MAX_EOUT = 4      # PDP_MAX_EOUT
+MAX_COLS = 8      # PDP_RED_MAXC, reduce.cu
+GROUP_MIN, GROUP_MAX = 4, 32
+HEAVY_ITERS = 128  # PDP_HEAVY_ITERS, common.cuh
+WALK_MAXR = 8      # PDP_WALK_MAXR
+
+
+class FusedArgs(ctypes.Structure):
+    """csrc/edge_pass.cu FusedArgs, field for field."""
+    _fields_ = [("fn", I), ("n_in", I), ("n_eout", I), ("n_seg", I),
+                ("ins", P * MAX_IN), ("eouts", P * MAX_EOUT),
+                ("ev", P), ("ec", P), ("ptr", P), ("perm", P),
+                ("e_real", I), ("e_total", I), ("group", I),
+                ("scalar", ctypes.c_float), ("red", P), ("heavy", I),
+                ("partials", P), ("counters", P), ("stream", P)]
+
+
+class SegSumArgs(ctypes.Structure):
+    """csrc/reduce.cu SegSumArgs, field for field."""
+    _fields_ = [("cols", P * MAX_COLS), ("n_cols", I), ("sorted", I),
+                ("stride", ctypes.c_long), ("ptr", P), ("perm", P),
+                ("ids", P), ("ids64", I), ("n_seg", I), ("n_slots", I),
+                ("group", I), ("heavy", I), ("out", P), ("partials", P),
+                ("counters", P), ("stream", P)]
+
+
+def group_width(n_slots, n_seg):
+    """Lanes a segment of the group walk (common.cuh): the power of two
+    from 4 to 32 that gives each lane about 4 of the mean segment's
+    slots."""
+    mean = n_slots / max(n_seg, 1)
+    g = GROUP_MIN
+    while g < GROUP_MAX and 4 * g < mean:
+        g *= 2
+    return g
+
+
+def walk_scratch(args, n_slots, group, max_degree, device):
+    """Sets the group walk's heavy flag and scratch in args (FusedArgs or
+    SegSumArgs) for a CSR of n_slots slots whose largest segment holds
+    max_degree (None: not known): no scratch when no segment can reach
+    the heavy stride, else one f32[WALK_MAXR] partial and one i32 counter
+    (zeros; the kernel leaves them 0) per anchored block (csrc/common.cuh
+    make_walk_plan). Returns the scratch tensors, for the caller to keep
+    alive."""
+    stride = HEAVY_ITERS * group
+    args.heavy = int(max_degree is None or max_degree >= stride)
+    if not args.heavy:
+        args.partials = args.counters = None
+        return ()
+    n = max(-(-n_slots // stride), 1)
+    partials = torch.empty(n * WALK_MAXR, dtype=torch.float32, device=device)
+    counters = torch.zeros(n, dtype=torch.int32, device=device)
+    args.partials, args.counters = partials.data_ptr(), counters.data_ptr()
+    return partials, counters
+
+
+def stream_fn(device):
+    """A function returning the current CUDA stream of `device` as an int:
+    torch's raw getter where the build has it (one C call), else
+    torch.cuda.current_stream."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return functools.partial(raw, device.index)
+    return lambda: torch.cuda.current_stream(device).cuda_stream
+
+
+def _no_ref():
+    return None
+
+
+class PlanCache:
+    """Launch plans keyed by the identity of the objects they serve (a
+    batch, index tensors). It holds weak references only: a plan never
+    keeps its objects alive, and an id that a new object reuses misses.
+    Plans assume those objects are not resized in place."""
+
+    def __init__(self, limit=256):
+        self._plans = {}
+        self._limit = limit
+
+    def get(self, objs, extra, make, *args):
+        """The plan for objs (a tuple) and extra, made by make(*args) on a
+        miss."""
+        key = (*map(id, objs), extra)
+        hit = self._plans.get(key)
+        if hit is not None:
+            for r, o in zip(hit[0], objs):
+                if r() is not o:
+                    break
+            else:
+                return hit[1]
+        if len(self._plans) >= self._limit:
+            self._plans.clear()
+        plan = make(*args)
+        self._plans[key] = (tuple(_no_ref if o is None else weakref.ref(o)
+                                  for o in objs), plan)
+        return plan
 
 
 def sources():

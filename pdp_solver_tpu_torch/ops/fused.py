@@ -27,6 +27,7 @@ Each wrapper counts the calls that launched its kernel in `.launches`
 (and per functor in `.launches_by_fn`).
 """
 
+import ctypes
 import dataclasses
 from typing import Callable
 
@@ -36,6 +37,9 @@ from pdp_solver_tpu_torch.ops import _build
 from pdp_solver_tpu_torch.ops.reduce import segment_sum_cols_plain
 from pdp_solver_tpu_torch.ops.segment import (
     LOG_EPS_PROP, LOG_EPS_SCORE, safe_exp, safe_log)
+
+
+F32 = torch.float32
 
 
 def _flag(b):
@@ -297,26 +301,82 @@ def use_chained_pass(batch) -> bool:
 # wrappers
 # ---------------------------------------------------------------------------
 
-def _sizes(batch):
-    return {"V": batch.num_vars, "F": batch.num_clauses,
-            "E": batch.num_edges}
+class _Plan:
+    """One functor on one batch: the shapes its inputs must have and, for a
+    fused pass on the card, the kernel's argument block with everything
+    that does not change from call to call (functor id, index and CSR
+    pointers, counts, group width, the walk's scratch). A plan's scratch
+    serves one launch at a time: launches on one stream."""
+
+    def __init__(self, fn, batch, fused):
+        self.device = batch.device
+        if self.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{fn.name}: unsupported device {self.device}")
+        sizes = {"V": batch.num_vars, "F": batch.num_clauses,
+                 "E": batch.num_edges}
+        self.name = fn.name
+        self.shapes = tuple(torch.Size([sizes[k]]) for k in fn.layout)
+        self.args = None
+        if not fused or self.device.type != "cuda":
+            return
+        a = _build.FusedArgs()
+        a.fn = _build.fn_id(fn.name, fn.meta)
+        a.n_in, a.n_eout = len(fn.layout), fn.n_eout
+        a.ev = batch.edge_var32.data_ptr()
+        a.ec = batch.edge_clause32.data_ptr()
+        a.e_real, a.e_total = batch.num_real_edges, batch.num_edges
+        a.group = _build.GROUP_MIN
+        self.red_shape = None
+        if fn.side == "var":
+            a.n_seg = batch.num_vars
+            a.ptr = batch.var_ptr.data_ptr()
+            a.perm = (batch.var_perm.data_ptr() if batch.var_perm.numel()
+                      else None)
+            a.group = _build.group_width(batch.num_real_edges,
+                                         batch.num_vars)
+            self.scratch = _build.walk_scratch(
+                a, batch.num_real_edges, a.group, batch.var_max_degree,
+                self.device)
+            self.red_shape = (fn.n_red, batch.num_vars)
+        self.args = a
+        self.ins, self.eouts = a.ins, a.eouts
+        self.eout_shape = (batch.num_edges,)
+        self.n_eout = fn.n_eout
+        self.ref = ctypes.byref(a)
+        self.call = _build.library().pdp_fused_edge_pass
+        self.stream = _build.stream_fn(self.device)
+
+    def check(self, ins):
+        """The inputs, each of its shape, f32 and on the batch's device
+        (raises otherwise), made contiguous."""
+        if len(ins) != len(self.shapes):
+            raise ValueError(f"{self.name}: {len(ins)} inputs, expected "
+                             f"{len(self.shapes)}")
+        dev, kept = self.device, []
+        for x, shape in zip(ins, self.shapes):
+            if x.shape != shape or x.dtype != F32 or x.device != dev:
+                self._bad_input(ins)
+            kept.append(x if x.is_contiguous() else x.contiguous())
+        return kept
+
+    def _bad_input(self, ins):
+        for i, (x, shape) in enumerate(zip(ins, self.shapes)):
+            if x.shape != shape:
+                raise ValueError(f"{self.name}: input {i} has shape "
+                                 f"{tuple(x.shape)}, expected {tuple(shape)}")
+            if x.dtype != F32:
+                raise ValueError(f"{self.name}: input {i} is {x.dtype}, "
+                                 "expected float32")
+            if x.device != self.device:
+                raise ValueError(f"{self.name}: input {i} is on {x.device}, "
+                                 f"the batch on {self.device}")
 
 
-def _check_inputs(fn, batch, ins):
-    if len(ins) != len(fn.layout):
-        raise ValueError(f"{fn.name}: {len(ins)} inputs, expected "
-                         f"{len(fn.layout)} ({fn.layout})")
-    sizes = _sizes(batch)
-    for i, (x, kind) in enumerate(zip(ins, fn.layout)):
-        if x.shape != (sizes[kind],):
-            raise ValueError(f"{fn.name}: input {i} has shape "
-                             f"{tuple(x.shape)}, expected ({sizes[kind]},)")
-        if x.dtype != torch.float32:
-            raise ValueError(f"{fn.name}: input {i} is {x.dtype}, "
-                             "expected float32")
-        if x.device != batch.device:
-            raise ValueError(f"{fn.name}: input {i} is on {x.device}, "
-                             f"the batch on {batch.device}")
+_PLANS = _build.PlanCache()
+
+
+def _plan(fn, batch, fused=True):
+    return _PLANS.get((batch,), fn.name, _Plan, fn, batch, fused)
 
 
 def _sum_real_edges(batch, cols, ids, n):
@@ -335,39 +395,34 @@ def fused_edge_pass_plain(fn: EdgeFn, batch, ins, scalar=0.0):
 
 
 def fused_edge_pass(fn: EdgeFn, batch, ins, scalar=0.0):
-    """One fused gather -> f -> reduce pass; see the module docstring."""
-    ins = tuple(ins)
-    _check_inputs(fn, batch, ins)
-    if batch.device.type == "cpu":
+    """One fused gather -> f -> reduce pass; see the module docstring. On
+    the card: one launch, through the (functor, batch) plan."""
+    plan = _plan(fn, batch)
+    ins = plan.check(ins)
+    a = plan.args
+    if a is None:
         return fused_edge_pass_plain(fn, batch, ins, scalar)
-    if batch.device.type != "cuda":
-        raise ValueError(f"fused_edge_pass: unsupported device "
-                         f"{batch.device}")
-    fid = _build.fn_id(fn.name, fn.meta)
-    ins = tuple(x.contiguous() for x in ins)
-    E = batch.num_edges
-    eouts = [torch.empty(E, dtype=torch.float32, device=batch.device)
-             for _ in range(fn.n_eout)]
-    red, n_seg = None, 0
-    if fn.side == "var":
-        n_seg = batch.num_vars
-        red = torch.empty((fn.n_red, n_seg), dtype=torch.float32,
-                          device=batch.device)
-    in_p, _in_keep = _build.ptr_array(ins)
-    eo_p, _eo_keep = _build.ptr_array(eouts)
-    rc = _build.library().pdp_fused_edge_pass(
-        fid, in_p, len(ins), eo_p, len(eouts),
-        batch.edge_var32.data_ptr(), batch.edge_clause32.data_ptr(),
-        batch.var_ptr.data_ptr(),
-        batch.var_perm.data_ptr() if batch.var_perm.numel() else None,
-        n_seg, batch.num_real_edges, E,
-        None if red is None else red.data_ptr(), float(scalar),
-        torch.cuda.current_stream(batch.device).cuda_stream)
-    _build.check(rc, f"fused_edge_pass[{fn.name}]")
+    plan.ins[:len(ins)] = [x.data_ptr() for x in ins]
+    x0 = ins[0]
+    if plan.n_eout:
+        eouts = tuple(x0.new_empty(plan.eout_shape)
+                      for _ in range(plan.n_eout))
+        plan.eouts[:plan.n_eout] = [t.data_ptr() for t in eouts]
+    else:
+        eouts = ()
+    red = None
+    if plan.red_shape is not None:
+        red = x0.new_empty(plan.red_shape)
+        a.red = red.data_ptr()
+    a.scalar = scalar
+    a.stream = plan.stream()
+    rc = plan.call(plan.ref)
+    if rc:
+        _build.check(rc, f"fused_edge_pass[{fn.name}]")
     fused_edge_pass.launches += 1
-    fused_edge_pass.launches_by_fn[fn.name] = (
-        fused_edge_pass.launches_by_fn.get(fn.name, 0) + 1)
-    return red, tuple(eouts)
+    by = fused_edge_pass.launches_by_fn
+    by[fn.name] = by.get(fn.name, 0) + 1
+    return red, eouts
 
 
 fused_edge_pass.launches = 0
@@ -402,15 +457,10 @@ def chained_edge_pass(fn: ChainFn, batch, ins):
     docstring. On the card: a clause-major launch (f1, clause sum, f2), a
     var-major launch (f3, variable sum) and, with n_ired, a per-instance
     sum launch."""
-    ins = tuple(ins)
-    _check_inputs(fn, batch, ins)
+    ins = _plan(fn, batch, fused=False).check(tuple(ins))
     if batch.device.type == "cpu":
         return chained_edge_pass_plain(fn, batch, ins)
-    if batch.device.type != "cuda":
-        raise ValueError(f"chained_edge_pass: unsupported device "
-                         f"{batch.device}")
     fid = _build.fn_id(fn.name, fn.meta)
-    ins = tuple(x.contiguous() for x in ins)
     dev = batch.device
     E, V, F, B = (batch.num_edges, batch.num_vars, batch.num_clauses,
                   batch.batch_size)

@@ -12,7 +12,11 @@ floats (as the path's are) and the one-launch SP sweep (kernel 9) to rtol
 log-input sweep (kernel 9, login=True) also bit for bit against the two
 launches it replaces (`sp_chain_login`, `sp_pass_c`), and the verification
 with masks (kernel 10) exactly against its plain version and the split
-path, on every edge.
+path, on every edge. The group walk of kernels 4, 5, 8 and of kernel 1's
+var side (`csrc/common.cuh`) also bit for bit against its order emulated
+in PyTorch (`ops/reduce.py walk_order_sum`), with the same bits on two
+calls, on a compacted batch (8 instances), one instance and a variable of
+63,488 edges.
 """
 
 import numpy as np
@@ -20,7 +24,8 @@ import pytest
 import torch
 
 from pdp_solver_tpu_torch.fg.batch import pack_instances
-from pdp_solver_tpu_torch.ops import fused, reduce, sp_sweep, verify, walksat
+from pdp_solver_tpu_torch.ops import (
+    _build, fused, reduce, sp_sweep, verify, walksat)
 from pdp_solver_tpu_torch.problem.state import (
     edge_masks_pair, init_problem_state)
 from pdp_solver_tpu_torch.train.loss import cnf_evaluate
@@ -289,3 +294,141 @@ def test_verify_and_masks_matches_plain_and_split_path():
         assert torch.equal(a, c), name
     assert got[0][:6].tolist() == [1, 0, 1, 0, 1, 0]
     assert gpu.num_edges > gpu.num_real_edges
+
+
+# --- the group walk (kernels 4, 5, 8 and kernel 1's var side) -------------
+
+def _hub_batch(degree=63488, n=300, k=3, seed=5):
+    """One instance whose variable 0 sits in every one of its `degree`
+    clauses: a var CSR with one node of `degree` edges."""
+    rng = np.random.default_rng(seed)
+    v = rng.integers(1, n, size=(degree, k))
+    v[:, 0] = 0
+    ec = np.repeat(np.arange(degree), k)
+    signs = rng.choice([-1.0, 1.0], degree * k).astype(np.float32)
+    return pack_instances([(n, degree, np.stack(
+        [v.reshape(-1), ec]).astype(np.int32), signs, -1.0)], device="cuda")
+
+
+@pytest.fixture(scope="module")
+def walk_batches(batches):
+    """The small shared-set batch, one instance, the 8 instances of a
+    32,768-edge bucket (a compacted batch) and one 63,488-edge variable."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    out = {"shared": batches[1],
+           "single": pack_instances(make_ksat_set(count=1), device="cuda"),
+           "compacted": pack_instances(make_ksat_set(count=8),
+                                       device="cuda"),
+           "hub": _hub_batch()}
+    assert out["compacted"].num_edges == 32768
+    return out
+
+
+def _walk_ref(x, batch, side):
+    """The kernel's order (ops/reduce.py walk_order_sum) for x f32[C, E]."""
+    if side == "var":
+        lo, hi = reduce.csr_bounds(batch.var_ptr)
+        slot_edge = batch.var_perm.long()
+        node_at = batch.edge_var[slot_edge]
+    else:
+        lo, hi = reduce.csr_bounds(batch.clause_ptr)
+        slot_edge, node_at = None, batch.edge_clause
+    g = _build.group_width(batch.num_real_edges, lo.shape[0])
+    return reduce.walk_order_sum(x, lo, hi, slot_edge, g)
+
+
+@pytest.mark.parametrize("which", ["shared", "single", "compacted", "hub"])
+@pytest.mark.parametrize("C", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_segment_sum_cols_walk(walk_batches, which, C):
+    """Kernel 4 for C = 1..8 over the var and clause CSRs: exact on
+    integer columns, floats to rtol 1e-5 / atol 1e-6 of index_add_ and
+    bit for bit the walk's emulated order; the [E, C] stride form equal
+    to the column form; nodes with no edges 0; two calls the same bits,
+    with the pack-time largest degree and without it."""
+    gpu = walk_batches[which]
+    g = torch.Generator().manual_seed(C)
+    E, e = gpu.num_edges, gpu.num_real_edges
+    for integer in (True, False):
+        cols = [(torch.randint(-3, 4, (E,), generator=g).float() if integer
+                 else torch.rand(E, generator=g)).cuda() for _ in range(C)]
+        for side, ids, n, ptr, perm in (
+                ("var", gpu.edge_var, gpu.num_vars, gpu.var_ptr,
+                 gpu.var_perm),
+                ("clause", gpu.edge_clause, gpu.num_clauses, gpu.clause_ptr,
+                 None)):
+            md = getattr(gpu, f"{side}_max_degree")
+            ref = reduce.segment_sum_cols_plain(cols, ids, n, e)
+            got = reduce.segment_sum_cols(cols, ids, n, e, ptr, perm,
+                                          max_degree=md)
+            again = reduce.segment_sum_cols(cols, ids, n, e, ptr, perm)
+            rows = reduce.segment_sum(torch.stack(cols, 1), ids, n, e, ptr,
+                                      perm)
+            emu = _walk_ref(torch.stack(cols), gpu, side)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again)
+            assert torch.equal(rows.T, got)
+            assert torch.equal(got, emu)
+            empty = (ptr[1:] == ptr[:-1])
+            assert bool(empty.any()) and bool((got[:, empty] == 0).all())
+            if integer:
+                assert torch.equal(got, ref)
+            else:
+                torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["out_of_range", "padded_clause_ids"])
+def test_sorted_segment_sum_walk(walk_batches, case):
+    """Kernel 8: ids outside [0, N) dropped; the shared set's clause ids
+    over all E edges, whose last run holds 63,488 padding edges (one
+    block); exact, the emulated order's bits, twice the same bits."""
+    if case == "out_of_range":
+        rng = np.random.default_rng(8)
+        n = 500
+        ids = np.sort(np.concatenate([rng.integers(-3, n + 3, 20000),
+                                      np.full(5000, 11)]))
+        ids = torch.from_numpy(ids).cuda()
+    else:
+        full = pack_instances(make_ksat_set(), device="cuda")
+        ids, n = full.edge_clause, full.num_clauses
+        assert int((ids == full.num_real_clauses - 1).sum()) == 4 + 63488
+    g = torch.Generator().manual_seed(9)
+    for x in (torch.randint(-3, 4, ids.shape, generator=g).float().cuda(),
+              torch.rand(ids.shape, generator=g).cuda()):
+        got = reduce.sorted_segment_sum(x, ids, n)
+        again = reduce.sorted_segment_sum(x, ids, n)
+        ref = reduce.sorted_segment_sum_plain(x, ids, n)
+        lo, hi = reduce.sorted_bounds(ids, n)
+        gw = _build.group_width(ids.shape[0], n)
+        emu = reduce.walk_order_sum(x[None], lo, hi, None, gw)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(got, again) and torch.equal(got, emu)
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
+    assert torch.equal(reduce.sorted_segment_sum(x, ids.int(), n), got)
+
+
+@pytest.mark.parametrize("which", ["compacted", "hub", "shared"])
+@pytest.mark.parametrize("fn", [fused.SMAX_SCORER, fused.SCORER],
+                         ids=lambda f: f.name)
+def test_var_side_fused_pass_walk(walk_batches, which, fn):
+    """Kernel 1's var side (SmaxScorer, Scorer) through the group walk:
+    against its plain version to rtol 1e-5 / atol 1e-6, and the same bits
+    on two calls. For the 63,488-edge variable the plain version sums in
+    float64: a float32 index_add_ of that many terms in atomic order is
+    itself ~4e-5 off (measured on the H100), the walk's tree ~1e-6."""
+    gpu = walk_batches[which]
+    ins = [x.cuda() for x in _inputs(fn, gpu, 4)]
+    if which == "hub":
+        terms, _ = fn.plain([x.double() for x in ins], gpu.edge_var,
+                            gpu.edge_clause, 0.0)
+        e = gpu.num_real_edges
+        ref = torch.zeros((fn.n_red, gpu.num_vars), dtype=torch.float64,
+                          device="cuda").index_add_(
+            1, gpu.edge_var[:e], torch.stack([t[:e] for t in terms])).float()
+    else:
+        ref, _ = fused.fused_edge_pass_plain(fn, gpu, ins)
+    got, _ = fused.fused_edge_pass(fn, gpu, ins)
+    again, _ = fused.fused_edge_pass(fn, gpu, ins)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
