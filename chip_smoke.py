@@ -15,28 +15,31 @@ Phases, one flushed line each with the elapsed seconds:
      The [E, d] segment sum and gather of the neural modules (kernels 6
      and 7) are checked at the np-nd-np shapes (d = 50): the sum to rtol
      1e-5 / atol 1e-5 (the plain index_add_ on the card sums in atomic
-     order), the gather and the gather-minus-self bit for bit;
+     order), the gather and the gather-minus-self bit for bit with i32
+     and i64 ids;
      The multi-column segment sum (kernel 4; C = 1 and 2 over the var CSR,
      C = 1 over the clause CSR), the same kernel on a ragged batch of
      mixed clause widths (kernel 5's function) and over sorted ids
      (kernel 8's function), exact on integer columns and to rtol 1e-5 /
      atol 1e-6 on floats, timed beside index_add_ and kernel 6. Kernels
-     4, 5, 8 and kernel 1's var side run the group walk (csrc/common.cuh):
-     each gives the same bits on two calls, and kernels 4, 5 and 8 the
-     bits of the walk's order emulated in PyTorch (ops/reduce.py
-     walk_order_sum). Kernels 1, 4, 5 and 8 and their PyTorch calls are
-     timed three ways (utils/bench_kernels.py timed): ms / call with CUDA
-     events, host us / call with perf_counter and no synchronize, device
-     us / call from the profiler; and again at a compacted shape (the 8
-     instances of a 32,768-edge bucket) and at high degree (a var CSR
+     4, 5, 8, kernel 1's var side and kernel 2's var phase run the group
+     walk (csrc/common.cuh): each gives the same bits on two calls, and
+     kernels 4, 5, 8 and kernel 2's variable sums the bits of the walk's
+     order emulated in PyTorch (ops/reduce.py walk_order_sum, over the
+     plain f3 terms for kernel 2). Kernels 1, 2, 4, 5, 6, 7, 8 and 9 and
+     their PyTorch calls are timed three ways (utils/bench_kernels.py
+     timed): ms / call with CUDA events, host us / call with perf_counter
+     and no synchronize, device us / call from the profiler; and kernels
+     1, 2, 4, 7, 8 and 9 again at a compacted shape (the 8 instances of a
+     32,768-edge bucket), kernels 1, 2 and 4 at high degree (a var CSR
      with one 63,488-edge node; kernel 8 over the shared set's clause ids
      with the padding's 63,488-edge last run), whose float sums are held
-     against the plain version in float64; the
-     one-launch SP sweep (kernel 9) for pi = 0 and 0.01 against its plain
-     version and against the two launches it replaces (rtol 1e-5 / atol
-     1e-6), timed beside both, and in its log-input form (login=True,
-     p-nd-np's) bit for bit against its two launches (`sp_chain_login`,
-     checked above with the other functors, and `sp_pass_c`);
+     against the plain version in float64; the one-launch SP sweep
+     (kernel 9) for pi = 0 and 0.01 and in its log-input form (login=True,
+     p-nd-np's) against its plain version (rtol 1e-5 / atol 1e-6) and bit
+     for bit against the two launches it replaces (`sp_chain` or
+     `sp_chain_login`, then `sp_pass_c`), on the shared set and the
+     compacted batch;
      the verification with the freeze and the next masks in one launch
      (kernel 10) exactly against its plain version and the split path it
      replaces (cnf_chain, the freeze, em_ae), on the shared set's graphs
@@ -74,7 +77,7 @@ Phases, one flushed line each with the elapsed seconds:
      iteration (equal counts) and no `sp_chain_login` or `em_ae` left;
      >= 28/128 solved, printed beside phase 8's count;
  10. seeds 1 and 2 of p-d-p and reinforce, printed with seed 0 beside
-     the counts from before the group walk;
+     the counts from before kernel 2's var phase took the walk's order;
  11. the {"kernels": [...]} line, the card's name and power limit, and as
      the last line {"ok": true, "device": {...}}.
 
@@ -118,8 +121,9 @@ MIN_SOLVED_P_ND_NP = 28
 # path, in the JAX package either), the verification, the masks, WalkSAT
 P_ND_NP_KERNELS = ("sp_chain_login", "sp_pass_c", "segment_sum_2d",
                    "cnf_chain", "em_ae", "walksat_block")
-# solved counts of seeds 0-2 on an H100 when kernels 1 and 4 walked one
-# thread a node (utils/profile_solve.py --seeds 0 1 2 on that tree)
+# solved counts of seeds 0-2 on an H100 before kernel 2's var phase took
+# the group walk's order (the same before and after kernels 1 and 4 took
+# it; utils/profile_solve.py --seeds 0 1 2)
 PRIOR_SOLVED = {"p-d-p": [86, 84, 87], "reinforce": [12, 16, 10]}
 # card-vs-CPU REINFORCE forward: variables whose CPU |score| is below this
 # may take either sign; the share of differing forces after 10 iterations
@@ -226,6 +230,17 @@ def fused_bytes(fn, batch, chained):
     return n
 
 
+def _flat(outs):
+    """The tensors of a pass's outputs, edge outputs unpacked."""
+    flat = []
+    for o in outs:
+        if isinstance(o, tuple):
+            flat += list(o)
+        elif o is not None:
+            flat.append(o)
+    return flat
+
+
 def check_kernels(batch, torch, np):
     from pdp_solver_tpu_torch.ops import fused, walksat
     from pdp_solver_tpu_torch.utils.bench_kernels import timed
@@ -240,16 +255,10 @@ def check_kernels(batch, torch, np):
         got = call(fn, batch, ins)
         torch.cuda.synchronize()
         err = 0.0
-        refs, gots = [], []
         for r, o in zip(ref, got):
-            if isinstance(r, tuple):
-                refs += list(r)
-                gots += list(o)
-            elif r is not None:
-                refs.append(r)
-                gots.append(o)
-            else:
-                require(o is None, f"{fn.name}: unexpected output")
+            require((r is None) == (o is None),
+                    f"{fn.name}: unexpected output")
+        refs, gots = _flat(ref), _flat(got)
         for r, o in zip(refs, gots):
             require(r.shape == o.shape, f"{fn.name}: shape {tuple(o.shape)}"
                     f" != {tuple(r.shape)}")
@@ -264,16 +273,23 @@ def check_kernels(batch, torch, np):
                         f"rtol {FLOAT_TOL['rtol']} / atol "
                         f"{FLOAT_TOL['atol']}")
         extra = {}
-        if chained:
-            ms = cuda_ms(lambda: call(fn, batch, ins), reps=50)
-        else:
-            if fn.side == "var":
-                # the group walk: the same bits on a second call
-                require(torch.equal(call(fn, batch, ins)[0], got[0]),
-                        f"{fn.name}: two calls differ")
-                extra["twice_equal"] = True
-            extra.update(timed(lambda: call(fn, batch, ins)))
-            ms = extra.pop("ms")
+        if chained or fn.side == "var":
+            # the group walk: the same bits on a second call
+            again = call(fn, batch, ins)
+            torch.cuda.synchronize()
+            require(all(torch.equal(o, a) for o, a in zip(
+                gots, _flat(again))), f"{fn.name}: two calls differ")
+            extra["twice_equal"] = True
+        if chained and fn.n_vred:
+            # the variable sums in the walk's order over the plain terms
+            emu = fused.chained_vred_walk_order(fn, batch, ins)
+            torch.cuda.synchronize()
+            require(torch.equal(got[1], emu), f"{fn.name}: not the walk's "
+                    f"order (max abs diff "
+                    f"{float((got[1] - emu).abs().max()):.3g})")
+            extra["walk_order_bits"] = True
+        extra.update(timed(lambda: call(fn, batch, ins)))
+        ms = extra.pop("ms")
         plain_ms = cuda_ms(lambda: plain(fn, batch, ins), reps=10)
         # one PyTorch call computes the same function only for the plain
         # gather `ae` (an index_select); the others have none
@@ -293,14 +309,14 @@ def check_kernels(batch, torch, np):
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms},
             **extra)
-        more = ("" if chained else f", host {extra['host_us']:.1f} us, "
-                f"device {extra['device_us']:.2f} us")
         lib = ("" if library_ms is None else f", library {library_ms:.4f} ms"
                f" (host {extra['library_host_us']:.1f} us, device "
                f"{extra['library_device_us']:.2f} us)")
-        log(f"kernel {rows[fn.name]['name']}: ok, max abs err {err:.3g}, "
-            f"{ms:.4f} ms{more} (plain {plain_ms:.4f} ms, bound "
-            f"{b_ms:.5f} ms{lib})")
+        checks = "".join(f", {k.replace('_', ' ')}" for k in (
+            "twice_equal", "walk_order_bits") if k in extra)
+        log(f"kernel {rows[fn.name]['name']}: ok, max abs err {err:.3g}"
+            f"{checks}; {timing_note(dict(extra, ms=ms))} (plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms{lib})")
 
     # walksat_block: bit for bit, greedy and seeded, K = 8 as on the path
     g = torch.Generator().manual_seed(7)
@@ -349,6 +365,7 @@ def check_reduce2d(batch, torch):
     """Kernels 6 and 7 at the np-nd-np shapes against their plain versions,
     timed beside them, the one-call library version and the bound."""
     from pdp_solver_tpu_torch.ops import reduce2d
+    from pdp_solver_tpu_torch.utils.bench_kernels import timed
     E, V, d = batch.num_edges, batch.num_vars, HIDDEN_AGG
     e = batch.num_real_edges
     g = torch.Generator().manual_seed(17)
@@ -373,43 +390,58 @@ def check_reduce2d(batch, torch):
             f"{REDUCE2D_TOL['rtol']} / atol {REDUCE2D_TOL['atol']}")
     out = torch.zeros(V, d, device="cuda")
     x_real, ev_real = x[:e], ev[:e]
-    library_ms = cuda_ms(lambda: out.index_add_(0, ev_real, x_real), reps=50)
+    lib = timed(lambda: out.index_add_(0, ev_real, x_real))
     # rows of the real edges, the permutation and offsets read once, the
     # sums written once; one add per element read
     b_ms, b_by = bound_ms((e * d + e + V + 1 + V * d) * 4, e * d)
-    rows["segment_sum_2d"] = {
-        "name": "segment_sum_2d", "route": "cuda",
-        "source": "pdp_solver_tpu_torch/csrc/reduce2d.cu",
-        "replaces": f"{PALLAS_2D}:109", "max_abs_err": err,
-        "ms": cuda_ms(seg, reps=50), "plain_ms": cuda_ms(seg_plain, reps=20),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-        "library": "index_add_ over the real edges"}
+    rows["segment_sum_2d"] = dict(
+        timed(seg), name="segment_sum_2d", route="cuda",
+        source="pdp_solver_tpu_torch/csrc/reduce2d.cu",
+        replaces=f"{PALLAS_2D}:109", max_abs_err=err,
+        plain_ms=cuda_ms(seg_plain, reps=20), bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib["ms"], library_host_us=lib["host_us"],
+        library_device_us=lib["device_us"],
+        library="index_add_ over the real edges")
 
-    for minus in (None, x):
-        got = reduce2d.gather_2d(nodes, ev, minus)
-        ref = reduce2d.gather_2d_plain(nodes, ev, minus)
-        torch.cuda.synchronize()
-        require(torch.equal(got, ref), "gather_2d (minus "
-                f"{minus is not None}): not bit-exact, max abs err "
-                f"{float((got - ref).abs().max())}")
-    # the path's form subtracts each edge's own row (aggregate minus self)
-    b_ms, b_by = bound_ms((E * d + 2 * E + V * d + E * d) * 4, E * d)
-    rows["gather_2d"] = {
-        "name": "gather_2d", "route": "cuda",
-        "source": "pdp_solver_tpu_torch/csrc/reduce2d.cu",
-        "replaces": f"{PALLAS_2D}:120", "max_abs_err": 0.0,
-        "ms": cuda_ms(lambda: reduce2d.gather_2d(nodes, ev, x), reps=50),
-        "plain_ms": cuda_ms(lambda: reduce2d.gather_2d_plain(nodes, ev, x),
-                            reps=20),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(lambda: nodes.index_select(0, ev), reps=50),
-        "library": "index_select (the gather without the subtract)",
-        "ms_without_minus": cuda_ms(lambda: reduce2d.gather_2d(nodes, ev),
-                                    reps=50)}
+    # the path's ids are i32 (edge_var32); i64 ids give the same bits
+    ev32 = batch.edge_var32
+    for ids in (ev32, ev):
+        for minus in (None, x):
+            got = reduce2d.gather_2d(nodes, ids, minus)
+            ref = reduce2d.gather_2d_plain(nodes, ev, minus)
+            torch.cuda.synchronize()
+            require(torch.equal(got, ref), f"gather_2d (minus "
+                    f"{minus is not None}, {ids.dtype}): not bit-exact, max "
+                    f"abs err {float((got - ref).abs().max())}")
+    # the path's form subtracts each edge's own row (aggregate minus self):
+    # the subtrahend and the output, the node rows and i32 ids
+    b_ms, b_by = bound_ms((E * d + E + V * d + E * d) * 4, E * d)
+    b_plain, _ = bound_ms((E + V * d + E * d) * 4, 0)
+    kern = timed(lambda: reduce2d.gather_2d(nodes, ev32, x))
+    plain_gather = timed(lambda: reduce2d.gather_2d(nodes, ev32))
+    lib = timed(lambda: nodes.index_select(0, ev))
+    rows["gather_2d"] = dict(
+        kern, name="gather_2d", route="cuda",
+        source="pdp_solver_tpu_torch/csrc/reduce2d.cu",
+        replaces=f"{PALLAS_2D}:120", max_abs_err=0.0,
+        plain_ms=cuda_ms(lambda: reduce2d.gather_2d_plain(nodes, ev, x),
+                         reps=20),
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib["ms"],
+        library_host_us=lib["host_us"], library_device_us=lib["device_us"],
+        library="index_select (the gather without the subtract, i64 ids)",
+        without_minus=dict(plain_gather, bound_ms=b_plain),
+        ms_i64_ids=cuda_ms(lambda: reduce2d.gather_2d(nodes, ev, x),
+                           reps=50),
+        without_minus_ms_i64_ids=cuda_ms(
+            lambda: reduce2d.gather_2d(nodes, ev), reps=50))
     for r in rows.values():
         log(f"kernel {r['name']}: ok, max abs err {r['max_abs_err']:.3g}, "
-            f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library "
-            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms)")
+            f"{timing_note(r)} (plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms, host {r['library_host_us']:.1f} us, "
+            f"device {r['library_device_us']:.2f} us; bound "
+            f"{r['bound_ms']:.5f} ms)")
+    log(f"kernel gather_2d without the subtract: "
+        f"{timing_note(plain_gather)}, bound {b_plain:.5f} ms")
     return rows
 
 
@@ -646,12 +678,46 @@ def check_reduce(batch, torch, np):
     return rows
 
 
+def check_chained_walk(fn, b, label, torch):
+    """One chained functor on a compacted or high-degree batch: against
+    its plain version (exact for the integer functors; at high degree the
+    SP sums against float64), the same bits twice, the walk's order, and
+    timed."""
+    from pdp_solver_tpu_torch.ops import fused
+    from pdp_solver_tpu_torch.utils.bench_kernels import timed
+    name = f"chained_edge_pass[{fn.name}] {label}"
+    ins = fn_inputs(fn, b, seed=47)
+    got = fused.chained_edge_pass(fn, b, ins)
+    again = fused.chained_edge_pass(fn, b, ins)
+    ref = list(fused.chained_edge_pass_plain(fn, b, ins))
+    exact = fn.name in EXACT_FNS
+    if label == "high_degree" and fn.n_vred and not exact:
+        ref[1] = fused.chained_edge_pass_plain(
+            fn, b, [t.double() for t in ins])[1].float()
+    torch.cuda.synchronize()
+    err = 0.0
+    for o, a, r in zip(_flat(got), _flat(again), _flat(ref)):
+        err = max(err, _check_sum(torch, name, o, r, exact))
+        require(torch.equal(o, a), f"{name}: two calls differ")
+    if fn.n_vred:
+        emu = fused.chained_vred_walk_order(fn, b, ins)
+        torch.cuda.synchronize()
+        require(torch.equal(got[1], emu), f"{name}: not the walk's order")
+    kern = timed(lambda: fused.chained_edge_pass(fn, b, ins))
+    order = ", the walk's order" if fn.n_vred else ""
+    log(f"{name}: ok, max abs err {err:.3g}, twice the same bits{order}; "
+        f"{timing_note(kern)}")
+    return dict(kern, max_abs_err=err, edges=b.num_edges,
+                max_degree=b.var_max_degree)
+
+
 def check_walk(insts, torch, np):
     """The redesigned forms (kernel 4 over the var and clause CSRs,
-    kernel 8, kernel 1's var side and `ae`) at a compacted shape, the 8
-    instances that a 32,768-edge bucket holds, and at high degree: a var
-    CSR with one 63,488-edge node, and kernel 8 over all E edges of the
-    shared set, whose last run holds the 63,488 padding edges. Each is
+    kernel 8, kernel 1's var side and `ae`, kernel 2's five functors) at a
+    compacted shape, the 8 instances that a 32,768-edge bucket holds, and
+    at high degree: a var CSR with one 63,488-edge node, and kernel 8 over
+    all E edges of the shared set, whose last run holds the 63,488 padding
+    edges; kernel 7 at the compacted shape. Each is
     checked (exact on integer columns, rtol 1e-5 / atol 1e-6 on floats,
     the same bits twice, the walk's order where it is a plain sum) and
     timed beside its PyTorch call. At high degree the float sums are held
@@ -670,6 +736,7 @@ def check_walk(insts, torch, np):
 
     cases = {"segment_sum_cols": {}, "sorted_segment_sum": {},
              "smax_scorer": {}, "scorer": {}, "ae": {}}
+    cases.update({fn.name: {} for fn in fused.CHAINED_FNS})
     compacted = pack_instances(insts[:8], device="cuda")
     require(compacted.num_edges == 32768, "the compacted batch has "
             f"{compacted.num_edges} edges")
@@ -733,8 +800,24 @@ def check_walk(insts, torch, np):
             cases[fn.name][label] = dict(kern, max_abs_err=err, edges=E)
             log(f"{name}: ok, max abs err {err:.3g}, twice the same bits; "
                 f"{timing_note(kern)}")
-    # ae and kernel 8 at the compacted shape
+        for fn in fused.CHAINED_FNS:
+            cases[fn.name][label] = check_chained_walk(fn, b, label, torch)
+    # kernel 7 at the compacted shape, the path's form (i32 ids, minus)
+    from pdp_solver_tpu_torch.ops import reduce2d
     b = compacted
+    nodes = torch.randn(b.num_vars, HIDDEN_AGG, generator=g).cuda()
+    x = torch.randn(b.num_edges, HIDDEN_AGG, generator=g).cuda()
+    require(torch.equal(reduce2d.gather_2d(nodes, b.edge_var32, x),
+                        reduce2d.gather_2d_plain(nodes, b.edge_var, x)),
+            "gather_2d (compacted): not bit-exact")
+    kern = timed(lambda: reduce2d.gather_2d(nodes, b.edge_var32, x))
+    lib = timed(lambda: nodes.index_select(0, b.edge_var))
+    cases["gather_2d"] = {"compacted": dict(
+        kern, library_ms=lib["ms"], library_host_us=lib["host_us"],
+        library_device_us=lib["device_us"], edges=b.num_edges)}
+    log(f"gather_2d compacted: exact; {timing_note(kern)} (index_select "
+        f"{timing_note(lib)})")
+    # ae and kernel 8 at the compacted shape
     (abv,) = fn_inputs(fused.AE, b, seed=43)
     require(torch.equal(fused.fused_edge_pass(fused.AE, b, (abv,))[1][0],
                         abv[b.edge_var]), "ae (compacted): not exact")
@@ -798,57 +881,63 @@ def sweep_inputs(batch, torch, seed, pi, login=False):
                 v2=v[:, 2].contiguous())
 
 
-def check_sp_sweep(batch, torch):
-    """Kernel 9 against its plain version and the two launches it
-    replaces, for pi = 0 (p-d-p) and 0.01 (reinforce), and in its
-    log-input form at pi = 0 (p-nd-np), which must give the two login
-    launches' bits."""
+def check_sp_sweep(batch, compacted, torch):
+    """Kernel 9 against its plain version and, bit for bit, against the
+    two launches it replaces (its variable sums take the chained pass's
+    walk order), for pi = 0 (p-d-p), 0.01 (reinforce) and in its
+    log-input form at pi = 0 (p-nd-np), at the shared-set shapes and on a
+    compacted batch."""
     from pdp_solver_tpu_torch.ops import fused, sp_sweep
+    from pdp_solver_tpu_torch.utils.bench_kernels import timed
     E, V, F, B = (batch.num_edges, batch.num_vars, batch.num_clauses,
                   batch.batch_size)
     e = batch.num_real_edges
     per_case = {}
     for pi, login in ((0.0, False), (0.01, False), (0.0, True)):
-        kw = sweep_inputs(batch, torch, 31, pi, login)
-        cols = tuple(kw.values())
-        chain = fused.SP_CHAIN_LOGIN if login else fused.SP_CHAIN
-
-        def one():
-            return sp_sweep.sp_full_sweep(batch, pi=pi, login=login, **kw)
-
-        def two():
-            _, pn, (eta,), _ = fused.chained_edge_pass(chain, batch,
-                                                       cols[:6])
-            _, q = fused.fused_edge_pass(
-                fused.SP_PASS_C, batch,
-                (pn[0], pn[1]) + cols[1:2] + cols[2:4] + cols[5:],
-                scalar=pi)
-            return (eta,) + tuple(q)
-
-        def plain():
-            return sp_sweep.sp_full_sweep_plain(batch, cols, pi, login)
-
-        got, ref, twin = one(), plain(), two()
-        torch.cuda.synchronize()
-        err = err_two = 0.0
-        for a, b, c in zip(got, ref, twin):
-            err = max(err, _check_sum(torch, "sp_full_sweep", a, b, False))
-            err_two = max(err_two, _check_sum(
-                torch, "sp_full_sweep vs the two launches", a, c, False))
-        bits = all(torch.equal(a, c) for a, c in zip(got, twin))
-        require(bits or not login, "sp_full_sweep(login=True): not "
-                f"bit-equal to the two login launches ({err_two:.3g})")
         case = f"login, pi {pi}" if login else f"pi {pi}"
-        per_case[case] = {
-            "max_abs_err": err, "max_abs_diff_two_launch": err_two,
-            "bit_equal_two_launch": bits,
-            "ms": cuda_ms(one, reps=50), "plain_ms": cuda_ms(plain, reps=10),
-            "two_launch_ms": cuda_ms(two, reps=50)}
-        r = per_case[case]
-        log(f"kernel sp_full_sweep ({case}): ok, max abs err {err:.3g} vs "
-            f"plain, {err_two:.3g} vs the two launches (bit-equal {bits}); "
-            f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, two launches "
-            f"{r['two_launch_ms']:.4f} ms)")
+        for label, b in (("shared", batch), ("compacted", compacted)):
+            kw = sweep_inputs(b, torch, 31, pi, login)
+            cols = tuple(kw.values())
+            chain = fused.SP_CHAIN_LOGIN if login else fused.SP_CHAIN
+
+            def one():
+                return sp_sweep.sp_full_sweep(b, pi=pi, login=login, **kw)
+
+            def two():
+                _, pn, (eta,), _ = fused.chained_edge_pass(chain, b,
+                                                           cols[:6])
+                _, q = fused.fused_edge_pass(
+                    fused.SP_PASS_C, b, (pn[0], pn[1]) + cols[1:4]
+                    + cols[5:], scalar=pi)
+                return (eta,) + tuple(q)
+
+            def plain():
+                return sp_sweep.sp_full_sweep_plain(b, cols, pi, login)
+
+            got, ref, twin = one(), plain(), two()
+            torch.cuda.synchronize()
+            err = 0.0
+            for a, r in zip(got, ref):
+                err = max(err, _check_sum(torch, "sp_full_sweep", a, r,
+                                          False))
+            bits = all(torch.equal(a, c) for a, c in zip(got, twin))
+            require(bits, f"sp_full_sweep ({case}, {label}): not bit-equal "
+                    "to its two launches")
+            if label == "compacted":
+                per_case[case]["compacted"] = dict(
+                    timed(one), two_launch_ms=cuda_ms(two, reps=50),
+                    edges=b.num_edges)
+                r = per_case[case]["compacted"]
+            else:
+                per_case[case] = dict(
+                    timed(one), max_abs_err=err, bit_equal_two_launch=True,
+                    plain_ms=cuda_ms(plain, reps=10),
+                    two_launch_ms=cuda_ms(two, reps=50))
+                r = per_case[case]
+            log(f"kernel sp_full_sweep ({case}, {label}): ok, max abs err "
+                f"{err:.3g} vs plain, bit-equal to the two launches; "
+                f"{timing_note(r)} (two launches {r['two_launch_ms']:.4f} "
+                "ms)")
     # 10 edge columns in, 4 out; edge_var, var_perm, the padding edges'
     # clause ids and the CSR offsets read once
     nbytes = ((10 + 4 + 1) * E + e + (E - e) + (V + 1) + (F + 1)
@@ -867,8 +956,9 @@ def check_sp_sweep(batch, torch):
             "source": "pdp_solver_tpu_torch/csrc/sp_sweep.cu",
             "replaces": "pdp_solver_tpu/ops/pallas_sp.py:166",
             "max_abs_err": max(r["max_abs_err"] for r in cases.values()),
-            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None,
+            "ms": main["ms"], "host_us": main["host_us"],
+            "device_us": main["device_us"], "plain_ms": main["plain_ms"],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "library": "none exists; two_launch_ms times the two launches "
                        "it replaces",
             "two_launch_ms": main["two_launch_ms"], "cases": cases}
@@ -1122,7 +1212,8 @@ def main():
         rows.update(check_reduce(batch, torch, np))
         for name, per_case in check_walk(insts, torch, np).items():
             rows[name]["walk_cases"] = per_case
-        rows.update(check_sp_sweep(batch, torch))
+        rows.update(check_sp_sweep(
+            batch, pack_instances(insts[:8], device="cuda"), torch))
         del batch
         rows.update(check_verify(insts, torch, np))
         log("phase 2 kernel checks: all kernels match their plain versions")
@@ -1256,8 +1347,8 @@ def main():
         rnf = [rres["solved"]] + [solve_reinforce(insts, seed=k)["solved"]
                                   for k in (1, 2)]
         log(f"seeds 0-2 (of {len(insts)}, verified with numpy): p-d-p "
-            f"{pdp} (before the walk: {PRIOR_SOLVED['p-d-p']}); reinforce "
-            f"{rnf} (before the walk: {PRIOR_SOLVED['reinforce']})")
+            f"{pdp} (before kernel 2's walk: {PRIOR_SOLVED['p-d-p']}); "
+            f"reinforce {rnf} (before: {PRIOR_SOLVED['reinforce']})")
 
         # each row carries the launches of the path it serves
         serves = {"segment_sum_2d": nlaunches, "gather_2d": nlaunches,

@@ -17,19 +17,23 @@
 // masked to zero in every functor) but still get their edge outputs.
 //
 // Reduces: one thread per clause (its edges are contiguous) in the chained
-// pass; per variable, the chained pass's second phase walks the var-major
-// permutation with one thread a variable, and the fused pass with the
-// group walk of common.cuh (a group of lanes a variable, several blocks
-// for a variable of very high degree). Each sum is taken in one fixed
-// order and no float atomics are used: the decimator takes an argmax of
-// |score|, so a sum in another order can change which variable is fixed.
+// pass's first phase; every reduce to variables (the fused pass's var side
+// and the chained pass's second phase) with the group walk of common.cuh
+// over the var-major permutation (a group of lanes a variable, several
+// blocks for a variable of very high degree). Each sum is taken in one
+// fixed order and no float atomics are used: the decimator takes an argmax
+// of |score|, so a sum in another order can change which variable is
+// fixed. The one-launch SP sweep (sp_sweep.cu) takes its variable sums in
+// the walk's order too, so it gives the bits of sp_chain + sp_pass_c.
 //
 // Bound on the H100: at the bench batch (E = 524,288 padded edges) one pass
 // moves a few MB, i.e. a few microseconds at 3.35 TB/s, and does a few
 // flops per byte; launch overhead (~3-5 us) and the latency of the
 // dependent gathers dominate. The design keeps each pass to one launch
-// (two or three for a chained pass) and every intermediate in registers;
-// CUDA graphs and fusing the launches are later work.
+// (two or three for a chained pass: the var walk needs every clause's
+// broadcast columns) and every intermediate in registers. Each pass's
+// arguments come in one structure that a plan per (functor, batch) fills
+// once (ops/fused.py), so a call costs one ctypes call.
 
 #include <cuda_runtime.h>
 #include <string.h>
@@ -339,7 +343,11 @@ __global__ void fused_reduce_kernel(WalkPlan p, Cols a, const int* ptr,
 
 // chained phase 1: one thread per clause. f1 over its edges, the clause
 // sum, f2; writes the clause outputs, the broadcast columns and the
-// clause-level columns of the instance reduce.
+// clause-level columns of the instance reduce, and f3's edge outputs of
+// the clause's edges (they need only the clause's columns and the edge's
+// own inputs, and the clause's edges are contiguous, so neighbouring
+// threads write neighbouring runs; the var walk then reads only what its
+// sums need).
 template <class F>
 __global__ void chained_clause_kernel(Cols a, const int* clause_ptr,
                                       int n_clauses, float* cout, float* bc,
@@ -357,6 +365,14 @@ __global__ void chained_clause_kernel(Cols a, const int* clause_ptr,
   }
   float co[PDP_N1(F::NCOUT)], b[PDP_N1(F::NBC)], ir[PDP_N1(F::NIRED)];
   F::f2(a, c, cr, co, b, ir);
+  if (F::NE > 0) {
+    for (int e = clause_ptr[c]; e < e1; ++e) {
+      float vr[PDP_N1(F::NVRED)], o[PDP_N1(F::NE)];
+      F::f3(a, e, b, vr, o);
+#pragma unroll
+      for (int i = 0; i < F::NE; ++i) a.eo[i][e] = o[i];
+    }
+  }
 #pragma unroll
   for (int i = 0; i < F::NCOUT; ++i) cout[(size_t)i * n_clauses + c] = co[i];
 #pragma unroll
@@ -365,41 +381,50 @@ __global__ void chained_clause_kernel(Cols a, const int* clause_ptr,
   for (int i = 0; i < F::NIRED; ++i) irc[(size_t)i * n_clauses + c] = ir[i];
 }
 
-// chained phase 2: one thread per variable walking the var-major
-// permutation (f3 on the broadcast clause values, deterministic var sum),
-// then one thread per padding edge for the edge outputs.
+// chained phase 2: the group walk of common.cuh over the var-major CSR,
+// lane by lane F::f3's variable terms of each edge from its broadcast
+// clause columns (the term of the walk; its edge outputs, written by
+// phase 1, are dropped unread); the blocks after the walk's compute the
+// padding edges' outputs, which are in no clause.
 template <class F>
-__global__ void chained_var_kernel(Cols a, const float* bc, int n_clauses,
-                                   const int* var_ptr, const int* var_perm,
-                                   int n_vars, float* vred, int e_real,
-                                   int e_total) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  float b[PDP_N1(F::NBC)], vr[PDP_N1(F::NVRED)], o[PDP_N1(F::NE)];
-  if (t < n_vars) {
-    float acc[PDP_N1(F::NVRED)];
-#pragma unroll
-    for (int i = 0; i < F::NVRED; ++i) acc[i] = 0.0f;
-    const int j1 = var_ptr[t + 1];
-    for (int j = var_ptr[t]; j < j1; ++j) {
-      const int e = var_perm[j];
-      const int c = a.ec[e];
-#pragma unroll
-      for (int i = 0; i < F::NBC; ++i) b[i] = bc[(size_t)i * n_clauses + c];
-      F::f3(a, e, b, vr, o);
-#pragma unroll
-      for (int i = 0; i < F::NVRED; ++i) acc[i] += vr[i];
-#pragma unroll
-      for (int i = 0; i < F::NE; ++i) a.eo[i][e] = o[i];
-    }
-#pragma unroll
-    for (int i = 0; i < F::NVRED; ++i) vred[(size_t)i * n_vars + t] = acc[i];
-  } else if (F::NE > 0) {
-    const int e = e_real + (t - n_vars);
-    if (e >= e_total) return;
+struct ChainTerm {
+  Cols a;
+  const float* bc;
+  int n_clauses;
+  // f3 of edge e on its clause's broadcast columns: variable terms r,
+  // edge outputs o
+  __device__ __forceinline__ void f3(int e, float* r, float* o) const {
     const int c = a.ec[e];
+    float b[PDP_N1(F::NBC)];
 #pragma unroll
     for (int i = 0; i < F::NBC; ++i) b[i] = bc[(size_t)i * n_clauses + c];
-    F::f3(a, e, b, vr, o);
+    F::f3(a, e, b, r, o);
+  }
+  __device__ __forceinline__ void operator()(int e, float* r) const {
+    float o[PDP_N1(F::NE)];
+    f3(e, r, o);  // o is dead: the compiler drops it and what only it reads
+  }
+};
+
+template <class F>
+__global__ void chained_var_kernel(WalkPlan p, Cols a, const float* bc,
+                                   int n_clauses, const int* var_ptr,
+                                   const int* var_perm, float* vred,
+                                   int e_real, int e_total) {
+  static_assert(F::NVRED > 0, "the var phase sums at least one column");
+  const ChainTerm<F> term{a, bc, n_clauses};
+  const int walk_blocks = p.group_blocks + p.anchor_blocks;
+  if ((int)blockIdx.x < walk_blocks) {
+    walk_block<F::NVRED>(p, CsrSeg<int>{var_ptr, var_perm, a.ev}, term,
+                         SegOut{vred, p.n_seg});
+    return;
+  }
+  if (F::NE > 0) {
+    const int e =
+        e_real + ((int)blockIdx.x - walk_blocks) * blockDim.x + threadIdx.x;
+    if (e >= e_total) return;
+    float r[F::NVRED], o[PDP_N1(F::NE)];
+    term.f3(e, r, o);
 #pragma unroll
     for (int i = 0; i < F::NE; ++i) a.eo[i][e] = o[i];
   }
@@ -426,6 +451,42 @@ __global__ void instance_sum_kernel(const float* irc, int n_clauses,
   }
   if (threadIdx.x == 0) out[(size_t)col * n_inst + b] = sh[0];
 }
+
+// One chained pass's arguments, filled once per (functor, batch) plan by
+// ops/fused.py and passed by pointer (the field order matches its ctypes
+// Structure). Clause-major edges [clause_ptr[c], clause_ptr[c+1]), the
+// var-major CSR var_ptr/var_perm, the instances' clauses inst_clause_ptr;
+// group, heavy, partials, counters: the var walk's (common.cuh WalkPlan).
+// cout f32[n_cout, F], vred f32[n_vred, V] and ired f32[n_ired, B] are
+// outputs; bc f32[n_bcast, F] and irc f32[n_ired, F] clause-level scratch.
+struct ChainedArgs {
+  int fn;
+  int n_in;
+  int n_eout;
+  int n_vars;
+  int n_clauses;
+  int n_inst;
+  int e_real;
+  int e_total;
+  const void* ins[PDP_MAX_IN];
+  float* eouts[PDP_MAX_EOUT];
+  const int* ev;
+  const int* ec;
+  const int* var_ptr;
+  const int* var_perm;
+  const int* clause_ptr;
+  const int* inst_clause_ptr;
+  int group;
+  int heavy;
+  float* partials;
+  int* counters;
+  float* cout;
+  float* bc;
+  float* irc;
+  float* vred;
+  float* ired;
+  void* stream;
+};
 
 // ---------------------------------------------------------------------------
 // launchers
@@ -458,25 +519,29 @@ static int launch_fused(const Cols& a, const int* ptr, const int* perm,
 }
 
 template <class F>
-static void launch_chained(const Cols& a, const int* var_ptr,
-                           const int* var_perm, const int* clause_ptr,
-                           const int* inst_clause_ptr, int n_vars,
-                           int n_clauses, int n_inst, int e_real, int e_total,
-                           float* cout, float* bc, float* irc, float* vred,
-                           float* ired, cudaStream_t st) {
-  if (n_clauses > 0)
-    chained_clause_kernel<F><<<blocks_for(n_clauses), PDP_THREADS, 0, st>>>(
-        a, clause_ptr, n_clauses, cout, bc, irc);
-  if (F::NVRED > 0 || F::NE > 0) {
-    const long n = (long)n_vars + (F::NE > 0 ? e_total - e_real : 0);
-    if (n > 0)
-      chained_var_kernel<F><<<blocks_for(n), PDP_THREADS, 0, st>>>(
-          a, bc, n_clauses, var_ptr, var_perm, n_vars, vred, e_real,
-          e_total);
+static int launch_chained(const ChainedArgs& f, const Cols& a,
+                          cudaStream_t st) {
+  static_assert(F::NVRED > 0 || F::NE == 0,
+                "edge outputs come from the var phase");
+  if (f.n_clauses > 0)
+    chained_clause_kernel<F><<<blocks_for(f.n_clauses), PDP_THREADS, 0, st>>>(
+        a, f.clause_ptr, f.n_clauses, f.cout, f.bc, f.irc);
+  if constexpr (F::NVRED > 0) {
+    WalkPlan p;
+    if (!make_walk_plan(f.n_vars, f.e_real, f.group, f.heavy != 0,
+                        f.partials, f.counters, &p))
+      return -1;
+    const long n = (long)p.group_blocks + p.anchor_blocks +
+                   (F::NE > 0 ? blocks_for(f.e_total - f.e_real) : 0);
+    if (f.n_vars > 0 && n > 0)
+      chained_var_kernel<F><<<(int)n, PDP_THREADS, 0, st>>>(
+          p, a, f.bc, f.n_clauses, f.var_ptr, f.var_perm, f.vred, f.e_real,
+          f.e_total);
   }
-  if (F::NIRED > 0 && n_inst > 0)
-    instance_sum_kernel<<<dim3(n_inst, F::NIRED), PDP_THREADS, 0, st>>>(
-        irc, n_clauses, inst_clause_ptr, n_inst, ired);
+  if (F::NIRED > 0 && f.n_inst > 0)
+    instance_sum_kernel<<<dim3(f.n_inst, F::NIRED), PDP_THREADS, 0, st>>>(
+        f.irc, f.n_clauses, f.inst_clause_ptr, f.n_inst, f.ired);
+  return 0;
 }
 
 struct FnInfo {
@@ -596,31 +661,25 @@ int pdp_fused_edge_pass(const FusedArgs* f) {
   return (int)cudaGetLastError();
 }
 
-// One chained pass (two or three launches). cout f32[n_cout, F],
-// bc f32[n_bcast, F] and irc f32[n_ired, F] are clause-level (bc and irc
-// scratch), vred f32[n_vred, V], ired f32[n_ired, B].
-int pdp_chained_edge_pass(int fn, const void* const* ins, int n_in,
-                          float* const* eouts, int n_eout, const int* ev,
-                          const int* ec, const int* var_ptr,
-                          const int* var_perm, const int* clause_ptr,
-                          const int* inst_clause_ptr, int n_vars,
-                          int n_clauses, int n_inst, int e_real, int e_total,
-                          float* cout, float* bc, float* irc, float* vred,
-                          float* ired, float scalar, void* stream) {
-  const Cols a = make_cols(ins, n_in, eouts, n_eout, ev, ec, scalar);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (fn) {
-#define PDP_CASE(F)                                                        \
-  case FN_##F:                                                             \
-    launch_chained<F>(a, var_ptr, var_perm, clause_ptr, inst_clause_ptr,   \
-                      n_vars, n_clauses, n_inst, e_real, e_total, cout, bc, \
-                      irc, vred, ired, st);                                \
+// One chained pass (two or three launches). Returns cudaGetLastError(), or
+// -1 for an id that is not a chained functor, a group width that is not a
+// power of two from 4 to 32, or heavy without scratch.
+int pdp_chained_edge_pass(const ChainedArgs* f) {
+  const Cols a = make_cols(f->ins, f->n_in, f->eouts, f->n_eout, f->ev,
+                           f->ec, 0.0f);
+  cudaStream_t st = static_cast<cudaStream_t>(f->stream);
+  int rc;
+  switch (f->fn) {
+#define PDP_CASE(F)                      \
+  case FN_##F:                           \
+    rc = launch_chained<F>(*f, a, st);   \
     break;
     PDP_CHAINED_FNS(PDP_CASE)
 #undef PDP_CASE
     default:
       return -1;
   }
+  if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }
 

@@ -19,10 +19,18 @@
 // atomics.
 //   1. Threads over the instance's clauses: each sums its clause's log u
 //      over the clause's k edges (thread-local, in edge order) and writes
-//      the new eta of those edges. Threads over the instance's variables:
-//      each walks its var_perm slice in increasing edge order and writes
-//      the polarity-split sums of log(1 - eta_in) * em to shared memory.
-//      Both read the input eta only, so they run side by side.
+//      the new eta of those edges. Then the polarity-split sums of
+//      log(1 - eta_in) * em of the instance's variables, to shared memory,
+//      in the order of the group walk (common.cuh walk_block) with the
+//      chained pass's G: a group of G lanes a variable, 256 / G variables
+//      at a time, lane l taking the variable's slots l, l + G, ... and a
+//      xor butterfly over the group; then every variable of S =
+//      PDP_HEAVY_ITERS * G slots or more piece by piece, one piece for
+//      each multiple of S inside it in increasing order, the whole CTA on
+//      a piece as one anchored block of the walk takes it (thread t its
+//      slots t, t + 256, ..., a butterfly in each warp, the warp totals in
+//      warp order) and the pieces added in order. Both read the input eta
+//      only.
 //   2. __syncthreads(), then threads over the instance's edges compute the
 //      q-triplet from their variable's two sums.
 // Each sum is taken in the same order, with the same operations (the
@@ -32,15 +40,16 @@
 // The two sums of an instance's variables take 8 bytes a variable of
 // shared memory; when the caller passes a global scratch f32[2, V] (it
 // does above 6,144 variables per instance, 48 KB) they go there instead,
-// still inside the one CTA (L2-resident, slower). One CTA per instance also means a batch of few
-// large instances runs on few SMs: B instances keep at most B of the 132
-// SMs busy.
+// still inside the one CTA (L2-resident, slower). One CTA per instance
+// also means a batch of few large instances runs on few SMs: B instances
+// keep at most B of the 132 SMs busy.
 // Padding edges [e_real, e_total) belong to no instance. They still get
 // their outputs, as in the two-launch path: CTAs after the instances take
 // PDP_SWEEP_PAD_CHUNK of them each, recompute the clause sum and the
 // variable sums their edges point at (the last real clause and variable,
-// by the packing contract; any other id is summed on the spot) and apply
-// the same per-edge formulas.
+// by the packing contract: the CTA sums that variable as an instance's CTA
+// does; any other id is summed on the spot, one thread repeating the
+// walk's order lane by lane), and apply the same per-edge formulas.
 //
 // Bound on the H100 at the shared-set shapes (E = 524,288 padded / 460,800
 // real edges, V = 16,384, F = 131,072, B = 128): the 10 f32[E] inputs
@@ -69,6 +78,8 @@ struct SweepArgs {
   const int* inst_var_ptr;     // [B + 1]
   float* scratch;              // f32[2, V], or null when sums fit in smem
   int n_inst, n_vars, e_real, e_total;
+  int g_shift;                 // log2 G, the chained pass's var walk
+  int heavy;                   // 1: a variable may hold S slots or more
   float pi;
 };
 
@@ -82,19 +93,150 @@ __device__ __forceinline__ float clause_log_u_sum(const SweepArgs& a,
   return s;
 }
 
-__device__ __forceinline__ void var_lm_sums(const SweepArgs& a, int v,
-                                            float* pos, float* neg) {
-  float p = 0.0f, n = 0.0f;
-  const int j1 = a.var_ptr[v + 1];
-  for (int j = a.var_ptr[v]; j < j1; ++j) {
-    const int e = a.var_perm[j];
-    const float lm = sp_lm(a.eta_in[e], a.em[e]);
-    const float sign = a.sign[e];
-    p += lm * flag(sign == 1.0f);
-    n += lm * flag(sign == -1.0f);
+// edge e's two terms of its variable's polarity sums (SpChainOps::f3's)
+__device__ __forceinline__ void lm_terms(const SweepArgs& a, int e, float& p,
+                                         float& n) {
+  const float lm = sp_lm(a.eta_in[e], a.em[e]);
+  const float sign = a.sign[e];
+  p = lm * flag(sign == 1.0f);
+  n = lm * flag(sign == -1.0f);
+}
+
+// the polarity sums of the instance's nv variables from vb, in the walk's
+// order (see the top of the file); every thread of the CTA calls it
+__device__ void cta_var_sums(const SweepArgs& a, int vb, int nv, float* pos,
+                             float* neg) {
+  __shared__ float warp_p[PDP_THREADS / 32], warp_n[PDP_THREADS / 32];
+  const int tid = threadIdx.x, gs = a.g_shift, G = 1 << gs;
+  const int S = PDP_HEAVY_ITERS << gs;
+  const int heavy_min = a.heavy ? S : 0x7fffffff;  // as common.cuh's plan
+  const int lane = tid & (G - 1);
+  for (int base = 0; base < nv; base += (int)blockDim.x >> gs) {
+    const int i = base + (tid >> gs);
+    float p = 0.0f, n = 0.0f, tp, tn;
+    bool mine = false;
+    if (i < nv) {
+      const int lo = a.var_ptr[vb + i], hi = a.var_ptr[vb + i + 1];
+      mine = hi - lo < heavy_min;
+      if (mine) {
+#pragma unroll 4
+        for (int j = lo + lane; j < hi; j += G) {
+          lm_terms(a, a.var_perm[j], tp, tn);
+          p += tp;
+          n += tn;
+        }
+      }
+    }
+    for (int off = G >> 1; off > 0; off >>= 1) {
+      p += __shfl_xor_sync(PDP_FULL_MASK, p, off);
+      n += __shfl_xor_sync(PDP_FULL_MASK, n, off);
+    }
+    if (mine && lane == 0) {
+      pos[i] = p;
+      neg[i] = n;
+    }
   }
-  *pos = p;
-  *neg = n;
+  // the heavy variables: the multiples of S in the instance's slots, in
+  // order; every thread decides alike
+  if (!a.heavy) return;
+  const int s0 = a.var_ptr[vb], s1 = a.var_ptr[vb + nv];
+  float run_p = 0.0f, run_n = 0.0f;  // thread 0's sums of a variable's pieces
+  for (int s = (s0 + S - 1) / S * S; s < s1; s += S) {
+    const int v = a.ev[a.var_perm[s]];
+    const int lo = a.var_ptr[v], hi = a.var_ptr[v + 1];
+    if (hi - lo < S) continue;
+    const int a0 = (lo + S - 1) / S, a1 = (hi - 1) / S, k = s / S;
+    float p = 0.0f, n = 0.0f, tp, tn;
+#pragma unroll 8
+    for (int j = (k == a0 ? lo : s) + tid; j < min(s + S, hi);
+         j += blockDim.x) {
+      lm_terms(a, a.var_perm[j], tp, tn);
+      p += tp;
+      n += tn;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      p += __shfl_xor_sync(PDP_FULL_MASK, p, off);
+      n += __shfl_xor_sync(PDP_FULL_MASK, n, off);
+    }
+    if ((tid & 31) == 0) {
+      warp_p[tid >> 5] = p;
+      warp_n[tid >> 5] = n;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      p = warp_p[0];
+      n = warp_n[0];
+      for (int w = 1; w < (int)(blockDim.x >> 5); ++w) {
+        p += warp_p[w];
+        n += warp_n[w];
+      }
+      run_p = k == a0 ? p : run_p + p;
+      run_n = k == a0 ? n : run_n + n;
+      if (k == a1) {
+        pos[v - vb] = run_p;
+        neg[v - vb] = run_n;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// a xor butterfly over x[0, width) taken by one thread: each step gives
+// lanes l and l ^ off the sum x[l] + x[l ^ off], as the shuffles do
+__device__ __forceinline__ void serial_butterfly(float* x, int width) {
+  for (int off = width >> 1; off > 0; off >>= 1)
+    for (int l = 0; l < width; ++l)
+      if (!(l & off)) x[l] = x[l | off] = x[l] + x[l | off];
+}
+
+// one thread: variable v's polarity sums in the walk's order (a padding
+// edge of another variable than the last real one), lane by lane and piece
+// by piece as cta_var_sums takes them
+__device__ void var_lm_sums(const SweepArgs& a, int v, float* pos,
+                            float* neg) {
+  const int G = 1 << a.g_shift, S = PDP_HEAVY_ITERS << a.g_shift;
+  const int lo = a.var_ptr[v], hi = a.var_ptr[v + 1];
+  float p[32], n[32], tp, tn;
+  if (!a.heavy || hi - lo < S) {
+    for (int l = 0; l < G; ++l) {
+      p[l] = n[l] = 0.0f;
+      for (int j = lo + l; j < hi; j += G) {
+        lm_terms(a, a.var_perm[j], tp, tn);
+        p[l] += tp;
+        n[l] += tn;
+      }
+    }
+    serial_butterfly(p, G);
+    serial_butterfly(n, G);
+    *pos = p[0];
+    *neg = n[0];
+    return;
+  }
+  const int a0 = (lo + S - 1) / S, a1 = (hi - 1) / S;
+  float run_p = 0.0f, run_n = 0.0f;
+  for (int k = a0; k <= a1; ++k) {
+    const int j0 = k == a0 ? lo : k * S, j1 = min(k * S + S, hi);
+    float piece_p = 0.0f, piece_n = 0.0f;
+    for (int w = 0; w < PDP_THREADS / 32; ++w) {
+      for (int l = 0; l < 32; ++l) {
+        p[l] = n[l] = 0.0f;
+        for (int j = j0 + w * 32 + l; j < j1; j += PDP_THREADS) {
+          lm_terms(a, a.var_perm[j], tp, tn);
+          p[l] += tp;
+          n[l] += tn;
+        }
+      }
+      serial_butterfly(p, 32);
+      serial_butterfly(n, 32);
+      piece_p = w == 0 ? p[0] : piece_p + p[0];
+      piece_n = w == 0 ? n[0] : piece_n + n[0];
+    }
+    run_p = k == a0 ? piece_p : run_p + piece_p;
+    run_n = k == a0 ? piece_n : run_n + piece_n;
+  }
+  *pos = run_p;
+  *neg = run_n;
 }
 
 template <bool LOGIN>
@@ -131,7 +273,7 @@ __global__ void sp_sweep_kernel(SweepArgs a) {
         a.eta_out[e] = sp_new_eta(cl, sp_log_u<LOGIN>(a.u[e], a.em[e]),
                                   a.mask[e], a.eta_state[e]);
     }
-    for (int i = tid; i < nv; i += nt) var_lm_sums(a, vb + i, pos + i, neg + i);
+    cta_var_sums(a, vb, nv, pos, neg);
     __syncthreads();
     // phase 2: the q-triplet of every edge of the instance
     const int e1 = a.clause_ptr[c1];
@@ -151,10 +293,8 @@ __global__ void sp_sweep_kernel(SweepArgs a) {
   const int e0 = a.e_real + ((int)blockIdx.x - a.n_inst) * PDP_SWEEP_PAD_CHUNK;
   const int e1 = min(a.e_total, e0 + PDP_SWEEP_PAD_CHUNK);
   const int c_last = a.ec[a.e_real], v_last = a.ev[a.e_real];
-  if (tid == 0) {
-    sh[0] = clause_log_u_sum<LOGIN>(a, c_last);
-    var_lm_sums(a, v_last, sh + 1, sh + 2);
-  }
+  cta_var_sums(a, v_last, 1, sh + 1, sh + 2);
+  if (tid == 0) sh[0] = clause_log_u_sum<LOGIN>(a, c_last);
   __syncthreads();
   for (int e = e0 + tid; e < e1; e += nt) {
     const int c = a.ec[e], v = a.ev[e];
@@ -171,15 +311,23 @@ extern "C" {
 // v0, v1, v2; outs: the 4 f32[E] outputs eta, nv0, nv1, nv2. ev, ec:
 // i32[E]; the CSR tables as in FGBatch. scratch: f32[2, n_vars] for the
 // variables' sums, or null to keep them in 8 * max_inst_vars bytes of
-// shared memory. login: u holds log u (p-nd-np's adaptors). Returns
-// cudaGetLastError().
+// shared memory. group: G of the chained pass's var walk (a power of two
+// from 4 to 32), whose order the variable sums take; heavy: a variable
+// may hold PDP_HEAVY_ITERS * G edges or more (else no CTA looks for one).
+// login: u holds log u (p-nd-np's adaptors). Returns cudaGetLastError(),
+// or -1 for a group that is not such a power of two.
 int pdp_sp_sweep(const void* const* cols, float* const* outs, const int* ev,
                  const int* ec, const int* clause_ptr, const int* var_ptr,
                  const int* var_perm, const int* inst_clause_ptr,
                  const int* inst_var_ptr, int n_inst, int n_vars,
                  int max_inst_vars, int e_real, int e_total, float* scratch,
-                 float pi, int login, void* stream) {
+                 int group, int heavy, float pi, int login, void* stream) {
+  int shift = 2;
+  while (shift < 5 && (1 << shift) < group) ++shift;
+  if ((1 << shift) != group) return -1;
   SweepArgs a;
+  a.g_shift = shift;
+  a.heavy = heavy;
   const float* const* in = reinterpret_cast<const float* const*>(cols);
   a.u = in[0];
   a.eta_in = in[1];

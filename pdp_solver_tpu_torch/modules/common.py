@@ -81,7 +81,7 @@ def scatter_to_clauses(batch, x_e):
 
 def gather_from_vars(batch, x_v):
     """Broadcast variable rows to the edges: [V, d] -> [E, d]."""
-    return gather_2d(x_v, batch.edge_var)
+    return gather_2d(x_v, batch.edge_var32)
 
 
 def gather_from_clauses(batch, x_f):
@@ -92,7 +92,8 @@ def aggregate_minus_self_var(batch, x_e):
     """Each edge's variable sum without its own row (reference
     util.py:60-68, include_self_message=False), the subtract fused into
     the gather. Padding edges get their variable's sum minus their row."""
-    return gather_2d(scatter_to_vars(batch, x_e), batch.edge_var, minus=x_e)
+    return gather_2d(scatter_to_vars(batch, x_e), batch.edge_var32,
+                     minus=x_e)
 
 
 def var_smooth_max(batch, x_e, alpha=30.0):

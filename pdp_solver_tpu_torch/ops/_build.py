@@ -43,14 +43,13 @@ I = ctypes.c_int
 _SIGNATURES = {
     "pdp_fn_lookup": (I, [ctypes.c_char_p, P]),
     "pdp_fused_edge_pass": (I, [P]),
-    "pdp_chained_edge_pass": (I, [I, P, I, P, I, P, P, P, P, P, P, I, I, I,
-                                  I, I, P, P, P, P, P, ctypes.c_float, P]),
+    "pdp_chained_edge_pass": (I, [P]),
     "pdp_walksat_block": (I, [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I,
                               I, ctypes.c_float, P]),
     "pdp_segment_sum_2d": (I, [P, I, P, P, I, P, P]),
-    "pdp_gather_2d": (I, [P, I, P, P, ctypes.c_long, P, P]),
+    "pdp_gather_2d": (I, [P]),
     "pdp_segment_sum_cols": (I, [P]),
-    "pdp_sp_sweep": (I, [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P,
+    "pdp_sp_sweep": (I, [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P, I, I,
                          ctypes.c_float, I, P]),
     "pdp_verify_and_masks": (I, [P] * 16 + [I, I, I, P]),
 }
@@ -72,6 +71,25 @@ class FusedArgs(ctypes.Structure):
                 ("e_real", I), ("e_total", I), ("group", I),
                 ("scalar", ctypes.c_float), ("red", P), ("heavy", I),
                 ("partials", P), ("counters", P), ("stream", P)]
+
+
+class ChainedArgs(ctypes.Structure):
+    """csrc/edge_pass.cu ChainedArgs, field for field."""
+    _fields_ = [("fn", I), ("n_in", I), ("n_eout", I), ("n_vars", I),
+                ("n_clauses", I), ("n_inst", I), ("e_real", I),
+                ("e_total", I), ("ins", P * MAX_IN), ("eouts", P * MAX_EOUT),
+                ("ev", P), ("ec", P), ("var_ptr", P), ("var_perm", P),
+                ("clause_ptr", P), ("inst_clause_ptr", P), ("group", I),
+                ("heavy", I), ("partials", P), ("counters", P), ("cout", P),
+                ("bc", P), ("irc", P), ("vred", P), ("ired", P),
+                ("stream", P)]
+
+
+class GatherArgs(ctypes.Structure):
+    """csrc/reduce2d.cu GatherArgs, field for field."""
+    _fields_ = [("nodes", P), ("d", I), ("ids64", I), ("ids", P),
+                ("minus", P), ("n_rows", ctypes.c_long), ("out", P),
+                ("stream", P)]
 
 
 class SegSumArgs(ctypes.Structure):

@@ -34,7 +34,8 @@ from typing import Callable
 import torch
 
 from pdp_solver_tpu_torch.ops import _build
-from pdp_solver_tpu_torch.ops.reduce import segment_sum_cols_plain
+from pdp_solver_tpu_torch.ops.reduce import (
+    csr_bounds, segment_sum_cols_plain, walk_order_sum)
 from pdp_solver_tpu_torch.ops.segment import (
     LOG_EPS_PROP, LOG_EPS_SCORE, safe_exp, safe_log)
 
@@ -302,11 +303,12 @@ def use_chained_pass(batch) -> bool:
 # ---------------------------------------------------------------------------
 
 class _Plan:
-    """One functor on one batch: the shapes its inputs must have and, for a
-    fused pass on the card, the kernel's argument block with everything
-    that does not change from call to call (functor id, index and CSR
-    pointers, counts, group width, the walk's scratch). A plan's scratch
-    serves one launch at a time: launches on one stream."""
+    """One functor on one batch: the shapes its inputs must have and, on
+    the card, the kernel's argument block with everything that does not
+    change from call to call (functor id, index and CSR pointers, counts,
+    the var walk's group width and scratch, and for a chained pass its
+    clause-level scratch). A plan's scratch serves one launch at a time:
+    launches on one stream."""
 
     def __init__(self, fn, batch, fused):
         self.device = batch.device
@@ -317,34 +319,70 @@ class _Plan:
         self.name = fn.name
         self.shapes = tuple(torch.Size([sizes[k]]) for k in fn.layout)
         self.args = None
-        if not fused or self.device.type != "cuda":
+        if self.device.type != "cuda":
             return
-        a = _build.FusedArgs()
+        a = _build.FusedArgs() if fused else _build.ChainedArgs()
         a.fn = _build.fn_id(fn.name, fn.meta)
         a.n_in, a.n_eout = len(fn.layout), fn.n_eout
         a.ev = batch.edge_var32.data_ptr()
         a.ec = batch.edge_clause32.data_ptr()
         a.e_real, a.e_total = batch.num_real_edges, batch.num_edges
         a.group = _build.GROUP_MIN
+        self.scratch = ()
+        if fused:
+            self._fused_args(fn, batch, a)
+        else:
+            self._chained_args(fn, batch, a)
+        self.args = a
+        self.ins, self.eouts = a.ins, a.eouts
+        self.eout_shape = (batch.num_edges,)
+        self.n_eout = fn.n_eout
+        self.ref = ctypes.byref(a)
+        self.stream = _build.stream_fn(self.device)
+
+    def _var_walk(self, batch, a):
+        """The var walk's group width and scratch in a."""
+        a.group = _build.group_width(batch.num_real_edges, batch.num_vars)
+        self.scratch = _build.walk_scratch(
+            a, batch.num_real_edges, a.group, batch.var_max_degree,
+            self.device)
+
+    def _fused_args(self, fn, batch, a):
         self.red_shape = None
         if fn.side == "var":
             a.n_seg = batch.num_vars
             a.ptr = batch.var_ptr.data_ptr()
             a.perm = (batch.var_perm.data_ptr() if batch.var_perm.numel()
                       else None)
-            a.group = _build.group_width(batch.num_real_edges,
-                                         batch.num_vars)
-            self.scratch = _build.walk_scratch(
-                a, batch.num_real_edges, a.group, batch.var_max_degree,
-                self.device)
+            self._var_walk(batch, a)
             self.red_shape = (fn.n_red, batch.num_vars)
-        self.args = a
-        self.ins, self.eouts = a.ins, a.eouts
-        self.eout_shape = (batch.num_edges,)
-        self.n_eout = fn.n_eout
-        self.ref = ctypes.byref(a)
         self.call = _build.library().pdp_fused_edge_pass
-        self.stream = _build.stream_fn(self.device)
+
+    def _chained_args(self, fn, batch, a):
+        F = batch.num_clauses
+        a.n_vars, a.n_clauses = batch.num_vars, F
+        a.n_inst = batch.batch_size
+        a.var_ptr = batch.var_ptr.data_ptr()
+        a.var_perm = (batch.var_perm.data_ptr() if batch.var_perm.numel()
+                      else None)
+        a.clause_ptr = batch.clause_ptr.data_ptr()
+        a.inst_clause_ptr = batch.inst_clause_ptr.data_ptr()
+        if fn.n_vred:
+            self._var_walk(batch, a)
+        # clause-level scratch: the columns broadcast back to the edges and
+        # the clause columns of the per-instance sums
+        self.clause_scratch = [torch.empty((n, F), dtype=F32,
+                                           device=self.device)
+                               for n in (fn.n_bcast, fn.n_ired) if n]
+        if fn.n_bcast:
+            a.bc = self.clause_scratch[0].data_ptr()
+        if fn.n_ired:
+            a.irc = self.clause_scratch[-1].data_ptr()
+        self.cout_shape = (fn.n_cout, F) if fn.n_cout else None
+        self.vred_shape = (fn.n_vred, batch.num_vars) if fn.n_vred else None
+        self.ired_shape = ((fn.n_ired, batch.batch_size) if fn.n_ired
+                           else None)
+        self.call = _build.library().pdp_chained_edge_pass
 
     def check(self, ins):
         """The inputs, each of its shape, f32 and on the batch's device
@@ -379,6 +417,16 @@ def _plan(fn, batch, fused=True):
     return _PLANS.get((batch,), fn.name, _Plan, fn, batch, fused)
 
 
+def _edge_outputs(plan, x0):
+    """new_empty f32[E] edge outputs, their pointers in the argument
+    block."""
+    if not plan.n_eout:
+        return ()
+    eouts = tuple(x0.new_empty(plan.eout_shape) for _ in range(plan.n_eout))
+    plan.eouts[:plan.n_eout] = [t.data_ptr() for t in eouts]
+    return eouts
+
+
 def _sum_real_edges(batch, cols, ids, n):
     """Sum edge columns into n nodes over the real edges only."""
     return segment_sum_cols_plain(cols, ids, n, batch.num_real_edges)
@@ -404,12 +452,7 @@ def fused_edge_pass(fn: EdgeFn, batch, ins, scalar=0.0):
         return fused_edge_pass_plain(fn, batch, ins, scalar)
     plan.ins[:len(ins)] = [x.data_ptr() for x in ins]
     x0 = ins[0]
-    if plan.n_eout:
-        eouts = tuple(x0.new_empty(plan.eout_shape)
-                      for _ in range(plan.n_eout))
-        plan.eouts[:plan.n_eout] = [t.data_ptr() for t in eouts]
-    else:
-        eouts = ()
+    eouts = _edge_outputs(plan, x0)
     red = None
     if plan.red_shape is not None:
         red = x0.new_empty(plan.red_shape)
@@ -430,8 +473,8 @@ fused_edge_pass.launches_by_fn = {}
 
 
 def chained_edge_pass_plain(fn: ChainFn, batch, ins):
-    """The plain PyTorch version of a chained pass."""
-    dev = batch.device
+    """The plain PyTorch version of a chained pass (in the inputs' dtype:
+    float64 inputs give a float64 reference)."""
     F, V, B = batch.num_clauses, batch.num_vars, batch.batch_size
     ev, ec = batch.edge_var, batch.edge_clause
     cred = _sum_real_edges(batch, fn.f1(ins, ev, ec), ec, F)
@@ -445,54 +488,60 @@ def chained_edge_pass_plain(fn: ChainFn, batch, ins):
     ired = None
     if fn.n_ired:
         f = batch.num_real_clauses
-        ired = torch.zeros((fn.n_ired, B), dtype=torch.float32, device=dev)
-        ired.index_add_(1, batch.clause_batch[:f],
-                        torch.stack(ired_c)[:, :f])
+        x = torch.stack(ired_c)[:, :f]
+        ired = x.new_zeros((fn.n_ired, B)).index_add_(
+            1, batch.clause_batch[:f], x)
     return (torch.stack(cout) if fn.n_cout else None, vred, tuple(eouts),
             ired)
 
 
+def chained_vred_walk_order(fn: ChainFn, batch, ins):
+    """The chained pass's variable sums f32[n_vred, V] in the var walk's
+    order (`csrc/common.cuh`, emulated by `walk_order_sum`), over the f3
+    terms of the plain version: on the card, the kernel's bits wherever
+    its terms are the plain version's."""
+    ev, ec = batch.edge_var, batch.edge_clause
+    cred = _sum_real_edges(batch, fn.f1(ins, ev, ec), ec, batch.num_clauses)
+    _, bcast, _ = fn.f2(tuple(cred), ins)
+    terms, _ = fn.f3(tuple(b[ec] for b in bcast), ins, ev, ec)
+    lo, hi = csr_bounds(batch.var_ptr)
+    group = _build.group_width(batch.num_real_edges, batch.num_vars)
+    return walk_order_sum(torch.stack(terms), lo, hi, batch.var_perm.long(),
+                          group)
+
+
 def chained_edge_pass(fn: ChainFn, batch, ins):
     """Both graph directions of a clause -> variable chain; see the module
-    docstring. On the card: a clause-major launch (f1, clause sum, f2), a
-    var-major launch (f3, variable sum) and, with n_ired, a per-instance
-    sum launch."""
-    ins = _plan(fn, batch, fused=False).check(tuple(ins))
-    if batch.device.type == "cpu":
+    docstring. On the card, through the (functor, batch) plan: a
+    clause-major launch (f1, clause sum, f2), with n_vred a launch of the
+    var walk (f3, variable sum) and, with n_ired, a per-instance sum
+    launch."""
+    plan = _plan(fn, batch, fused=False)
+    ins = plan.check(ins)
+    a = plan.args
+    if a is None:
         return chained_edge_pass_plain(fn, batch, ins)
-    fid = _build.fn_id(fn.name, fn.meta)
-    dev = batch.device
-    E, V, F, B = (batch.num_edges, batch.num_vars, batch.num_clauses,
-                  batch.batch_size)
-
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
-
-    cout = empty(fn.n_cout, F) if fn.n_cout else None
-    bc = empty(fn.n_bcast, F) if fn.n_bcast else None
-    irc = empty(fn.n_ired, F) if fn.n_ired else None
-    vred = empty(fn.n_vred, V) if fn.n_vred else None
-    ired = empty(fn.n_ired, B) if fn.n_ired else None
-    eouts = [empty(E) for _ in range(fn.n_eout)]
-
-    def p(t):
-        return None if t is None or t.numel() == 0 else t.data_ptr()
-
-    in_p, _in_keep = _build.ptr_array(ins)
-    eo_p, _eo_keep = _build.ptr_array(eouts)
-    rc = _build.library().pdp_chained_edge_pass(
-        fid, in_p, len(ins), eo_p, len(eouts),
-        batch.edge_var32.data_ptr(), batch.edge_clause32.data_ptr(),
-        batch.var_ptr.data_ptr(), p(batch.var_perm),
-        batch.clause_ptr.data_ptr(), batch.inst_clause_ptr.data_ptr(),
-        V, F, B, batch.num_real_edges, E,
-        p(cout), p(bc), p(irc), p(vred), p(ired), 0.0,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, f"chained_edge_pass[{fn.name}]")
+    plan.ins[:len(ins)] = [x.data_ptr() for x in ins]
+    x0 = ins[0]
+    eouts = _edge_outputs(plan, x0)
+    cout = vred = ired = None
+    if plan.cout_shape is not None:
+        cout = x0.new_empty(plan.cout_shape)
+        a.cout = cout.data_ptr()
+    if plan.vred_shape is not None:
+        vred = x0.new_empty(plan.vred_shape)
+        a.vred = vred.data_ptr()
+    if plan.ired_shape is not None:
+        ired = x0.new_empty(plan.ired_shape)
+        a.ired = ired.data_ptr()
+    a.stream = plan.stream()
+    rc = plan.call(plan.ref)
+    if rc:
+        _build.check(rc, f"chained_edge_pass[{fn.name}]")
     chained_edge_pass.launches += 1
-    chained_edge_pass.launches_by_fn[fn.name] = (
-        chained_edge_pass.launches_by_fn.get(fn.name, 0) + 1)
-    return cout, vred, tuple(eouts), ired
+    by = chained_edge_pass.launches_by_fn
+    by[fn.name] = by.get(fn.name, 0) + 1
+    return cout, vred, eouts, ired
 
 
 chained_edge_pass.launches = 0

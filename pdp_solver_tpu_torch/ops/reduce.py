@@ -135,10 +135,10 @@ def _bad_col(name, x, plan):
 
 
 def segment_sum_cols_plain(cols, ids, num_segments, num_real):
-    """The plain version: index_add_ of the stacked real edges."""
+    """The plain version: index_add_ of the stacked real edges (in the
+    columns' dtype)."""
     x = torch.stack([c[:num_real] for c in cols])
-    out = torch.zeros((len(cols), num_segments), dtype=torch.float32,
-                      device=x.device)
+    out = x.new_zeros((len(cols), num_segments))
     return out.index_add_(1, ids[:num_real], x)
 
 

@@ -11,7 +11,8 @@ segment_sum_2d(x, ids, num_segments, num_real, ptr, perm) -> [N, d]
 gather_2d(nodes, ids, minus=None) -> [E, d]
     nodes[ids[e]] for every e (padding rows included), minus the matching
     row of `minus` when it is given (the aggregate-minus-self of the
-    neural aggregators, fused).
+    neural aggregators, fused); ids i32 (as the JAX kernel takes them,
+    `FGBatch.edge_var32`) or i64.
 
 Each wrapper runs its plain PyTorch version when the tensors lie on the
 CPU and launches its CUDA kernel (`csrc/reduce2d.cu`) when they lie on the
@@ -19,10 +20,14 @@ card, or raises; there is no fallback between the two. On the card the
 segment sum walks the CSR (ptr, perm) that lists each node's rows in
 increasing order (`FGBatch.var_ptr`/`var_perm`; perm None means rows
 ptr[n]..ptr[n+1], as for clause-major clauses), so its sums have one fixed
-order and no atomics. Calls that launched a kernel are counted in
-`.launches`. Forward only: each is the other's transpose, and the
-autograd pair comes with training.
+order and no atomics. The gather's checks of its ids and their pointers
+are worked out once per ids tensor and kept in a plan, so a call checks
+the rows, fills the plan's argument block and makes one ctypes call. Calls
+that launched a kernel are counted in `.launches`. Forward only: each is
+the other's transpose, and the autograd pair comes with training.
 """
+
+import ctypes
 
 import torch
 
@@ -90,29 +95,62 @@ def gather_2d_plain(nodes, ids, minus=None):
     return out if minus is None else out - minus
 
 
+class _GatherPlan:
+    """The checked ids of a gather and, on the card, the kernel's argument
+    block for them."""
+
+    def __init__(self, ids):
+        if ids.dim() != 1 or ids.dtype not in (torch.int32, torch.int64):
+            raise ValueError(f"gather_2d: ids must be i32[E] or i64[E], got "
+                             f"{ids.dtype} {tuple(ids.shape)}")
+        self.device = _device("gather_2d", ids)
+        self.rows = ids.shape[0]
+        self.args = None
+        if self.device.type == "cuda":
+            a = _build.GatherArgs()
+            self.ids = ids.contiguous()
+            a.ids = self.ids.data_ptr()
+            a.ids64 = int(ids.dtype == torch.int64)
+            a.n_rows = self.rows
+            self.args = a
+            self.ref = ctypes.byref(a)
+            self.call = _build.library().pdp_gather_2d
+            self.stream = _build.stream_fn(self.device)
+
+
+_PLANS = _build.PlanCache()
+
+
 def gather_2d(nodes, ids, minus=None):
     """[N, d] -> [len(ids), d]; see the module docstring."""
+    plan = _PLANS.get((ids,), None, _GatherPlan, ids)
     _check_rows("gather_2d", nodes, "nodes")
-    dev = _device("gather_2d", nodes, ids, minus)
-    E, d = ids.shape[0], nodes.shape[1]
+    E, d = plan.rows, nodes.shape[1]
+    if nodes.device != plan.device:
+        raise ValueError(f"gather_2d: nodes on {nodes.device}, ids on "
+                         f"{plan.device}")
     if minus is not None:
         _check_rows("gather_2d", minus, "minus")
-        if minus.shape != (E, d):
-            raise ValueError(f"gather_2d: minus is {tuple(minus.shape)}, "
-                             f"expected ({E}, {d})")
-    if dev.type == "cpu":
+        if minus.shape != (E, d) or minus.device != plan.device:
+            raise ValueError(f"gather_2d: minus is {tuple(minus.shape)} on "
+                             f"{minus.device}, expected ({E}, {d}) on "
+                             f"{plan.device}")
+    a = plan.args
+    if a is None:
         return gather_2d_plain(nodes, ids, minus)
-    if ids.dtype != torch.int64:
-        raise ValueError(f"gather_2d: ids must be int64, got {ids.dtype}")
-    nodes = nodes.contiguous()
-    minus = None if minus is None else minus.contiguous()
-    ids = ids.contiguous()
-    out = torch.empty((E, d), dtype=torch.float32, device=dev)
-    rc = _build.library().pdp_gather_2d(
-        nodes.data_ptr(), d, ids.data_ptr(),
-        None if minus is None else minus.data_ptr(), E, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "gather_2d")
+    if not nodes.is_contiguous():
+        nodes = nodes.contiguous()
+    if minus is not None and not minus.is_contiguous():
+        minus = minus.contiguous()
+    out = nodes.new_empty((E, d))
+    a.nodes = nodes.data_ptr()
+    a.d = d
+    a.minus = None if minus is None else minus.data_ptr()
+    a.out = out.data_ptr()
+    a.stream = plan.stream()
+    rc = plan.call(plan.ref)
+    if rc:
+        _build.check(rc, "gather_2d")
     gather_2d.launches += 1
     return out
 

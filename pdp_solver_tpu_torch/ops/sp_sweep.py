@@ -17,8 +17,11 @@ plain path, `chained_edge_pass_plain[sp_chain]` (`[sp_chain_login]` with
 login) then `fused_edge_pass_plain[sp_pass_c]`) when the batch lies on the
 CPU and launches the CUDA kernel (`csrc/sp_sweep.cu`, one CTA per
 instance, login a compile-time flag) when it lies on the card, or raises.
-Launches are counted in `sp_full_sweep.launches`, and per form ("plain",
-"login") in `sp_full_sweep.launches_by_form`.
+The kernel takes its variable sums in the order of the chained pass's var
+walk (`csrc/common.cuh`, G = `_build.group_width` of the batch's var CSR),
+so it gives the bits of its two launches. Launches are counted in
+`sp_full_sweep.launches`, and per form ("plain", "login") in
+`sp_full_sweep.launches_by_form`.
 """
 
 import torch
@@ -78,13 +81,16 @@ def sp_full_sweep(batch, *, u_like, eta_in, em, mask, eta_state, sign,
     in_p, _in_keep = _build.ptr_array(cols)
     out_p, _out_keep = _build.ptr_array(outs)
     perm = batch.var_perm
+    group = _build.group_width(batch.num_real_edges, V)
+    md = batch.var_max_degree
     rc = _build.library().pdp_sp_sweep(
         in_p, out_p, batch.edge_var32.data_ptr(),
         batch.edge_clause32.data_ptr(), batch.clause_ptr.data_ptr(),
         batch.var_ptr.data_ptr(), perm.data_ptr() if perm.numel() else None,
         batch.inst_clause_ptr.data_ptr(), batch.inst_var_ptr.data_ptr(),
         batch.batch_size, V, batch.max_instance_vars, batch.num_real_edges,
-        E, None if scratch is None else scratch.data_ptr(), float(pi),
+        E, None if scratch is None else scratch.data_ptr(), group,
+        int(md is None or md >= _build.HEAVY_ITERS * group), float(pi),
         int(bool(login)), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "sp_full_sweep")
     sp_full_sweep.launches += 1

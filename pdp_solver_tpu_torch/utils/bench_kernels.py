@@ -1,8 +1,10 @@
-"""Times the CSR segment sum (kernels 4, 5, 8) and the fused edge pass
-(kernel 1) on one CUDA card, beside the PyTorch call for the same
-function.
+"""Times the CSR segment sum (kernels 4, 5, 8), the fused and chained edge
+passes (kernels 1, 2), the one-launch SP sweep (kernel 9) and the [E, d]
+gather (kernel 7) on one CUDA card, beside the PyTorch call for the same
+function where there is one.
 
     python pdp_solver_tpu_torch/utils/bench_kernels.py [--label NAME]
+        [--only STRING ...]
 
 On the shared set (128 instances of 4-SAT, n=100, alpha=9: E = 524,288
 padded / 460,800 real edges), on a compacted batch (its first 8
@@ -14,10 +16,17 @@ last run holds the 63,488 padding edges), it gives for each form:
             synchronize, after a warm-up;
   device_us device us / call, the profiler's kernel times over 500 calls
             (and by kernel name).
-It prints one JSON line with the card's name and power limit. It uses
-only the wrappers' public functions, so it times any tree of the package
-that PYTHONPATH puts first: run it on two trees in one call to compare
-them on one card. Needs a CUDA card; exits 2 without one.
+The forms: "chained_edge_pass[name]" for the five chained functors;
+"sp_full_sweep[pi 0]", "[pi 0.01]" and "[login]"; "gather_2d" and
+"gather_2d minus" at np-nd-np's width (d = 50) with i64 ids, the same
+with " i32" ids (`edge_var32`), and "index_select", the gather's PyTorch
+call. --only keeps the forms whose names contain one of the strings
+given. It prints one JSON line with the card's name and power limit. It
+uses only the wrappers' public functions, so it times any tree of the
+package that PYTHONPATH puts first: run it on two trees in one call to
+compare them on one card (a form that a tree refuses, such as i32 ids
+before they were taken, is recorded as its error). Needs a CUDA card;
+exits 2 without one.
 """
 
 import argparse
@@ -105,7 +114,13 @@ def hub_batch(degree=63488, n=300, k=3, seed=5):
         [v.reshape(-1), ec]).astype(np.int32), signs, -1.0)], device="cuda")
 
 
+HIDDEN_AGG = 50     # np-nd-np's mem_agg_hidden_dim, the gather's width
+
+
 def _fused_inputs(fn, batch, seed):
+    """Columns drawn like the ones they stand for: signs and masks of the
+    batch, 0/1 activity flags, +-1 assignments, log u for the log-input
+    sweep, floats in [0, 1) otherwise."""
     g = torch.Generator().manual_seed(seed)
     sizes = {"V": batch.num_vars, "F": batch.num_clauses,
              "E": batch.num_edges}
@@ -116,13 +131,42 @@ def _fused_inputs(fn, batch, seed):
             u = batch.edge_sign
         elif name in ("mask", "bmask"):
             u = batch.edge_mask
+        elif name in ("em", "av", "ac", "cm"):
+            u = (u > 0.2).float()
+        elif name == "sa":
+            u = torch.where(u > 0.5, 1.0, -1.0)
+        elif name == "log_u_in":
+            u = torch.log(u * 0.96 + 0.02)
         out.append(u.contiguous())
     return out
 
 
-def bench_batch(batch, forms):
-    """{form: numbers} for the forms named, on one batch."""
-    from pdp_solver_tpu_torch.ops import fused, reduce
+def _sweep_inputs(batch, pi, login):
+    g = torch.Generator().manual_seed(7)
+    E = batch.num_edges
+
+    def u():
+        return torch.rand(E, generator=g).cuda()
+
+    u_like = u() * 0.99 + 0.01
+    v = torch.rand(E, 3, generator=g).cuda()
+    v = v / v.sum(1, keepdim=True)
+    return dict(u_like=torch.log(u_like) if login else u_like,
+                eta_in=u() * 0.99, em=batch.edge_mask * (u() > 0.1).float(),
+                mask=(u() > 0.2).float(), eta_state=u(),
+                sign=batch.edge_sign,
+                force=(torch.where(u() > 0.5, 1.0, -1.0) if pi
+                       else torch.zeros(E, device="cuda")),
+                v0=v[:, 0].contiguous(), v1=v[:, 1].contiguous(),
+                v2=v[:, 2].contiguous())
+
+
+def bench_batch(batch, forms, only=None):
+    """{form: numbers} for the forms named (those that contain one of the
+    strings `only`, when given), on one batch."""
+    if only:
+        forms = [f for f in forms if any(o in f for o in only)]
+    from pdp_solver_tpu_torch.ops import fused, reduce, reduce2d, sp_sweep
     g = torch.Generator().manual_seed(3)
     E, e = batch.num_edges, batch.num_real_edges
     out = {}
@@ -171,39 +215,80 @@ def bench_batch(batch, forms):
 
             def lib():
                 return acc.index_add_(0, ids, xf)
-        else:
-            # "fused_edge_pass[name]"
-            fn = getattr(fused, form[len("fused_edge_pass["):-1].upper())
-            ins = _fused_inputs(fn, batch, 5)
+        elif form.startswith("sp_full_sweep"):
+            # "sp_full_sweep[pi 0]", "[pi 0.01]", "[login]"
+            case = form[len("sp_full_sweep["):-1]
+            pi = 0.01 if case == "pi 0.01" else 0.0
+            login = case == "login"
+            kw = _sweep_inputs(batch, pi, login)
 
             def call():
-                return fused.fused_edge_pass(fn, batch, ins)
+                return sp_sweep.sp_full_sweep(batch, pi=pi, login=login,
+                                              **kw)
+
+            lib = None
+        elif form.startswith(("gather_2d", "index_select")):
+            # "gather_2d[ minus][ i32]", "index_select"
+            nodes = torch.rand(batch.num_vars, HIDDEN_AGG, generator=g).cuda()
+            minus = (torch.rand(E, HIDDEN_AGG, generator=g).cuda()
+                     if "minus" in form else None)
+            ids = batch.edge_var32 if form.endswith("i32") else batch.edge_var
+            if form == "index_select":
+                def call():
+                    return nodes.index_select(0, ids)
+            else:
+                def call():
+                    return reduce2d.gather_2d(nodes, ids, minus)
+            lib = None
+        else:
+            # "fused_edge_pass[name]", "chained_edge_pass[name]"
+            kind, name = form[:-1].split("[")
+            fn = getattr(fused, name.upper())
+            ins = _fused_inputs(fn, batch, 5)
+            wrapper = getattr(fused, kind)
+
+            def call():
+                return wrapper(fn, batch, ins)
 
             lib = None
             if fn.name == "ae":
                 def lib():
                     return ins[0][batch.edge_var]
-        row = timed(call)
+        try:
+            row = timed(call)
+        except (RuntimeError, ValueError) as e:
+            out[form] = {"error": str(e)[:200]}
+            continue
         if lib is not None:
             row["library"] = timed(lib)
         out[form] = row
     return out
 
 
+CHAINED_FORMS = tuple(f"chained_edge_pass[{name}]" for name in (
+    "sp_chain", "sp_chain_login", "sround", "cnf_chain", "ws_chain"))
+SWEEP_FORMS = ("sp_full_sweep[pi 0]", "sp_full_sweep[pi 0.01]",
+               "sp_full_sweep[login]")
+GATHER_FORMS = ("gather_2d", "gather_2d minus", "gather_2d i32",
+                "gather_2d minus i32", "index_select")
 SHARED_FORMS = ("segment_sum var C=2", "segment_sum_cols var C=1",
                 "segment_sum_cols clause C=1", "sorted_segment_sum real",
                 "fused_edge_pass[ae]", "fused_edge_pass[em]",
                 "fused_edge_pass[em_ae]", "fused_edge_pass[sp_pass_c]",
-                "fused_edge_pass[smax_scorer]", "fused_edge_pass[scorer]")
+                "fused_edge_pass[smax_scorer]", "fused_edge_pass[scorer]"
+                ) + CHAINED_FORMS + SWEEP_FORMS + GATHER_FORMS
 COMPACTED_FORMS = ("segment_sum var C=2", "segment_sum_cols var C=1",
                    "segment_sum_cols clause C=1", "sorted_segment_sum real",
                    "fused_edge_pass[ae]", "fused_edge_pass[smax_scorer]",
-                   "fused_edge_pass[scorer]")
+                   "fused_edge_pass[scorer]"
+                   ) + CHAINED_FORMS + SWEEP_FORMS + GATHER_FORMS
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--label", default="", help="a name for this tree")
+    ap.add_argument("--only", nargs="*", help="time only the forms whose "
+                    "names contain one of these strings")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_kernels: no CUDA card", file=sys.stderr)
@@ -221,14 +306,16 @@ def main(argv=None):
     out = {"label": args.label, "device": torch.cuda.get_device_name(0),
            "card": smi.stdout.strip().splitlines()[0] if smi.stdout else None,
            "torch": torch.__version__,
-           "shared": bench_batch(shared, SHARED_FORMS),
+           "shared": bench_batch(shared, SHARED_FORMS, args.only),
            "compacted": bench_batch(pack_instances(insts[:8], device="cuda"),
-                                    COMPACTED_FORMS),
+                                    COMPACTED_FORMS, args.only),
            "high_degree": dict(
                bench_batch(hub, ("segment_sum var C=2",
                                  "segment_sum_cols var C=1",
-                                 "fused_edge_pass[smax_scorer]")),
-               **bench_batch(shared, ("sorted_segment_sum all",)))}
+                                 "fused_edge_pass[smax_scorer]")
+                           + CHAINED_FORMS + SWEEP_FORMS, args.only),
+               **bench_batch(shared, ("sorted_segment_sum all",),
+                             args.only))}
     print(json.dumps(out), flush=True)
     return 0
 

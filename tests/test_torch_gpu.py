@@ -16,7 +16,13 @@ path, on every edge. The group walk of kernels 4, 5, 8 and of kernel 1's
 var side (`csrc/common.cuh`) also bit for bit against its order emulated
 in PyTorch (`ops/reduce.py walk_order_sum`), with the same bits on two
 calls, on a compacted batch (8 instances), one instance and a variable of
-63,488 edges.
+63,488 edges. The chained pass (kernel 2), whose var phase runs the same
+walk: every functor against its plain version (exact for sround,
+cnf_chain and ws_chain), the same bits on two calls and its variable sums
+the bits of the walk's order over the plain f3 terms; kernel 9 bit for bit
+against its two launches for pi 0, pi 0.01 and login. The [E, d] gather
+(kernel 7) bit for bit for d in {1, 3, 8, 50, 64, 150}, with i32 and i64
+ids, an odd row count and a misaligned table.
 """
 
 import numpy as np
@@ -432,3 +438,129 @@ def test_var_side_fused_pass_walk(walk_batches, which, fn):
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
+
+
+# --- the chained pass's var walk (kernel 2), kernel 9's order, kernel 7 ---
+
+INTEGER_CHAINS = ("sround", "cnf_chain", "ws_chain")
+
+
+def _typed_inputs(fn, batch, seed):
+    """Inputs drawn like the columns they stand for: 0/1 masks and
+    activity flags, +-1 signs and forces, solutions in {0, 0.5, 1}, log u
+    for the log-input sweep, floats in (0.02, 0.98) otherwise."""
+    g = torch.Generator().manual_seed(seed)
+    sizes = {"V": batch.num_vars, "F": batch.num_clauses,
+             "E": batch.num_edges}
+    real = {"V": batch.var_mask, "F": batch.clause_mask,
+            "E": batch.edge_mask}
+    out = []
+    for kind, name in zip(fn.layout, fn.inputs):
+        u = torch.rand(sizes[kind], generator=g).cuda()
+        if name == "sign":
+            x = batch.edge_sign
+        elif name == "mask":
+            x = batch.edge_mask
+        elif name == "sa":
+            x = torch.where(u > 0.5, 1.0, -1.0) * real[kind]
+        elif name in ("em", "av", "ac", "cm"):
+            x = (u > 0.2).float() * real[kind]
+        elif name == "sol":
+            x = torch.floor(u * 3.0) / 2.0
+        elif name == "log_u_in":
+            x = torch.log(u * 0.96 + 0.02)
+        else:
+            x = u * 0.96 + 0.02
+        out.append(x.contiguous())
+    return out
+
+
+def _flat(outs):
+    flat = []
+    for o in outs:
+        if isinstance(o, tuple):
+            flat += list(o)
+        elif o is not None:
+            flat.append(o)
+    return flat
+
+
+@pytest.mark.parametrize("which", ["shared", "compacted", "hub"])
+@pytest.mark.parametrize("fn", fused.CHAINED_FNS, ids=lambda f: f.name)
+def test_chained_pass_walk(walk_batches, which, fn):
+    """Kernel 2 with its var phase on the group walk: against the plain
+    version (exact for the integer functors, rtol 1e-5 / atol 1e-6 for
+    SP; for the 63,488-edge variable the SP sums against float64, as a
+    float32 index_add_ of that many terms is itself ~4e-5 off), the same
+    bits on two calls, and its variable sums bit for bit the walk's order
+    over the plain version's f3 terms."""
+    gpu = walk_batches[which]
+    ins = _typed_inputs(fn, gpu, 6)
+    got = fused.chained_edge_pass(fn, gpu, ins)
+    again = fused.chained_edge_pass(fn, gpu, ins)
+    ref = fused.chained_edge_pass_plain(fn, gpu, ins)
+    if which == "hub" and fn.n_vred and fn.name not in INTEGER_CHAINS:
+        ref = (ref[0], fused.chained_edge_pass_plain(
+            fn, gpu, [x.double() for x in ins])[1].float()) + ref[2:]
+    torch.cuda.synchronize()
+    assert [o is None for o in got] == [r is None for r in ref]
+    for g, a, r in zip(_flat(got), _flat(again), _flat(ref)):
+        assert g.shape == r.shape and bool(torch.isfinite(g).all())
+        assert torch.equal(g, a)
+        if fn.name in INTEGER_CHAINS:
+            assert torch.equal(g, r)
+        else:
+            torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-6)
+    if fn.n_vred:
+        emu = fused.chained_vred_walk_order(fn, gpu, ins)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], emu)
+
+
+@pytest.mark.parametrize("which", ["shared", "compacted", "hub"])
+@pytest.mark.parametrize("case", ["pi0", "pi0.01", "login"])
+def test_sp_sweep_bit_equal_to_two_launches(walk_batches, which, case):
+    """Kernel 9 takes its variable sums in the walk's order, so it gives
+    the bits of sp_chain (sp_chain_login) + sp_pass_c in every case; the
+    hub's 63,488-edge variable goes piece by piece."""
+    gpu = walk_batches[which]
+    pi, login = {"pi0": (0.0, False), "pi0.01": (0.01, False),
+                 "login": (0.0, True)}[case]
+    kw = _sweep_inputs(gpu, 13, pi)
+    if login:
+        kw["u_like"] = torch.log(kw["u_like"])
+    cols = tuple(kw.values())
+    got = sp_sweep.sp_full_sweep(gpu, pi=pi, login=login, **kw)
+    chain = fused.SP_CHAIN_LOGIN if login else fused.SP_CHAIN
+    _, pn, (eta2,), _ = fused.chained_edge_pass(chain, gpu, cols[:6])
+    _, two = fused.fused_edge_pass(
+        fused.SP_PASS_C, gpu, (pn[0], pn[1]) + cols[1:4] + cols[5:],
+        scalar=pi)
+    torch.cuda.synchronize()
+    for a, c in zip(got, (eta2,) + tuple(two)):
+        assert bool(torch.isfinite(a).all())
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64],
+                         ids=["i32", "i64"])
+@pytest.mark.parametrize("d", [1, 3, 8, 50, 64, 150])
+def test_gather_2d_bit_exact(d, ids_dtype):
+    """Kernel 7 bit for bit against index_select (minus the subtrahend),
+    with and without the subtract, for an odd row count and for a node
+    table whose rows are not 8-byte aligned (the scalar path)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from pdp_solver_tpu_torch.ops import reduce2d
+    g = torch.Generator().manual_seed(d)
+    N, E = 997, 20001
+    ids = torch.randint(0, N, (E,), generator=g).to(ids_dtype).cuda()
+    nodes = torch.randn(N, d, generator=g).cuda()
+    shifted = torch.randn(N * d + 1, generator=g).cuda()[1:].view(N, d)
+    minus = torch.randn(E, d, generator=g).cuda()
+    for table in (nodes, shifted):
+        for m in (None, minus):
+            got = reduce2d.gather_2d(table, ids, m)
+            ref = reduce2d.gather_2d_plain(table, ids.long(), m)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref)
