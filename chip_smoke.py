@@ -885,17 +885,23 @@ def check_sp_sweep(batch, compacted, torch):
     """Kernel 9 against its plain version and, bit for bit, against the
     two launches it replaces (its variable sums take the chained pass's
     walk order), for pi = 0 (p-d-p), 0.01 (reinforce) and in its
-    log-input form at pi = 0 (p-nd-np), at the shared-set shapes and on a
-    compacted batch."""
+    log-input form at pi = 0 (p-nd-np), at the shared-set shapes, on a
+    compacted batch and on the hub batch (one 63,488-edge variable, cut
+    in pieces over a cluster of 16 CTAs). On the hub the plain version is
+    taken in float64 and held at an absolute 5e-5 (a float32 sum of
+    63,488 terms in any order is itself ~1e-5 off; a wrong sum is off by
+    a whole term, ~1e-2 or more), beside the two launches' bits."""
     from pdp_solver_tpu_torch.ops import fused, sp_sweep
-    from pdp_solver_tpu_torch.utils.bench_kernels import timed
+    from pdp_solver_tpu_torch.utils.bench_kernels import hub_batch, timed
     E, V, F, B = (batch.num_edges, batch.num_vars, batch.num_clauses,
                   batch.batch_size)
     e = batch.num_real_edges
+    hub = hub_batch()
     per_case = {}
     for pi, login in ((0.0, False), (0.01, False), (0.0, True)):
         case = f"login, pi {pi}" if login else f"pi {pi}"
-        for label, b in (("shared", batch), ("compacted", compacted)):
+        for label, b in (("shared", batch), ("compacted", compacted),
+                         ("high_degree", hub)):
             kw = sweep_inputs(b, torch, 31, pi, login)
             cols = tuple(kw.values())
             chain = fused.SP_CHAIN_LOGIN if login else fused.SP_CHAIN
@@ -914,30 +920,42 @@ def check_sp_sweep(batch, compacted, torch):
             def plain():
                 return sp_sweep.sp_full_sweep_plain(b, cols, pi, login)
 
-            got, ref, twin = one(), plain(), two()
-            torch.cuda.synchronize()
-            err = 0.0
-            for a, r in zip(got, ref):
-                err = max(err, _check_sum(torch, "sp_full_sweep", a, r,
-                                          False))
+            got, twin = one(), two()
+            if label != "high_degree":
+                ref = plain()
+                torch.cuda.synchronize()
+                err = max(_check_sum(torch, "sp_full_sweep", a, r, False)
+                          for a, r in zip(got, ref))
+            else:
+                # one sum of 63,488 log terms: the walk's float32 order
+                # against the float64 plain version
+                ref = sp_sweep.sp_full_sweep_plain(
+                    b, tuple(c.double() for c in cols), pi, login)
+                torch.cuda.synchronize()
+                require(all(bool(torch.isfinite(a).all()) for a in got),
+                        "sp_full_sweep (high_degree): non-finite")
+                err = max(float((a.double() - r).abs().max())
+                          for a, r in zip(got, ref))
+                require(err <= 5e-5, f"sp_full_sweep ({case}, high_degree): "
+                        f"max abs err {err:.3g} against float64 > 5e-5")
             bits = all(torch.equal(a, c) for a, c in zip(got, twin))
             require(bits, f"sp_full_sweep ({case}, {label}): not bit-equal "
                     "to its two launches")
-            if label == "compacted":
-                per_case[case]["compacted"] = dict(
-                    timed(one), two_launch_ms=cuda_ms(two, reps=50),
-                    edges=b.num_edges)
-                r = per_case[case]["compacted"]
-            else:
+            cluster = sp_sweep._plan(b).args.cluster
+            if label == "shared":
                 per_case[case] = dict(
                     timed(one), max_abs_err=err, bit_equal_two_launch=True,
-                    plain_ms=cuda_ms(plain, reps=10),
+                    cluster=cluster, plain_ms=cuda_ms(plain, reps=10),
                     two_launch_ms=cuda_ms(two, reps=50))
                 r = per_case[case]
+            else:
+                r = per_case[case][label] = dict(
+                    timed(one), max_abs_err=err, cluster=cluster,
+                    two_launch_ms=cuda_ms(two, reps=50), edges=b.num_edges)
             log(f"kernel sp_full_sweep ({case}, {label}): ok, max abs err "
-                f"{err:.3g} vs plain, bit-equal to the two launches; "
-                f"{timing_note(r)} (two launches {r['two_launch_ms']:.4f} "
-                "ms)")
+                f"{err:.3g} vs plain, bit-equal to the two launches, "
+                f"clusters of {cluster}; {timing_note(r)} (two launches "
+                f"{r['two_launch_ms']:.4f} ms)")
     # 10 edge columns in, 4 out; edge_var, var_perm, the padding edges'
     # clause ids and the CSR offsets read once
     nbytes = ((10 + 4 + 1) * E + e + (E - e) + (V + 1) + (F + 1)
@@ -955,9 +973,11 @@ def check_sp_sweep(batch, compacted, torch):
             "name": name, "route": "cuda",
             "source": "pdp_solver_tpu_torch/csrc/sp_sweep.cu",
             "replaces": "pdp_solver_tpu/ops/pallas_sp.py:166",
-            "max_abs_err": max(r["max_abs_err"] for r in cases.values()),
+            "max_abs_err": max(max(r["max_abs_err"], r["compacted"][
+                "max_abs_err"]) for r in cases.values()),
             "ms": main["ms"], "host_us": main["host_us"],
-            "device_us": main["device_us"], "plain_ms": main["plain_ms"],
+            "device_us": main["device_us"], "cluster": main["cluster"],
+            "plain_ms": main["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "library": "none exists; two_launch_ms times the two launches "
                        "it replaces",
@@ -986,86 +1006,105 @@ def planted_like(insts, np, seed):
 
 
 def check_verify(insts, torch, np):
-    """Kernel 10 at the shared-set shapes against its plain version and
-    the split path it replaces, exactly on all four outputs: the shared
-    set's graphs with planted signs, some variables and clauses inactive,
-    every fourth instance already stopped, and a prediction that solves
-    the even instances (so some stopped instances are solved, and some
-    active ones are frozen by this verification)."""
+    """Kernel 10 against its plain version and the split path it
+    replaces, exactly on all four outputs: the shared set's graphs with
+    planted signs, some variables and clauses inactive, every fourth
+    instance already stopped, and a prediction that solves the even
+    instances (so some stopped instances are solved, and some active ones
+    are frozen by this verification); the same for a compacted batch (the
+    first 8 of them) and for the hub instance (one 63,488-edge variable).
+    Timed three ways beside the split path."""
     from pdp_solver_tpu_torch.fg.batch import pack_instances
     from pdp_solver_tpu_torch.ops import verify
     from pdp_solver_tpu_torch.problem.state import (
         edge_masks_pair, init_problem_state)
     from pdp_solver_tpu_torch.train.loss import cnf_evaluate
-    planted, xs = planted_like(insts, np, 41)
-    batch = pack_instances(planted, device="cuda")
-    require(verify.use_verify_masks(batch), "verify_and_masks: the "
-            "planted batch is not eligible")
-    g = torch.Generator().manual_seed(43)
-    V, F, B, E = (batch.num_vars, batch.num_clauses, batch.batch_size,
-                  batch.num_edges)
-    pred = torch.rand(V, generator=g)
-    off = 0
-    for b, x in enumerate(xs):
-        if b % 2 == 0:
-            pred[off:off + len(x)] = torch.from_numpy(x)
-        off += len(x)
-    p = pred.cuda()[:, None]
-    problem = init_problem_state(batch)
-    av = problem.active_vars * (torch.rand(V, generator=g) > 0.1).float(
-        ).cuda()
-    ac = problem.active_clauses * (torch.rand(F, generator=g) > 0.1).float(
-        ).cuda()
-    problem = problem.replace(active_vars=av, active_clauses=ac)
-    act = batch.instance_mask.clone()
-    act[::4] = 0.0
+    from pdp_solver_tpu_torch.utils.bench_kernels import hub_instance, timed
+    cases = {}
+    for label, source in (("shared", insts), ("compacted", insts[:8]),
+                          ("high_degree", [hub_instance()])):
+        planted, xs = planted_like(source, np, 41)
+        batch = pack_instances(planted, device="cuda")
+        require(verify.use_verify_masks(batch), "verify_and_masks: the "
+                f"planted {label} batch is not eligible")
+        g = torch.Generator().manual_seed(43)
+        V, F, B, E = (batch.num_vars, batch.num_clauses, batch.batch_size,
+                      batch.num_edges)
+        pred = torch.rand(V, generator=g)
+        off = 0
+        for b, x in enumerate(xs):
+            if b % 2 == 0:
+                pred[off:off + len(x)] = torch.from_numpy(x)
+            off += len(x)
+        p = pred.cuda()[:, None]
+        problem = init_problem_state(batch)
+        av = problem.active_vars * (torch.rand(V, generator=g) > 0.1
+                                    ).float().cuda()
+        ac = problem.active_clauses * (torch.rand(F, generator=g) > 0.1
+                                       ).float().cuda()
+        problem = problem.replace(active_vars=av, active_clauses=ac)
+        act = batch.instance_mask.clone()
+        act[::4] = 0.0
 
-    def one():
-        return verify.verify_and_masks(batch, problem, act, p)
+        def one():
+            return verify.verify_and_masks(batch, problem, act, p)
 
-    def plain():
-        return verify.verify_and_masks_plain(batch, av, ac, act, p[:, 0])
+        def plain():
+            return verify.verify_and_masks_plain(batch, av, ac, act, p[:, 0])
 
-    def split():
-        solved, unsat = cnf_evaluate(batch, p)
-        return (solved, unsat) + edge_masks_pair(
-            batch, problem, act * (solved <= 0.5).float())
+        def split():
+            solved, unsat = cnf_evaluate(batch, p)
+            return (solved, unsat) + edge_masks_pair(
+                batch, problem, act * (solved <= 0.5).float())
 
-    got, ref, two = one(), plain(), split()
-    torch.cuda.synchronize()
-    for name, a, b, c in zip(("solved", "unsat", "em", "ae"), got, ref,
-                             two):
-        require(torch.equal(a, b), f"verify_and_masks: {name} differs "
-                "from the plain version")
-        require(torch.equal(a, c), f"verify_and_masks: {name} differs "
-                "from the split path")
-    n_inst = len(insts)
-    solved = got[0][:n_inst].cpu()
-    frozen = int(((act[:n_inst].cpu() > 0) & (solved > 0)).sum())
-    require(int(solved.sum()) == (n_inst + 1) // 2 and frozen > 0,
-            f"verify_and_masks: {int(solved.sum())} solved, {frozen} "
-            "frozen; the check needs both")
-    e = batch.num_real_edges
-    # ev, sign and edge_mask, the prediction and av, ac and cm, the clause
-    # and instance offsets, the instance flags read once; em and ae, solved
-    # and unsat written once; a few operations an edge
-    nbytes = (3 * E + 2 * V + 3 * F + 1 + 2 * (B + 1) + 2 * E + 2 * B) * 4
-    b_ms, b_by = bound_ms(nbytes, 8 * e)
+        got, ref, two = one(), plain(), split()
+        torch.cuda.synchronize()
+        for name, a, b, c in zip(("solved", "unsat", "em", "ae"), got, ref,
+                                 two):
+            require(torch.equal(a, b), f"verify_and_masks ({label}): {name} "
+                    "differs from the plain version")
+            require(torch.equal(a, c), f"verify_and_masks ({label}): {name} "
+                    "differs from the split path")
+        n_inst = len(source)
+        solved = got[0][:n_inst].cpu()
+        frozen = int(((act[:n_inst].cpu() > 0) & (solved > 0)).sum())
+        require(int(solved.sum()) == (n_inst + 1) // 2 and (
+            frozen > 0 or n_inst == 1), f"verify_and_masks ({label}): "
+            f"{int(solved.sum())} solved, {frozen} frozen; the check needs "
+            "both")
+        e = batch.num_real_edges
+        # ev, sign and edge_mask, the prediction and av, ac and cm, the
+        # clause and instance offsets, the instance flags read once; em and
+        # ae, solved and unsat written once; a few operations an edge
+        nbytes = (3 * E + 2 * V + 3 * F + 1 + 2 * (B + 1) + 2 * E + 2 * B) * 4
+        b_ms, b_by = bound_ms(nbytes, 8 * e)
+        split_t = timed(split)
+        cases[label] = dict(
+            timed(one), cluster=verify._plan(batch).args.cluster,
+            bound_ms=b_ms, bound_by=b_by, plain_ms=cuda_ms(plain, reps=10),
+            split_path_ms=split_t["ms"], split_path_host_us=split_t["host_us"],
+            split_path_device_us=split_t["device_us"],
+            solved=int(solved.sum()), frozen_by_this_call=frozen,
+            edges=E)
+        r = cases[label]
+        log(f"kernel verify_and_masks ({label}): exact against the plain "
+            f"version and the split path ({r['solved']} of {n_inst} solved, "
+            f"{frozen} frozen by this call), clusters of {r['cluster']}; "
+            f"{timing_note(r)} (plain {r['plain_ms']:.4f} ms, split path "
+            f"{timing_note(split_t)}; bound {b_ms:.5f} ms)")
+    main = cases.pop("shared")
     row = {
         "name": "verify_and_masks", "route": "cuda",
         "source": "pdp_solver_tpu_torch/csrc/verify.cu",
         "replaces": "pdp_solver_tpu/ops/pallas_verify.py:170",
-        "max_abs_err": 0.0, "ms": cuda_ms(one, reps=50),
-        "plain_ms": cuda_ms(plain, reps=10), "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": None,
+        "max_abs_err": 0.0, "library_ms": None,
         "library": "none exists; split_path_ms times the split path it "
-                   "replaces (cnf_chain, the freeze, em_ae)",
-        "split_path_ms": cuda_ms(split, reps=50),
-        "solved": int(solved.sum()), "frozen_by_this_call": frozen}
-    log(f"kernel verify_and_masks: exact against the plain version and the "
-        f"split path ({row['solved']} of {n_inst} solved, {frozen} frozen "
-        f"by this call); {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
-        f"split path {row['split_path_ms']:.4f}, bound {b_ms:.5f} ms)")
+                   "replaces (cnf_chain, the freeze, em_ae)"}
+    row.update((k, main[k]) for k in (
+        "ms", "host_us", "device_us", "cluster", "plain_ms", "bound_ms",
+        "bound_by", "split_path_ms", "split_path_host_us",
+        "split_path_device_us", "solved", "frozen_by_this_call"))
+    row["cases"] = cases
     return {"verify_and_masks": row}
 
 

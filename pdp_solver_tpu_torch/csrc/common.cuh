@@ -19,6 +19,78 @@
 #define PDP_THREADS 256
 #define PDP_N1(x) ((x) > 0 ? (x) : 1)
 
+// --- a thread-block cluster per instance (sp_sweep.cu, verify.cu) ---
+//
+// Kernels 9 and 10 run one cluster of `cs` CTAs per instance (cs a power
+// of two up to PDP_CLUSTER_MAX, chosen by ops/_build.py cluster_size from
+// the batch's shape): CTA r of the cluster takes the share
+// [cluster_share(n, r, cs), cluster_share(n, r + 1, cs)) of the instance's
+// clauses (and their edges) and of its variables, the CTAs exchange what
+// the next phase needs through distributed shared memory, and
+// cluster.sync() stands between the phases.
+#define PDP_CLUSTER_MAX 16
+#define PDP_CLUSTER_PORTABLE 8
+
+__device__ __forceinline__ int cluster_share(int n, int r, int cs) {
+  return (int)((long long)n * r / cs);
+}
+
+// The cluster barrier in two halves (cluster.sync() is both at once), so
+// that work can run between a CTA's arrival and its wait. The relaxed
+// arrival orders no memory: a kernel arrives so as its CTA starts and
+// waits before its CTA's first access to another CTA's shared memory, so
+// that every CTA of the cluster has started by then. The plain arrival
+// releases this thread's writes (shared memory of any CTA of the cluster,
+// and global memory) to the threads of the cluster that pass the next
+// wait, which acquires them. Every thread of the cluster takes arrivals
+// and waits in turn.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Launches kernel(args) on n_clusters clusters of cs CTAs of PDP_THREADS
+// threads, with smem bytes of dynamic shared memory. Opts in to a cluster
+// above the portable 8 and to more than 48 KB of dynamic shared memory
+// where the launch needs it. Returns the launch's error (a cluster the
+// card cannot place is refused here).
+template <class Args>
+inline cudaError_t launch_clusters(void (*kernel)(Args), int n_clusters,
+                                   int cs, size_t smem, cudaStream_t st,
+                                   const Args& args) {
+  cudaError_t err;
+  if (cs > PDP_CLUSTER_PORTABLE) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)n_clusters * cs);
+  cfg.blockDim = dim3(PDP_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args);
+}
+
 __device__ __forceinline__ float safe_log(float x, float eps) {
   return logf(fmaxf(x, eps));
 }
@@ -37,10 +109,22 @@ __device__ __forceinline__ float flag(bool b) { return b ? 1.0f : 0.0f; }
 // log u of an edge, masked by its liveness: the clause sum's term. With
 // LOGIN the input already is log u (p-nd-np's adaptors, propagate.py
 // _sp_chain_f1_login); its product is rounded on its own (no FMA
-// contraction), so every caller gets the same bits.
+// contraction), so every caller gets the same bits. In two steps: the log
+// (sp_u_log), then the masked product (sp_log_u_masked), so that a caller
+// can take the log once for two uses.
+template <bool LOGIN>
+__device__ __forceinline__ float sp_u_log(float u) {
+  return LOGIN ? u : safe_log(u, PDP_LOG_EPS_PROP);
+}
+
+template <bool LOGIN>
+__device__ __forceinline__ float sp_log_u_masked(float lu, float em) {
+  return LOGIN ? __fmul_rn(lu, em) : lu * em;
+}
+
 template <bool LOGIN>
 __device__ __forceinline__ float sp_log_u(float u, float em) {
-  return LOGIN ? __fmul_rn(u, em) : safe_log(u, PDP_LOG_EPS_PROP) * em;
+  return sp_log_u_masked<LOGIN>(sp_u_log<LOGIN>(u), em);
 }
 
 // the eta survey from its clause's log-u sum, frozen where mask is 0
@@ -56,19 +140,21 @@ __device__ __forceinline__ float sp_lm(float eta_in, float em) {
 }
 
 // the (q_u, q_s, q_dc) triplet of an edge from its variable's polarity
-// sums, with the REINFORCE force factor pi, normalised with the stable
-// shift (propagate.py q_triplet_stable) and frozen where mask is 0
-__device__ __forceinline__ void sp_q_triplet(float pos, float neg,
-                                             float eta_in, float em,
-                                             float mask, float sign,
-                                             float force, float pi,
-                                             float v0, float v1, float v2,
-                                             float* o) {
+// sums, normalised with the stable shift (propagate.py q_triplet_stable)
+// and frozen where mask is 0; lf_same, lf_opp: the logs of the REINFORCE
+// force factors, safe_log(1 - pi * flag(force == sign)) and
+// safe_log(1 - pi * flag(force == -sign))
+__device__ __forceinline__ void sp_q_triplet_lf(float pos, float neg,
+                                                float eta_in, float em,
+                                                float mask, float sign,
+                                                float lf_same, float lf_opp,
+                                                float v0, float v1, float v2,
+                                                float* o) {
   const float lm = sp_lm(eta_in, em);
   float same = 0.5f * (1.0f + sign) * pos + 0.5f * (1.0f - sign) * neg - lm;
-  same = same + safe_log(1.0f - pi * flag(force == sign), PDP_LOG_EPS_PROP);
+  same = same + lf_same;
   float opp = 0.5f * (1.0f - sign) * pos + 0.5f * (1.0f + sign) * neg;
-  opp = opp + safe_log(1.0f - pi * flag(force == -sign), PDP_LOG_EPS_PROP);
+  opp = opp + lf_opp;
   const float b = fmaxf(same, opp);
   const float sx = safe_exp(same - b), ox = safe_exp(opp - b);
   const float d = safe_exp(same + opp - b);
@@ -77,6 +163,23 @@ __device__ __forceinline__ void sp_q_triplet(float pos, float neg,
   o[0] = mask * (qu / total) + (1.0f - mask) * v0;
   o[1] = mask * (qs / total) + (1.0f - mask) * v1;
   o[2] = mask * (d / total) + (1.0f - mask) * v2;
+}
+
+// the same with the force factor pi: a factor's log is safe_log(1 - pi)
+// where the force agrees and log(1) = 0 where it does not, so a caller
+// with pi fixed for many edges passes lpi = safe_log(1 - pi) and gets
+// these bits from sp_q_triplet_lf with (force == sign ? lpi : 0)
+__device__ __forceinline__ void sp_q_triplet(float pos, float neg,
+                                             float eta_in, float em,
+                                             float mask, float sign,
+                                             float force, float pi,
+                                             float v0, float v1, float v2,
+                                             float* o) {
+  sp_q_triplet_lf(
+      pos, neg, eta_in, em, mask, sign,
+      safe_log(1.0f - pi * flag(force == sign), PDP_LOG_EPS_PROP),
+      safe_log(1.0f - pi * flag(force == -sign), PDP_LOG_EPS_PROP), v0, v1,
+      v2, o);
 }
 
 // Columns of one edge-pass call, passed to the kernel by value. What each

@@ -12,75 +12,125 @@
 // one-hot windows on the matrix unit and a [2, N] VMEM scratch carried
 // from the first phase to the second. None of that is carried over.
 //
-// Design: one CTA per instance. The packed layout keeps an instance's
-// clauses, edges and variables contiguous (inst_clause_ptr, inst_var_ptr,
-// clause_ptr; var_ptr/var_perm list each variable's edges), so an
-// instance's sweep needs nothing outside its CTA: no grid-wide sync and no
-// atomics.
-//   1. Threads over the instance's clauses: each sums its clause's log u
-//      over the clause's k edges (thread-local, in edge order) and writes
-//      the new eta of those edges. Then the polarity-split sums of
-//      log(1 - eta_in) * em of the instance's variables, to shared memory,
-//      in the order of the group walk (common.cuh walk_block) with the
-//      chained pass's G: a group of G lanes a variable, 256 / G variables
-//      at a time, lane l taking the variable's slots l, l + G, ... and a
-//      xor butterfly over the group; then every variable of S =
-//      PDP_HEAVY_ITERS * G slots or more piece by piece, one piece for
-//      each multiple of S inside it in increasing order, the whole CTA on
-//      a piece as one anchored block of the walk takes it (thread t its
-//      slots t, t + 256, ..., a butterfly in each warp, the warp totals in
-//      warp order) and the pieces added in order. Both read the input eta
-//      only.
-//   2. __syncthreads(), then threads over the instance's edges compute the
-//      q-triplet from their variable's two sums.
-// Each sum is taken in the same order, with the same operations (the
-// sp_* helpers of common.cuh), as the two-launch path (edge_pass.cu
+// Design: a thread-block cluster of cs CTAs per instance (common.cuh). The
+// packed layout keeps an instance's clauses, edges and variables contiguous
+// (inst_clause_ptr, inst_var_ptr, clause_ptr; var_ptr/var_perm list each
+// variable's edges), so an instance's sweep needs nothing outside its
+// cluster: no grid-wide sync and no atomics. CTA r of the cluster:
+//   1. clauses, on warps 0-3: its share of the instance's clauses in tiles
+//      of 128 clauses. A tile's log u (the log taken once an edge) and em
+//      are loaded coalesced (a lane an edge) into shared memory; one thread
+//      a clause sums its masked log u there in edge order, and the lanes
+//      then write each edge's new eta, again a lane an edge. A tile holds at
+//      most PDP_THREADS clauses of at most PDP_SWEEP_MAX_K edges
+//      (ops/sp_sweep.py refuses a batch with wider clauses; the route takes
+//      widths up to 8 only).
+//   2. variables, on warps 4-7 at the same time (the two phases are
+//      independent, and their chains of dependent loads overlap): its share
+//      of the instance's variables. Each variable's polarity sums of log(1 -
+//      eta_in) * em are taken in the order of the group walk (common.cuh
+//      walk_block) with the chained pass's G: a group of G lanes a variable,
+//      lane l its slots l, l + G, ..., then the xor butterfly over the
+//      group. The group's lane 0 writes the two sums into every CTA of the
+//      cluster (distributed shared memory, cluster.map_shared_rank), after a
+//      wait that makes sure every CTA has started (its arrival is taken as
+//      the kernel starts). When a variable may hold S = PDP_HEAVY_ITERS * G
+//      slots or more (a heavy one), the whole CTA takes the two phases in
+//      turn, and a heavy variable goes piece by piece, one piece for each
+//      multiple of S inside it: the instance's pieces are dealt round the
+//      cluster's CTAs; a CTA takes a piece as one anchored block of the walk
+//      does (thread t its slots t, t + 256, ..., a butterfly in each warp,
+//      the warp totals in warp order) and writes its total to global
+//      scratch; after a cluster barrier the CTA that owns the variable adds
+//      its pieces in anchor order. So each sum keeps its bits whichever CTA
+//      takes it.
+//   3. cluster.sync(), then the q-triplet of the edges of its clauses from
+//      the sums in its own shared memory, the force factor's log taken once
+//      (safe_log(1 - pi) where the force agrees with the sign, log 1 = 0
+//      elsewhere).
+// Each sum is taken in the same order, with the same operations (the sp_*
+// helpers of common.cuh), as the two-launch path (edge_pass.cu
 // chained_clause_kernel / chained_var_kernel with SpChain or SpChainLogin,
-// then SpPassC), so the two give the same bits.
-// The two sums of an instance's variables take 8 bytes a variable of
-// shared memory; when the caller passes a global scratch f32[2, V] (it
-// does above 6,144 variables per instance, 48 KB) they go there instead,
-// still inside the one CTA (L2-resident, slower). One CTA per instance
-// also means a batch of few large instances runs on few SMs: B instances
-// keep at most B of the 132 SMs busy.
+// then SpPassC), so the two give the same bits. The two sums of an
+// instance's variables take 8 bytes a variable of each CTA's shared memory;
+// when the caller passes a global scratch f32[2, V] (it does above SMEM_VARS
+// = 6,144 variables an instance) each CTA writes its variables' sums there
+// instead, and no CTA reads another's shared memory. The cluster barrier's
+// release/acquire at cluster scope orders those global writes (and the heavy
+// pieces' totals) before the reads after it; the reads bypass L1 (__ldcg).
 // Padding edges [e_real, e_total) belong to no instance. They still get
-// their outputs, as in the two-launch path: CTAs after the instances take
-// PDP_SWEEP_PAD_CHUNK of them each, recompute the clause sum and the
-// variable sums their edges point at (the last real clause and variable,
-// by the packing contract: the CTA sums that variable as an instance's CTA
-// does; any other id is summed on the spot, one thread repeating the
-// walk's order lane by lane), and apply the same per-edge formulas.
+// their outputs, as in the two-launch path: clusters after the instances'
+// take PDP_SWEEP_PAD_CHUNK of them a CTA, each CTA alone: it recomputes the
+// clause sum and the variable sums its edges point at (the last real clause
+// and variable, by the packing contract: the CTA sums that variable in the
+// walk's order; any other id is summed on the spot, one thread repeating the
+// walk's order lane by lane), and applies the same per-edge formulas.
+// Tried on the H100 and not kept (device us, shared set, against 20-21 for
+// the two phases in turn): variables before clauses with the clauses
+// between the barrier's arrival and wait (21-25); the walk's terms staged in
+// each CTA's shared memory and read across the cluster (22.7-24); the sums
+// exchanged through global memory instead of distributed shared memory (no
+// faster); phase 2 two edges a step (no faster). The warps split of phase 1
+// was kept: 19.1-20.1 on the shared set, 8.4-8.5 -> 7.0 on a compacted
+// batch.
 //
 // Bound on the H100 at the shared-set shapes (E = 524,288 padded / 460,800
 // real edges, V = 16,384, F = 131,072, B = 128): the 10 f32[E] inputs
 // (21 MB), edge_var (2.1 MB), var_perm (1.8 MB) and the CSR offsets, and
 // the 4 f32[E] outputs (8.4 MB): ~33 MB, about 10 us at 3.35 TB/s, with
-// ~40 flops an edge. Bound by bytes. 128 CTAs on 132 SMs, each walking
-// ~3,600 edges with 256 threads, make it latency-bound in practice: the
-// dependent gathers of the var walks and the 14 edges a thread handles.
+// ~40 flops an edge. Bound by bytes. One CTA an instance left 128 CTAs of
+// 256 threads walking ~3,600 edges each through dependent gathers
+// (latency-bound, 8 of 64 warps on an SM); the cluster cuts each CTA's
+// share by cs and fills the card with B * cs CTAs.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 
-#define PDP_SWEEP_PAD_CHUNK 4096
+namespace cg = cooperative_groups;
 
+#define PDP_SWEEP_PAD_CHUNK 1024
+#define PDP_SWEEP_MAX_K 8  // the widest clause, ops/sp_sweep.py MAX_WIDTH
+#define PDP_SWEEP_TILE_E (PDP_SWEEP_MAX_K * PDP_THREADS)
+
+// the input columns of SweepArgs::ins and the outputs of SweepArgs::outs
+enum { IN_U, IN_ETA, IN_EM, IN_MASK, IN_ETA_STATE, IN_SIGN, IN_FORCE, IN_V0,
+       IN_V1, IN_V2 };
+enum { OUT_ETA, OUT_V0, OUT_V1, OUT_V2 };
+
+// One sweep's arguments, filled once per batch plan by ops/sp_sweep.py and
+// passed by pointer (the field order matches its ctypes Structure); the
+// kernel takes a copy by value. ins: the 10 f32[E] columns in the enum's
+// order; outs: the 4 f32[E] outputs. sums: f32[2, V] for the variables'
+// sums, or null to keep them in shared memory (2 * max_inst_vars floats).
+// pieces: f32[2 * ceil(e_real / S)] for the heavy pieces' totals, needed
+// when heavy (a variable may hold S = PDP_HEAVY_ITERS * group slots or
+// more). group: G of the chained pass's var walk (a power of two from 4 to
+// 32); cluster: CTAs an instance.
 struct SweepArgs {
-  const float *u, *eta_in, *em, *mask, *eta_state, *sign, *force, *v0, *v1,
-      *v2;
-  float *eta_out, *nv0, *nv1, *nv2;
-  const int* ev;               // edge -> variable
-  const int* ec;               // edge -> clause
-  const int* clause_ptr;       // [F + 1]
-  const int* var_ptr;          // [V + 1]
-  const int* var_perm;         // [e_real]
-  const int* inst_clause_ptr;  // [B + 1]
-  const int* inst_var_ptr;     // [B + 1]
-  float* scratch;              // f32[2, V], or null when sums fit in smem
-  int n_inst, n_vars, e_real, e_total;
-  int g_shift;                 // log2 G, the chained pass's var walk
-  int heavy;                   // 1: a variable may hold S slots or more
+  const float* ins[PDP_MAX_IN];
+  float* outs[PDP_MAX_EOUT];
+  const int* ev;
+  const int* ec;
+  const int* clause_ptr;
+  const int* var_ptr;
+  const int* var_perm;
+  const int* inst_clause_ptr;
+  const int* inst_var_ptr;
+  float* sums;
+  float* pieces;
+  int n_inst;
+  int n_vars;
+  int max_inst_vars;
+  int e_real;
+  int e_total;
+  int group;
+  int heavy;
+  int cluster;
+  int login;
   float pi;
+  void* stream;
 };
 
 template <bool LOGIN>
@@ -89,35 +139,83 @@ __device__ __forceinline__ float clause_log_u_sum(const SweepArgs& a,
   float s = 0.0f;
   const int e1 = a.clause_ptr[c + 1];
   for (int e = a.clause_ptr[c]; e < e1; ++e)
-    s += sp_log_u<LOGIN>(a.u[e], a.em[e]);
+    s += sp_log_u<LOGIN>(a.ins[IN_U][e], a.ins[IN_EM][e]);
   return s;
 }
 
 // edge e's two terms of its variable's polarity sums (SpChainOps::f3's)
 __device__ __forceinline__ void lm_terms(const SweepArgs& a, int e, float& p,
                                          float& n) {
-  const float lm = sp_lm(a.eta_in[e], a.em[e]);
-  const float sign = a.sign[e];
+  const float lm = sp_lm(a.ins[IN_ETA][e], a.ins[IN_EM][e]);
+  const float sign = a.ins[IN_SIGN][e];
   p = lm * flag(sign == 1.0f);
   n = lm * flag(sign == -1.0f);
 }
 
-// the polarity sums of the instance's nv variables from vb, in the walk's
-// order (see the top of the file); every thread of the CTA calls it
-__device__ void cta_var_sums(const SweepArgs& a, int vb, int nv, float* pos,
-                             float* neg) {
-  __shared__ float warp_p[PDP_THREADS / 32], warp_n[PDP_THREADS / 32];
-  const int tid = threadIdx.x, gs = a.g_shift, G = 1 << gs;
-  const int S = PDP_HEAVY_ITERS << gs;
-  const int heavy_min = a.heavy ? S : 0x7fffffff;  // as common.cuh's plan
+__device__ __forceinline__ int heavy_min(const SweepArgs& a) {
+  return a.heavy ? PDP_HEAVY_ITERS * a.group : 0x7fffffff;
+}
+
+// a barrier of the CTA's first nt threads (all of them: __syncthreads)
+__device__ __forceinline__ void part_sync(int nt) {
+  if (nt == PDP_THREADS)
+    __syncthreads();
+  else
+    asm volatile("bar.sync 1, %0;" ::"r"(nt) : "memory");
+}
+
+// phase 1, clauses [ca, cb): their log-u sums and their edges' new eta,
+// taken by the CTA's first nt threads (tid: this thread's index among
+// them), nt clauses a tile (nt * PDP_SWEEP_MAX_K <= PDP_SWEEP_TILE_E edges)
+template <bool LOGIN>
+__device__ void clause_phase(const SweepArgs& a, int ca, int cb,
+                             float* tile, int tid, int nt) {
+  float* tu = tile;  // log u
+  float* tem = tile + PDP_SWEEP_TILE_E;
+  float* tcl = tile + 2 * PDP_SWEEP_TILE_E;
+  for (int t0 = ca; t0 < cb; t0 += nt) {
+    const int t1 = min(cb, t0 + nt), c = t0 + tid;
+    const int e0 = a.clause_ptr[t0], n = a.clause_ptr[t1] - e0;
+    for (int i = tid; i < n; i += nt) {
+      tu[i] = sp_u_log<LOGIN>(a.ins[IN_U][e0 + i]);
+      tem[i] = a.ins[IN_EM][e0 + i];
+    }
+    part_sync(nt);
+    if (c < t1) {
+      const int lo = a.clause_ptr[c] - e0, hi = a.clause_ptr[c + 1] - e0;
+      float s = 0.0f;
+      for (int i = lo; i < hi; ++i)
+        s += sp_log_u_masked<LOGIN>(tu[i], tem[i]);
+      for (int i = lo; i < hi; ++i) tcl[i] = s;
+    }
+    part_sync(nt);
+    for (int i = tid; i < n; i += nt) {
+      const int e = e0 + i;
+      a.outs[OUT_ETA][e] =
+          sp_new_eta(tcl[i], sp_log_u_masked<LOGIN>(tu[i], tem[i]),
+                     a.ins[IN_MASK][e], a.ins[IN_ETA_STATE][e]);
+    }
+    part_sync(nt);  // the next tile reuses the buffers
+  }
+}
+
+// The polarity sums of the variables [v0, v1) below the heavy size, in the
+// walk's order: a group of G lanes a variable, nt / G variables a round;
+// store(v, p, n) on the group's lane 0. nt threads of the CTA, whole
+// warps, call it (tid: this thread's index among them).
+template <class Store>
+__device__ void group_sums(const SweepArgs& a, int v0, int v1,
+                           const Store& store, int tid = threadIdx.x,
+                           int nt = PDP_THREADS) {
+  const int G = a.group, gs = __ffs(G) - 1, hmin = heavy_min(a);
   const int lane = tid & (G - 1);
-  for (int base = 0; base < nv; base += (int)blockDim.x >> gs) {
-    const int i = base + (tid >> gs);
+  for (int base = v0; base < v1; base += nt >> gs) {
+    const int v = base + (tid >> gs);
     float p = 0.0f, n = 0.0f, tp, tn;
     bool mine = false;
-    if (i < nv) {
-      const int lo = a.var_ptr[vb + i], hi = a.var_ptr[vb + i + 1];
-      mine = hi - lo < heavy_min;
+    if (v < v1) {
+      const int lo = a.var_ptr[v], hi = a.var_ptr[v + 1];
+      mine = hi - lo < hmin;
       if (mine) {
 #pragma unroll 4
         for (int j = lo + lane; j < hi; j += G) {
@@ -131,55 +229,53 @@ __device__ void cta_var_sums(const SweepArgs& a, int vb, int nv, float* pos,
       p += __shfl_xor_sync(PDP_FULL_MASK, p, off);
       n += __shfl_xor_sync(PDP_FULL_MASK, n, off);
     }
-    if (mine && lane == 0) {
-      pos[i] = p;
-      neg[i] = n;
-    }
+    if (mine && lane == 0) store(v, p, n);
   }
-  // the heavy variables: the multiples of S in the instance's slots, in
-  // order; every thread decides alike
-  if (!a.heavy) return;
-  const int s0 = a.var_ptr[vb], s1 = a.var_ptr[vb + nv];
-  float run_p = 0.0f, run_n = 0.0f;  // thread 0's sums of a variable's pieces
-  for (int s = (s0 + S - 1) / S * S; s < s1; s += S) {
-    const int v = a.ev[a.var_perm[s]];
-    const int lo = a.var_ptr[v], hi = a.var_ptr[v + 1];
-    if (hi - lo < S) continue;
-    const int a0 = (lo + S - 1) / S, a1 = (hi - 1) / S, k = s / S;
-    float p = 0.0f, n = 0.0f, tp, tn;
+}
+
+// The piece of anchor s (a multiple of S) when it lies in a heavy
+// variable, taken by the whole CTA as an anchored block of the walk takes
+// it. Returns alike on every thread whether it does; then v, a0, a1 are
+// the variable and its first and last anchors (in units of S), and thread
+// 0 holds the piece's totals in p, n.
+__device__ bool piece_sums(const SweepArgs& a, int s, int& v, int& a0,
+                           int& a1, float& p, float& n) {
+  __shared__ float warp_p[PDP_THREADS / 32], warp_n[PDP_THREADS / 32];
+  const int S = PDP_HEAVY_ITERS * a.group, tid = threadIdx.x;
+  v = a.ev[a.var_perm[s]];
+  const int lo = a.var_ptr[v], hi = a.var_ptr[v + 1];
+  if (hi - lo < S) return false;
+  a0 = (lo + S - 1) / S;
+  a1 = (hi - 1) / S;
+  float tp, tn;
+  p = n = 0.0f;
 #pragma unroll 8
-    for (int j = (k == a0 ? lo : s) + tid; j < min(s + S, hi);
-         j += blockDim.x) {
-      lm_terms(a, a.var_perm[j], tp, tn);
-      p += tp;
-      n += tn;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      p += __shfl_xor_sync(PDP_FULL_MASK, p, off);
-      n += __shfl_xor_sync(PDP_FULL_MASK, n, off);
-    }
-    if ((tid & 31) == 0) {
-      warp_p[tid >> 5] = p;
-      warp_n[tid >> 5] = n;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      p = warp_p[0];
-      n = warp_n[0];
-      for (int w = 1; w < (int)(blockDim.x >> 5); ++w) {
-        p += warp_p[w];
-        n += warp_n[w];
-      }
-      run_p = k == a0 ? p : run_p + p;
-      run_n = k == a0 ? n : run_n + n;
-      if (k == a1) {
-        pos[v - vb] = run_p;
-        neg[v - vb] = run_n;
-      }
-    }
-    __syncthreads();
+  for (int j = (s / S == a0 ? lo : s) + tid; j < min(s + S, hi);
+       j += PDP_THREADS) {
+    lm_terms(a, a.var_perm[j], tp, tn);
+    p += tp;
+    n += tn;
   }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    p += __shfl_xor_sync(PDP_FULL_MASK, p, off);
+    n += __shfl_xor_sync(PDP_FULL_MASK, n, off);
+  }
+  if ((tid & 31) == 0) {
+    warp_p[tid >> 5] = p;
+    warp_n[tid >> 5] = n;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    p = warp_p[0];
+    n = warp_n[0];
+    for (int w = 1; w < PDP_THREADS / 32; ++w) {
+      p += warp_p[w];
+      n += warp_n[w];
+    }
+  }
+  __syncthreads();
+  return true;
 }
 
 // a xor butterfly over x[0, width) taken by one thread: each step gives
@@ -192,13 +288,13 @@ __device__ __forceinline__ void serial_butterfly(float* x, int width) {
 
 // one thread: variable v's polarity sums in the walk's order (a padding
 // edge of another variable than the last real one), lane by lane and piece
-// by piece as cta_var_sums takes them
+// by piece as group_sums and piece_sums take them
 __device__ void var_lm_sums(const SweepArgs& a, int v, float* pos,
                             float* neg) {
-  const int G = 1 << a.g_shift, S = PDP_HEAVY_ITERS << a.g_shift;
+  const int G = a.group, S = PDP_HEAVY_ITERS * G;
   const int lo = a.var_ptr[v], hi = a.var_ptr[v + 1];
   float p[32], n[32], tp, tn;
-  if (!a.heavy || hi - lo < S) {
+  if (hi - lo < heavy_min(a)) {
     for (int l = 0; l < G; ++l) {
       p[l] = n[l] = 0.0f;
       for (int j = lo + l; j < hi; j += G) {
@@ -243,60 +339,48 @@ template <bool LOGIN>
 __device__ __forceinline__ void edge_outputs(const SweepArgs& a, int e,
                                              float cl, float pos,
                                              float neg) {
-  const float mask = a.mask[e];
-  a.eta_out[e] = sp_new_eta(cl, sp_log_u<LOGIN>(a.u[e], a.em[e]), mask,
-                            a.eta_state[e]);
+  const float mask = a.ins[IN_MASK][e];
+  a.outs[OUT_ETA][e] =
+      sp_new_eta(cl, sp_log_u<LOGIN>(a.ins[IN_U][e], a.ins[IN_EM][e]), mask,
+                 a.ins[IN_ETA_STATE][e]);
   float o[3];
-  sp_q_triplet(pos, neg, a.eta_in[e], a.em[e], mask, a.sign[e], a.force[e],
-               a.pi, a.v0[e], a.v1[e], a.v2[e], o);
-  a.nv0[e] = o[0];
-  a.nv1[e] = o[1];
-  a.nv2[e] = o[2];
+  sp_q_triplet(pos, neg, a.ins[IN_ETA][e], a.ins[IN_EM][e], mask,
+               a.ins[IN_SIGN][e], a.ins[IN_FORCE][e], a.pi, a.ins[IN_V0][e],
+               a.ins[IN_V1][e], a.ins[IN_V2][e], o);
+  a.outs[OUT_V0][e] = o[0];
+  a.outs[OUT_V1][e] = o[1];
+  a.outs[OUT_V2][e] = o[2];
 }
 
+// A padding CTA: the outputs of padding edges [e0, e0 + chunk), alone (no
+// cluster barrier on this path). sh: 3 floats.
 template <bool LOGIN>
-__global__ void sp_sweep_kernel(SweepArgs a) {
-  extern __shared__ float sh[];
-  const int tid = threadIdx.x, nt = blockDim.x;
-  if ((int)blockIdx.x < a.n_inst) {
-    const int b = blockIdx.x;
-    const int c0 = a.inst_clause_ptr[b], c1 = a.inst_clause_ptr[b + 1];
-    const int vb = a.inst_var_ptr[b], nv = a.inst_var_ptr[b + 1] - vb;
-    if (c0 == c1 && nv == 0) return;  // an empty (padding) instance
-    float* pos = a.scratch ? a.scratch + vb : sh;
-    float* neg = a.scratch ? a.scratch + a.n_vars + vb : sh + nv;
-    // phase 1: the clause sums and eta; the variables' polarity sums
-    for (int c = c0 + tid; c < c1; c += nt) {
-      const float cl = clause_log_u_sum<LOGIN>(a, c);
-      const int e1 = a.clause_ptr[c + 1];
-      for (int e = a.clause_ptr[c]; e < e1; ++e)
-        a.eta_out[e] = sp_new_eta(cl, sp_log_u<LOGIN>(a.u[e], a.em[e]),
-                                  a.mask[e], a.eta_state[e]);
-    }
-    cta_var_sums(a, vb, nv, pos, neg);
-    __syncthreads();
-    // phase 2: the q-triplet of every edge of the instance
-    const int e1 = a.clause_ptr[c1];
-    for (int e = a.clause_ptr[c0] + tid; e < e1; e += nt) {
-      const int i = a.ev[e] - vb;
-      float o[3];
-      sp_q_triplet(pos[i], neg[i], a.eta_in[e], a.em[e], a.mask[e],
-                   a.sign[e], a.force[e], a.pi, a.v0[e], a.v1[e], a.v2[e],
-                   o);
-      a.nv0[e] = o[0];
-      a.nv1[e] = o[1];
-      a.nv2[e] = o[2];
-    }
-    return;
-  }
-  // padding edges
-  const int e0 = a.e_real + ((int)blockIdx.x - a.n_inst) * PDP_SWEEP_PAD_CHUNK;
+__device__ void pad_edges(const SweepArgs& a, int e0, float* sh) {
   const int e1 = min(a.e_total, e0 + PDP_SWEEP_PAD_CHUNK);
   const int c_last = a.ec[a.e_real], v_last = a.ev[a.e_real];
-  cta_var_sums(a, v_last, 1, sh + 1, sh + 2);
-  if (tid == 0) sh[0] = clause_log_u_sum<LOGIN>(a, c_last);
+  const int lo = a.var_ptr[v_last], hi = a.var_ptr[v_last + 1];
+  if (hi - lo < heavy_min(a)) {
+    group_sums(a, v_last, v_last + 1, [&](int, float p, float n) {
+      sh[1] = p;
+      sh[2] = n;
+    });
+  } else {
+    const int S = PDP_HEAVY_ITERS * a.group;
+    float run_p = 0.0f, run_n = 0.0f, p, n;
+    int v, a0, a1;
+    for (int k = (lo + S - 1) / S; k * S < hi; ++k) {
+      piece_sums(a, k * S, v, a0, a1, p, n);
+      run_p = k == a0 ? p : run_p + p;
+      run_n = k == a0 ? n : run_n + n;
+    }
+    if (threadIdx.x == 0) {
+      sh[1] = run_p;
+      sh[2] = run_n;
+    }
+  }
+  if (threadIdx.x == 0) sh[0] = clause_log_u_sum<LOGIN>(a, c_last);
   __syncthreads();
-  for (int e = e0 + tid; e < e1; e += nt) {
+  for (int e = e0 + threadIdx.x; e < e1; e += PDP_THREADS) {
     const int c = a.ec[e], v = a.ev[e];
     float cl = sh[0], pos = sh[1], neg = sh[2];
     if (c != c_last) cl = clause_log_u_sum<LOGIN>(a, c);
@@ -305,71 +389,143 @@ __global__ void sp_sweep_kernel(SweepArgs a) {
   }
 }
 
+// The heavy variables of the instance at vb (nv variables): its pieces
+// dealt round the cluster, their totals to global scratch; after a cluster
+// barrier each owner (the CTA whose share [va, vz) holds the variable)
+// adds its variables' pieces in anchor order. Every thread of the cluster
+// calls it.
+template <class Store>
+__device__ void heavy_sums(const SweepArgs& a, cg::cluster_group& cluster,
+                           int vb, int nv, int va, int vz,
+                           const Store& store) {
+  const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int S = PDP_HEAVY_ITERS * a.group;
+  const int s0 = a.var_ptr[vb], s1 = a.var_ptr[vb + nv];
+  for (int s = ((s0 + S - 1) / S + rank) * S; s < s1; s += cs * S) {
+    int v, a0, a1;
+    float p, n;
+    if (piece_sums(a, s, v, a0, a1, p, n) && threadIdx.x == 0) {
+      a.pieces[2 * (s / S)] = p;
+      a.pieces[2 * (s / S) + 1] = n;
+    }
+  }
+  cluster.sync();
+  for (int v = va + threadIdx.x; v < vz; v += PDP_THREADS) {
+    const int lo = a.var_ptr[v], hi = a.var_ptr[v + 1];
+    if (hi - lo < S) continue;
+    const int a0 = (lo + S - 1) / S, a1 = (hi - 1) / S;
+    float p = __ldcg(&a.pieces[2 * a0]), n = __ldcg(&a.pieces[2 * a0 + 1]);
+    for (int k = a0 + 1; k <= a1; ++k) {
+      p += __ldcg(&a.pieces[2 * k]);
+      n += __ldcg(&a.pieces[2 * k + 1]);
+    }
+    store(v, p, n);
+  }
+}
+
+// Five CTAs an SM (at most 51 registers a thread): the shared set's 512
+// instance CTAs and their padding CTAs run in one wave (the log-input form
+// took 64 registers, four CTAs an SM, and a second wave).
+template <bool LOGIN>
+__global__ void __launch_bounds__(PDP_THREADS, 5)
+    sp_sweep_kernel(SweepArgs a) {
+  extern __shared__ float sh[];  // the clause tile, then pos and neg
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int q = (int)blockIdx.x / cs;  // the instance, or a padding cluster
+  if (q >= a.n_inst) {
+    const int e0 =
+        a.e_real + ((q - a.n_inst) * cs + rank) * PDP_SWEEP_PAD_CHUNK;
+    if (e0 < a.e_total) pad_edges<LOGIN>(a, e0, sh);
+    return;
+  }
+  const int c0 = a.inst_clause_ptr[q], nc = a.inst_clause_ptr[q + 1] - c0;
+  const int vb = a.inst_var_ptr[q], nv = a.inst_var_ptr[q + 1] - vb;
+  if (nc == 0 && nv == 0) return;  // an empty (padding) instance
+  const bool global = a.sums != nullptr;
+  if (!global) cluster_arrive_relaxed();
+  float* pos = global ? a.sums + vb : sh + 3 * PDP_SWEEP_TILE_E;
+  float* neg = global ? a.sums + a.n_vars + vb : pos + a.max_inst_vars;
+  // a variable's sums go to the global scratch, or into every CTA of the
+  // cluster (the same offsets in each)
+  const auto store = [&](int v, float p, float n) {
+    const int i = v - vb;
+    if (global) {
+      pos[i] = p;
+      neg[i] = n;
+      return;
+    }
+    for (int r = 0; r < cs; ++r) {
+      cluster.map_shared_rank(pos, r)[i] = p;
+      cluster.map_shared_rank(neg, r)[i] = n;
+    }
+  };
+  const int ca = c0 + cluster_share(nc, rank, cs);
+  const int cb = c0 + cluster_share(nc, rank + 1, cs);
+  const int va = vb + cluster_share(nv, rank, cs);
+  const int vz = vb + cluster_share(nv, rank + 1, cs);
+  // phase 1 (every CTA of the cluster has started by the wait)
+  if (!a.heavy) {
+    // warps 0-3 take the clauses while warps 4-7 take the variables: the
+    // two are independent, and their chains of dependent loads overlap
+    constexpr int half = PDP_THREADS / 2;
+    if ((int)threadIdx.x < half) {
+      clause_phase<LOGIN>(a, ca, cb, sh, threadIdx.x, half);
+      if (!global) cluster_wait();
+    } else {
+      if (!global) cluster_wait();
+      group_sums(a, va, vz, store, threadIdx.x - half, half);
+    }
+  } else {
+    clause_phase<LOGIN>(a, ca, cb, sh, threadIdx.x, PDP_THREADS);
+    if (!global) cluster_wait();
+    group_sums(a, va, vz, store);
+    heavy_sums(a, cluster, vb, nv, va, vz, store);
+  }
+  cluster.sync();
+  // phase 2: the q-triplet of the edges of this CTA's clauses; the force
+  // factor's log is safe_log(1 - pi) where the force agrees, else log(1) =
+  // 0 (common.cuh sp_q_triplet)
+  const int e1 = a.clause_ptr[cb];
+  const float lpi = safe_log(1.0f - a.pi, PDP_LOG_EPS_PROP);
+  for (int e = a.clause_ptr[ca] + threadIdx.x; e < e1; e += PDP_THREADS) {
+    const int i = a.ev[e] - vb;
+    const float p = global ? __ldcg(pos + i) : pos[i];
+    const float n = global ? __ldcg(neg + i) : neg[i];
+    float o[3];
+    const float sign = a.ins[IN_SIGN][e], force = a.ins[IN_FORCE][e];
+    sp_q_triplet_lf(p, n, a.ins[IN_ETA][e], a.ins[IN_EM][e],
+                    a.ins[IN_MASK][e], sign, force == sign ? lpi : 0.0f,
+                    force == -sign ? lpi : 0.0f, a.ins[IN_V0][e],
+                    a.ins[IN_V1][e], a.ins[IN_V2][e], o);
+    a.outs[OUT_V0][e] = o[0];
+    a.outs[OUT_V1][e] = o[1];
+    a.outs[OUT_V2][e] = o[2];
+  }
+}
+
 extern "C" {
 
-// cols: the 10 f32[E] inputs u, eta_in, em, mask, eta_state, sign, force,
-// v0, v1, v2; outs: the 4 f32[E] outputs eta, nv0, nv1, nv2. ev, ec:
-// i32[E]; the CSR tables as in FGBatch. scratch: f32[2, n_vars] for the
-// variables' sums, or null to keep them in 8 * max_inst_vars bytes of
-// shared memory. group: G of the chained pass's var walk (a power of two
-// from 4 to 32), whose order the variable sums take; heavy: a variable
-// may hold PDP_HEAVY_ITERS * G edges or more (else no CTA looks for one).
-// login: u holds log u (p-nd-np's adaptors). Returns cudaGetLastError(),
-// or -1 for a group that is not such a power of two.
-int pdp_sp_sweep(const void* const* cols, float* const* outs, const int* ev,
-                 const int* ec, const int* clause_ptr, const int* var_ptr,
-                 const int* var_perm, const int* inst_clause_ptr,
-                 const int* inst_var_ptr, int n_inst, int n_vars,
-                 int max_inst_vars, int e_real, int e_total, float* scratch,
-                 int group, int heavy, float pi, int login, void* stream) {
-  int shift = 2;
-  while (shift < 5 && (1 << shift) < group) ++shift;
-  if ((1 << shift) != group) return -1;
-  SweepArgs a;
-  a.g_shift = shift;
-  a.heavy = heavy;
-  const float* const* in = reinterpret_cast<const float* const*>(cols);
-  a.u = in[0];
-  a.eta_in = in[1];
-  a.em = in[2];
-  a.mask = in[3];
-  a.eta_state = in[4];
-  a.sign = in[5];
-  a.force = in[6];
-  a.v0 = in[7];
-  a.v1 = in[8];
-  a.v2 = in[9];
-  a.eta_out = outs[0];
-  a.nv0 = outs[1];
-  a.nv1 = outs[2];
-  a.nv2 = outs[3];
-  a.ev = ev;
-  a.ec = ec;
-  a.clause_ptr = clause_ptr;
-  a.var_ptr = var_ptr;
-  a.var_perm = var_perm;
-  a.inst_clause_ptr = inst_clause_ptr;
-  a.inst_var_ptr = inst_var_ptr;
-  const bool in_smem = scratch == nullptr;
-  a.scratch = scratch;
-  a.n_inst = n_inst;
-  a.n_vars = n_vars;
-  a.e_real = e_real;
-  a.e_total = e_total;
-  a.pi = pi;
-  const int n_pad = e_real < e_total
-                        ? (e_total - e_real + PDP_SWEEP_PAD_CHUNK - 1) /
-                              PDP_SWEEP_PAD_CHUNK
-                        : 0;
+// One sweep. Returns the launch's error, or -1 for a group that is not a
+// power of two from 4 to 32, a cluster that is not one from 1 to
+// PDP_CLUSTER_MAX, or heavy without the pieces' scratch.
+int pdp_sp_sweep(const SweepArgs* a) {
+  const int g = a->group, cs = a->cluster;
+  if (g < 4 || g > 32 || (g & (g - 1)) || cs < 1 || cs > PDP_CLUSTER_MAX ||
+      (cs & (cs - 1)) || (a->heavy && !a->pieces))
+    return -1;
+  const int n_pad = (a->e_total - a->e_real + PDP_SWEEP_PAD_CHUNK - 1) /
+                    PDP_SWEEP_PAD_CHUNK;
+  const int n_clusters = a->n_inst + (n_pad + cs - 1) / cs;
   const size_t smem =
-      (size_t)(in_smem ? 2 * (max_inst_vars > 2 ? max_inst_vars : 2) : 3) *
+      (3 * PDP_SWEEP_TILE_E +
+       (a->sums ? 0 : 2 * (a->max_inst_vars > 1 ? a->max_inst_vars : 1))) *
       sizeof(float);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_inst + n_pad > 0) {
-    if (login)
-      sp_sweep_kernel<true><<<n_inst + n_pad, PDP_THREADS, smem, st>>>(a);
-    else
-      sp_sweep_kernel<false><<<n_inst + n_pad, PDP_THREADS, smem, st>>>(a);
+  if (n_clusters > 0) {
+    const cudaError_t err = launch_clusters(
+        a->login ? &sp_sweep_kernel<true> : &sp_sweep_kernel<false>,
+        n_clusters, cs, smem, static_cast<cudaStream_t>(a->stream), *a);
+    if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
 }

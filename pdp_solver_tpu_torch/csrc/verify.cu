@@ -17,78 +17,112 @@
 // and its IWIN instance window are layout answers for the TPU and are not
 // carried over.
 //
-// Design: one CTA per instance. The masks of an instance's edges need its
-// verdict, and the packed layout keeps an instance's clauses and edges
-// contiguous (inst_clause_ptr, clause_ptr), so one CTA counts its clauses
-// (a clause's k edges on one thread, the clause's literal sum in edge
-// order as CnfChain takes it), reduces the two integer counts over the
-// block (no float atomics; an integer sum has one value in any order),
-// syncs, and writes its edges' masks. Padding edges [e_real, e_total)
-// belong to no instance: CTAs after the instances take
-// PDP_VERIFY_PAD_CHUNK of them each and recompute the verdict of the
+// Design: a thread-block cluster of cs CTAs per instance (common.cuh). The
+// masks of an instance's edges need its verdict, and the packed layout keeps
+// an instance's clauses and edges contiguous (inst_clause_ptr, clause_ptr).
+// Each CTA of the cluster counts its share of the instance's clauses: a
+// clause's k edges on one thread, its literal sum in edge order as CnfChain
+// takes it, and the em of those edges on the way (it needs no verdict, and
+// the thread has just read their variables and masks, so the prediction and
+// av are gathered side by side; staging the instance's predictions in shared
+// memory first was 0.4-0.6 us slower on the H100, one more dependent step).
+// The CTA reduces its two integer counts over the block and writes them into
+// its slot of every CTA's table (distributed shared memory; no float
+// atomics, and an integer sum has one value in any order). After the cluster
+// barrier every CTA adds the table, rank 0 writes the verdict, and each CTA
+// writes the ae of the edges of its clauses. Padding edges [e_real, e_total)
+// belong to no instance: clusters after the instances' take
+// PDP_VERIFY_PAD_CHUNK of them a CTA, and each such cluster counts the
 // instance their variable belongs to (the last real one, by the packing
 // contract; another instance is counted on the spot by one thread).
 //
 // Bound on the H100 at the shared-set shapes (E = 524,288 padded / 460,800
-// real edges, V = 16,384, F = 131,072, B = 128): edge_var, edge_clause,
-// sign and edge_mask read (8.4 MB; edge_clause only for em), em and ae
-// written (4.2 MB), the V- and F-length flags (~1.8 MB): ~12-14 MB, about
-// 4 us at 3.35 TB/s, a few operations an edge. Bound by bytes; 128 CTAs
-// walking ~3,600 edges each through dependent gathers of p[var] make it
-// latency-bound in practice, as the SP sweep is.
+// real edges, V = 16,384, F = 131,072, B = 128): edge_var, sign and
+// edge_mask read (6.3 MB; edge_clause only on padding edges), em and ae
+// written (4.2 MB), the V- and F-length flags (~1.8 MB): ~12 MB, about 4 us
+// at 3.35 TB/s, a few operations an edge. Bound by bytes; one CTA an
+// instance walked ~3,600 edges a CTA through dependent gathers of p[var]
+// (latency-bound: 24 us in p-nd-np's loop, where the inputs come from
+// device memory); the cluster cuts each CTA's share by cs and fills the
+// card with B * cs CTAs.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 
-#define PDP_VERIFY_PAD_CHUNK 4096
+namespace cg = cooperative_groups;
 
+#define PDP_VERIFY_PAD_CHUNK 512
+
+// One call's arguments, filled once per batch plan by ops/verify.py and
+// passed by pointer (the field order matches its ctypes Structure); the
+// kernel takes a copy by value. f32 inputs: pred[V] (the prediction's
+// column), sign[E], edge_mask[E], av[V], ac[F], cm[F] (the real-clause
+// flags), active[B]; i32 ev, ec [E], clause_ptr [F + 1], inst_clause_ptr
+// [B + 1]; i64 var_batch [V]. Outputs: solved, unsat f32[B]; em, ae f32[E].
+// n_inst: the instances launched, a prefix of the n_rows = B rows (the
+// real ones); the rows after them, instances with no clause, are solved.
+// cluster: CTAs an instance.
 struct VerifyArgs {
-  const float *pred, *sign, *edge_mask, *av, *ac, *cm, *active;
-  const int* ev;                // edge -> variable
-  const int* ec;                // edge -> clause
-  const int* clause_ptr;        // [F + 1]
-  const int* inst_clause_ptr;   // [B + 1]
-  const long long* var_batch;   // [V] variable -> instance
-  float *solved, *unsat, *em, *ae;
-  int n_inst, e_real, e_total;
+  const float* pred;
+  const float* sign;
+  const float* edge_mask;
+  const float* av;
+  const float* ac;
+  const float* cm;
+  const float* active;
+  const int* ev;
+  const int* ec;
+  const int* clause_ptr;
+  const int* inst_clause_ptr;
+  const long long* var_batch;
+  float* solved;
+  float* unsat;
+  float* em;
+  float* ae;
+  int n_inst;
+  int n_rows;
+  int e_real;
+  int e_total;
+  int cluster;
+  void* stream;
 };
 
-// 1 if clause c is satisfied under the prediction (CnfChain f1/f2: the
-// flags of its live literals summed in edge order, then > 0)
-__device__ __forceinline__ bool clause_sat(const VerifyArgs& a, int c) {
+// clause c's literal sum (CnfChain f1/f2: the flags of its live literals
+// summed in edge order); with EM also the em of its edges (EmAe's product:
+// ec[e] is c on them)
+template <bool EM>
+__device__ __forceinline__ float clause_lits(const VerifyArgs& a, int c) {
   float s = 0.0f;
   const int e1 = a.clause_ptr[c + 1];
+  const float ac = EM ? a.ac[c] : 0.0f;
   for (int e = a.clause_ptr[c]; e < e1; ++e) {
-    const float sign = a.sign[e];
-    const float lit = sign * a.pred[a.ev[e]] + (1.0f - sign) / 2.0f;
-    s += flag(lit > 0.5f) * a.edge_mask[e];
+    const int v = a.ev[e];
+    const float sign = a.sign[e], mask = a.edge_mask[e];
+    const float lit = sign * a.pred[v] + (1.0f - sign) / 2.0f;
+    s += flag(lit > 0.5f) * mask;
+    if (EM) a.em[e] = a.av[v] * ac * mask;
   }
-  return s > 0.0f;
+  return s;
 }
 
-// one thread's share of instance b's (max_sat, got_sat), clauses strided
-// by `step` from `first`
-__device__ __forceinline__ void count_clauses(const VerifyArgs& a, int b,
-                                              int first, int step, int* mx,
+// one thread's share of (max_sat, got_sat) over clauses [c, c1) strided by
+// `step` (with EM, the em of their edges too)
+template <bool EM>
+__device__ __forceinline__ void count_clauses(const VerifyArgs& a, int c,
+                                              int c1, int step, int* mx,
                                               int* got) {
   int m = 0, g = 0;
-  const int c1 = a.inst_clause_ptr[b + 1];
-  for (int c = a.inst_clause_ptr[b] + first; c < c1; c += step) {
+  for (; c < c1; c += step) {
+    const float s = clause_lits<EM>(a, c);
     if (a.cm[c] != 0.0f) {
       ++m;
-      g += clause_sat(a, c) ? 1 : 0;
+      g += s > 0.0f ? 1 : 0;
     }
   }
   *mx = m;
   *got = g;
-}
-
-// instance b's new active flag from its counts (its verdict written by the
-// instance's own CTA only)
-__device__ __forceinline__ float frozen_flag(const VerifyArgs& a, int b,
-                                             int mx, int got) {
-  return a.active[b] * flag(mx != got);
 }
 
 // the block-wide sum of (mx, got); every thread gets the totals
@@ -106,7 +140,7 @@ __device__ __forceinline__ void block_counts(int* mx, int* got) {
   }
   __syncthreads();
   m = g = 0;
-  for (int w = 0; w < (int)(blockDim.x / 32); ++w) {
+  for (int w = 0; w < PDP_THREADS / 32; ++w) {
     m += sh[0][w];
     g += sh[1][w];
   }
@@ -114,92 +148,110 @@ __device__ __forceinline__ void block_counts(int* mx, int* got) {
   *got = g;
 }
 
-__device__ __forceinline__ void write_em(const VerifyArgs& a, int e) {
-  a.em[e] = a.av[a.ev[e]] * a.ac[a.ec[e]] * a.edge_mask[e];
-}
-
-__global__ void verify_kernel(VerifyArgs a) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  int mx, got;
-  if ((int)blockIdx.x < a.n_inst) {
-    const int b = blockIdx.x;
-    count_clauses(a, b, tid, nt, &mx, &got);
-    block_counts(&mx, &got);
-    if (tid == 0) {
-      a.solved[b] = flag(mx == got);
-      a.unsat[b] = (float)(mx - got);
+__global__ void __launch_bounds__(PDP_THREADS) verify_kernel(VerifyArgs a) {
+  __shared__ int table[PDP_CLUSTER_MAX][2];  // each CTA's (mx, got)
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int q = (int)blockIdx.x / cs;  // the instance, or a padding cluster
+  if (blockIdx.x == 0)
+    for (int r = a.n_inst + (int)threadIdx.x; r < a.n_rows; r += PDP_THREADS) {
+      a.solved[r] = 1.0f;
+      a.unsat[r] = 0.0f;
     }
-    const float act = frozen_flag(a, b, mx, got);
-    const int c0 = a.inst_clause_ptr[b], c1 = a.inst_clause_ptr[b + 1];
-    const int e1 = a.clause_ptr[c1];
-    for (int e = a.clause_ptr[c0] + tid; e < e1; e += nt) {
-      write_em(a, e);
-      a.ae[e] = act;
+  // b: the instance counted; [ea, eb): the edges this CTA writes
+  int b, ea, eb;
+  const bool pad = q >= a.n_inst;  // every CTA of the cluster alike
+  if (pad) {
+    b = (int)a.var_batch[a.ev[a.e_real]];
+    ea = a.e_real + ((q - a.n_inst) * cs + rank) * PDP_VERIFY_PAD_CHUNK;
+    eb = min(a.e_total, ea + PDP_VERIFY_PAD_CHUNK);
+  } else {
+    b = q;
+  }
+  const int c0 = a.inst_clause_ptr[b], nc = a.inst_clause_ptr[b + 1] - c0;
+  if (!pad && nc == 0) {  // an instance with no clause (a padding row)
+    if (rank == 0 && threadIdx.x == 0) {
+      a.solved[b] = 1.0f;
+      a.unsat[b] = 0.0f;
     }
     return;
   }
-  // padding edges: the verdict of the instance of their variable
-  const int e0 =
-      a.e_real + ((int)blockIdx.x - a.n_inst) * PDP_VERIFY_PAD_CHUNK;
-  const int e1 = min(a.e_total, e0 + PDP_VERIFY_PAD_CHUNK);
-  const int b_last = (int)a.var_batch[a.ev[a.e_real]];
-  count_clauses(a, b_last, tid, nt, &mx, &got);
+  cluster_arrive_relaxed();
+  const int ca = c0 + cluster_share(nc, rank, cs);
+  const int cb = c0 + cluster_share(nc, rank + 1, cs);
+  if (!pad) {
+    ea = a.clause_ptr[ca];
+    eb = a.clause_ptr[cb];
+  }
+  // the count, and the em of the instance's edges on the way (pad
+  // clusters count the instance of their edges and write the em of their
+  // own edges below)
+  int mx, got;
+  if (pad)
+    count_clauses<false>(a, ca + (int)threadIdx.x, cb, PDP_THREADS, &mx,
+                         &got);
+  else
+    count_clauses<true>(a, ca + (int)threadIdx.x, cb, PDP_THREADS, &mx,
+                        &got);
   block_counts(&mx, &got);
-  const float act_last = frozen_flag(a, b_last, mx, got);
-  for (int e = e0 + tid; e < e1; e += nt) {
-    write_em(a, e);
-    const int b = (int)a.var_batch[a.ev[e]];
-    float act = act_last;
-    if (b != b_last) {
+  cluster_wait();
+  if (threadIdx.x < cs) {
+    int* slot = cluster.map_shared_rank(&table[rank][0], threadIdx.x);
+    slot[0] = mx;
+    slot[1] = got;
+  }
+  cluster_arrive();
+  if (pad) {  // em needs no verdict: written before the wait
+    for (int e = ea + (int)threadIdx.x; e < eb; e += PDP_THREADS)
+      a.em[e] = a.av[a.ev[e]] * a.ac[a.ec[e]] * a.edge_mask[e];
+  }
+  cluster_wait();
+  mx = got = 0;
+  for (int r = 0; r < cs; ++r) {
+    mx += table[r][0];
+    got += table[r][1];
+  }
+  if (!pad && rank == 0 && threadIdx.x == 0) {
+    a.solved[b] = flag(mx == got);
+    a.unsat[b] = (float)(mx - got);
+  }
+  const float act = a.active[b] * flag(mx != got);
+  if (!pad) {
+    for (int e = ea + (int)threadIdx.x; e < eb; e += PDP_THREADS)
+      a.ae[e] = act;
+    return;
+  }
+  const int v_last = a.ev[a.e_real];
+  for (int e = ea + (int)threadIdx.x; e < eb; e += PDP_THREADS) {
+    const int v = a.ev[e];
+    float ae = act;
+    const int b2 = v == v_last ? b : (int)a.var_batch[v];
+    if (b2 != b) {
       int m, g;
-      count_clauses(a, b, 0, 1, &m, &g);
-      act = frozen_flag(a, b, m, g);
+      count_clauses<false>(a, a.inst_clause_ptr[b2],
+                           a.inst_clause_ptr[b2 + 1], 1, &m, &g);
+      ae = a.active[b2] * flag(m != g);
     }
-    a.ae[e] = act;
+    a.ae[e] = ae;
   }
 }
 
 extern "C" {
 
-// f32 inputs: pred[V] (the prediction's column), sign[E], edge_mask[E],
-// av[V], ac[F], cm[F] (the real-clause flags), active[B]; i32 ev, ec [E],
-// clause_ptr [F + 1], inst_clause_ptr [B + 1]; i64 var_batch [V]. Outputs:
-// solved, unsat f32[B]; em, ae f32[E]. Returns cudaGetLastError().
-int pdp_verify_and_masks(const float* pred, const float* sign,
-                         const float* edge_mask, const float* av,
-                         const float* ac, const float* cm,
-                         const float* active, const int* ev, const int* ec,
-                         const int* clause_ptr, const int* inst_clause_ptr,
-                         const long long* var_batch, float* solved,
-                         float* unsat, float* em, float* ae, int n_inst,
-                         int e_real, int e_total, void* stream) {
-  VerifyArgs a;
-  a.pred = pred;
-  a.sign = sign;
-  a.edge_mask = edge_mask;
-  a.av = av;
-  a.ac = ac;
-  a.cm = cm;
-  a.active = active;
-  a.ev = ev;
-  a.ec = ec;
-  a.clause_ptr = clause_ptr;
-  a.inst_clause_ptr = inst_clause_ptr;
-  a.var_batch = var_batch;
-  a.solved = solved;
-  a.unsat = unsat;
-  a.em = em;
-  a.ae = ae;
-  a.n_inst = n_inst;
-  a.e_real = e_real;
-  a.e_total = e_total;
-  const int n_pad = e_real < e_total
-                        ? (e_total - e_real + PDP_VERIFY_PAD_CHUNK - 1) /
-                              PDP_VERIFY_PAD_CHUNK
-                        : 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_inst + n_pad > 0)
-    verify_kernel<<<n_inst + n_pad, PDP_THREADS, 0, st>>>(a);
+// One call. Returns the launch's error, or -1 for a cluster that is not a
+// power of two from 1 to PDP_CLUSTER_MAX.
+int pdp_verify_and_masks(const VerifyArgs* a) {
+  const int cs = a->cluster;
+  if (cs < 1 || cs > PDP_CLUSTER_MAX || (cs & (cs - 1))) return -1;
+  const int n_pad = (a->e_total - a->e_real + PDP_VERIFY_PAD_CHUNK - 1) /
+                    PDP_VERIFY_PAD_CHUNK;
+  const int n_clusters = a->n_inst + (n_pad + cs - 1) / cs;
+  if (n_clusters > 0) {
+    const cudaError_t err =
+        launch_clusters(&verify_kernel, n_clusters, cs, 0,
+                        static_cast<cudaStream_t>(a->stream), *a);
+    if (err != cudaSuccess) return (int)err;
+  }
   return (int)cudaGetLastError();
 }
 

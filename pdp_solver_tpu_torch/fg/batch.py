@@ -29,6 +29,9 @@ Added for the CUDA kernels (built once at pack time, int32):
   var_max_degree /    the largest number of real edges of one variable /
   clause_max_degree   clause: the segment sums' group walk skips its
                       blocks for very high degree when no node needs them.
+  num_instances       the real instances (rows [0, n) of the B padded
+                      ones): the one-cluster-an-instance kernels size
+                      their clusters by it (ops/_build.py cluster_size).
 
 clause_width, fast_var, fast_clause and var_window are the JAX package's
 pack-time metadata, kept so the port takes the same paths (the WalkSAT
@@ -71,6 +74,7 @@ class FGBatch:
     num_real_edges: int
     num_real_clauses: int
     max_instance_vars: int
+    num_instances: int           # the real instances, rows [0, n) of B
     var_max_degree: int = None
     clause_max_degree: int = None
     clause_width: int = 0
@@ -269,4 +273,5 @@ def pack_instances(instances: Sequence[tuple], device="cuda",
         clause_width=clause_width,
         fast_var=fast_var,
         fast_clause=fast_clause,
-        var_window=var_window)
+        var_window=var_window,
+        num_instances=n_inst)

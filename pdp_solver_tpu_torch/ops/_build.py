@@ -49,9 +49,8 @@ _SIGNATURES = {
     "pdp_segment_sum_2d": (I, [P, I, P, P, I, P, P]),
     "pdp_gather_2d": (I, [P]),
     "pdp_segment_sum_cols": (I, [P]),
-    "pdp_sp_sweep": (I, [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P, I, I,
-                         ctypes.c_float, I, P]),
-    "pdp_verify_and_masks": (I, [P] * 16 + [I, I, I, P]),
+    "pdp_sp_sweep": (I, [P]),
+    "pdp_verify_and_masks": (I, [P]),
 }
 
 
@@ -61,6 +60,8 @@ MAX_COLS = 8      # PDP_RED_MAXC, reduce.cu
 GROUP_MIN, GROUP_MAX = 4, 32
 HEAVY_ITERS = 128  # PDP_HEAVY_ITERS, common.cuh
 WALK_MAXR = 8      # PDP_WALK_MAXR
+THREADS = 256      # PDP_THREADS
+CLUSTER_MAX = 16   # PDP_CLUSTER_MAX
 
 
 class FusedArgs(ctypes.Structure):
@@ -99,6 +100,54 @@ class SegSumArgs(ctypes.Structure):
                 ("ids", P), ("ids64", I), ("n_seg", I), ("n_slots", I),
                 ("group", I), ("heavy", I), ("out", P), ("partials", P),
                 ("counters", P), ("stream", P)]
+
+
+class SweepArgs(ctypes.Structure):
+    """csrc/sp_sweep.cu SweepArgs, field for field."""
+    _fields_ = [("ins", P * MAX_IN), ("outs", P * MAX_EOUT), ("ev", P),
+                ("ec", P), ("clause_ptr", P), ("var_ptr", P),
+                ("var_perm", P), ("inst_clause_ptr", P),
+                ("inst_var_ptr", P), ("sums", P), ("pieces", P),
+                ("n_inst", I), ("n_vars", I), ("max_inst_vars", I),
+                ("e_real", I), ("e_total", I), ("group", I), ("heavy", I),
+                ("cluster", I), ("login", I), ("pi", ctypes.c_float),
+                ("stream", P)]
+
+
+class VerifyArgs(ctypes.Structure):
+    """csrc/verify.cu VerifyArgs, field for field."""
+    _fields_ = [("pred", P), ("sign", P), ("edge_mask", P), ("av", P),
+                ("ac", P), ("cm", P), ("active", P), ("ev", P), ("ec", P),
+                ("clause_ptr", P), ("inst_clause_ptr", P),
+                ("var_batch", P), ("solved", P), ("unsat", P), ("em", P),
+                ("ae", P), ("n_inst", I), ("n_rows", I), ("e_real", I),
+                ("e_total", I), ("cluster", I), ("stream", P)]
+
+
+def cluster_size(batch, sms, min_share=THREADS):
+    """CTAs a cluster for the kernels that run one thread-block cluster an
+    instance (kernels 9 and 10, csrc/common.cuh): the least power of two
+    that gives the batch's n real instances at least two CTAs an SM (n *
+    cs >= 2 * sms), at most CLUSTER_MAX, then halved while a CTA's share
+    of an instance's mean edge count would be under min_share edges.
+    Kernel 9 (~40 operations and 14 columns an edge) takes one edge a
+    thread, kernel 10 (a few operations and columns an edge) two: on an
+    H100's 132 SMs the shared set (128 instances of 3,600 edges) takes 4
+    for both, a compacted batch of 8 such instances 8 and 4, one instance
+    of 190,000 edges 16."""
+    b = max(batch.num_instances, 1)
+    cs = 1
+    while cs < CLUSTER_MAX and b * cs < 2 * sms:
+        cs *= 2
+    mean_edges = batch.num_real_edges / b
+    while cs > 1 and mean_edges / cs < min_share:
+        cs //= 2
+    return cs
+
+
+def device_sms(device):
+    """The card's SM count (cluster_size's sms)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def group_width(n_slots, n_seg):
@@ -257,10 +306,3 @@ def fn_id(name, meta):
 def check(rc, what):
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
-
-
-def ptr_array(tensors):
-    """A C array of the tensors' device pointers (kept alive by the
-    caller for the duration of the call)."""
-    arr = (P * max(len(tensors), 1))(*[t.data_ptr() for t in tensors])
-    return ctypes.cast(arr, P), arr

@@ -48,7 +48,7 @@ from pdp_solver_tpu_torch.ops.reduce2d import _device
 
 F32 = torch.float32
 MAX_COLS = _build.MAX_COLS
-THREADS = 256        # PDP_THREADS, the threads of a block
+THREADS = _build.THREADS  # PDP_THREADS, the threads of a block
 
 
 def _check_csr(name, ptr, perm, num_segments, num_real):

@@ -14,10 +14,14 @@ verify_and_masks(batch, problem, active_b, var_pred)
     every edge, padding edges included.
 
 The wrapper runs its plain version (`verify_and_masks_plain`) when the
-batch lies on the CPU and launches the CUDA kernel (`csrc/verify.cu`, one
-CTA per instance) when it lies on the card, or raises. Launches are
-counted in `verify_and_masks.launches`.
+batch lies on the CPU and launches the CUDA kernel (`csrc/verify.cu`, a
+thread-block cluster of `_build.cluster_size` CTAs per instance)
+when it lies on the card, or raises. A plan per batch holds the kernel's
+argument block and its cluster size. Launches are counted in
+`verify_and_masks.launches`.
 """
+
+import ctypes
 
 import torch
 
@@ -57,6 +61,49 @@ def verify_and_masks_plain(batch, active_vars, active_clauses, active_b,
     return solved, counts[0] - counts[1], em, ae
 
 
+class _Plan:
+    """Kernel 10 on one batch: the inputs' sizes and, on the card, the
+    kernel's argument block with everything that does not change from
+    call to call (the batch's pointers and counts, the cluster size)."""
+
+    def __init__(self, batch):
+        self.device = batch.device
+        self.sizes = (batch.num_vars, batch.num_clauses, batch.batch_size,
+                      batch.num_edges)
+        self.args = None
+        if self.device.type != "cuda":
+            return
+        a = _build.VerifyArgs()
+        a.sign = batch.edge_sign.data_ptr()
+        a.edge_mask = batch.edge_mask.data_ptr()
+        a.cm = batch.clause_mask.data_ptr()
+        a.ev = batch.edge_var32.data_ptr()
+        a.ec = batch.edge_clause32.data_ptr()
+        a.clause_ptr = batch.clause_ptr.data_ptr()
+        a.inst_clause_ptr = batch.inst_clause_ptr.data_ptr()
+        a.var_batch = batch.var_batch.data_ptr()
+        # clusters for the real instances only (a prefix of the rows)
+        a.n_inst = batch.num_instances
+        a.n_rows = batch.batch_size
+        a.e_real, a.e_total = batch.num_real_edges, batch.num_edges
+        a.cluster = _build.cluster_size(
+            batch, _build.device_sms(self.device), 2 * _build.THREADS)
+        self.args = a
+        self.ref = ctypes.byref(a)
+        self.call = _build.library().pdp_verify_and_masks
+        self.stream = _build.stream_fn(self.device)
+
+
+_PLANS = _build.PlanCache()
+
+
+def _plan(batch):
+    if batch.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"verify_and_masks: unsupported device "
+                         f"{batch.device}")
+    return _PLANS.get((batch,), None, _Plan, batch)
+
+
 def _check(name, x, n, batch):
     if x.shape != (n,) or x.dtype != torch.float32:
         raise ValueError(f"verify_and_masks: {name} must be f32[{n}], got "
@@ -69,8 +116,8 @@ def _check(name, x, n, batch):
 def verify_and_masks(batch, problem, active_b, var_pred):
     """One launch: (solved, unsat, em, ae); see the module docstring.
     var_pred: f32[V, 1]."""
-    V, F, B, E = (batch.num_vars, batch.num_clauses, batch.batch_size,
-                  batch.num_edges)
+    plan = _plan(batch)
+    V, F, B, E = plan.sizes
     if var_pred.shape != (V, 1):
         raise ValueError(f"verify_and_masks: var_pred must be [{V}, 1], got "
                          f"{tuple(var_pred.shape)}")
@@ -80,30 +127,26 @@ def verify_and_masks(batch, problem, active_b, var_pred):
            ("active_b", active_b, B))
     for name, x, n in ins:
         _check(name, x, n, batch)
-    if batch.device.type == "cpu":
+    a = plan.args
+    if a is None:
         return verify_and_masks_plain(batch, problem.active_vars,
                                       problem.active_clauses, active_b, pred)
-    if batch.device.type != "cuda":
-        raise ValueError(f"verify_and_masks: unsupported device "
-                         f"{batch.device}")
-    dev = batch.device
-    pred, av, ac, act = (x.contiguous() for _, x, _ in ins)
-    solved, unsat = (torch.empty(B, dtype=torch.float32, device=dev)
-                     for _ in range(2))
-    em, ae = (torch.empty(E, dtype=torch.float32, device=dev)
-              for _ in range(2))
-    rc = _build.library().pdp_verify_and_masks(
-        pred.data_ptr(), batch.edge_sign.data_ptr(),
-        batch.edge_mask.data_ptr(), av.data_ptr(), ac.data_ptr(),
-        batch.clause_mask.data_ptr(), act.data_ptr(),
-        batch.edge_var32.data_ptr(), batch.edge_clause32.data_ptr(),
-        batch.clause_ptr.data_ptr(), batch.inst_clause_ptr.data_ptr(),
-        batch.var_batch.data_ptr(), solved.data_ptr(), unsat.data_ptr(),
-        em.data_ptr(), ae.data_ptr(), B, batch.num_real_edges, E,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "verify_and_masks")
+    pred, av, ac, act = (x if x.is_contiguous() else x.contiguous()
+                         for _, x, _ in ins)
+    a.pred, a.av = pred.data_ptr(), av.data_ptr()
+    a.ac, a.active = ac.data_ptr(), act.data_ptr()
+    # (solved, unsat) and (em, ae) are the rows of two allocations
+    out_b, out_e = pred.new_empty((2, B)), pred.new_empty((2, E))
+    a.solved = out_b.data_ptr()
+    a.unsat = a.solved + 4 * B
+    a.em = out_e.data_ptr()
+    a.ae = a.em + 4 * E
+    a.stream = plan.stream()
+    rc = plan.call(plan.ref)
+    if rc:
+        _build.check(rc, "verify_and_masks")
     verify_and_masks.launches += 1
-    return solved, unsat, em, ae
+    return (*out_b.unbind(), *out_e.unbind())
 
 
 verify_and_masks.launches = 0

@@ -1,7 +1,8 @@
 """Times the CSR segment sum (kernels 4, 5, 8), the fused and chained edge
-passes (kernels 1, 2), the one-launch SP sweep (kernel 9) and the [E, d]
-gather (kernel 7) on one CUDA card, beside the PyTorch call for the same
-function where there is one.
+passes (kernels 1, 2), WalkSAT (kernel 3), the one-launch SP sweep (kernel
+9), the verification with masks (kernel 10) and the [E, d] gather (kernel
+7) on one CUDA card, beside the PyTorch call for the same function where
+there is one.
 
     python pdp_solver_tpu_torch/utils/bench_kernels.py [--label NAME]
         [--only STRING ...]
@@ -17,7 +18,9 @@ last run holds the 63,488 padding edges), it gives for each form:
   device_us device us / call, the profiler's kernel times over 500 calls
             (and by kernel name).
 The forms: "chained_edge_pass[name]" for the five chained functors;
-"sp_full_sweep[pi 0]", "[pi 0.01]" and "[login]"; "gather_2d" and
+"sp_full_sweep[pi 0]", "[pi 0.01]" and "[login]"; "verify_and_masks"
+and "verify split" (the split path it replaces: cnf_evaluate, the freeze,
+edge_masks_pair); "walksat_block" (K = 8, eps 0.5); "gather_2d" and
 "gather_2d minus" at np-nd-np's width (d = 50) with i64 ids, the same
 with " i32" ids (`edge_var32`), and "index_select", the gather's PyTorch
 call. --only keeps the forms whose names contain one of the strings
@@ -101,17 +104,23 @@ def timed(fn, reps=50):
             "device_us": dev, "device_kernels": by}
 
 
-def hub_batch(degree=63488, n=300, k=3, seed=5):
-    """One instance whose variable 0 sits in every one of its `degree`
-    clauses: a var CSR with one node of `degree` edges."""
-    from pdp_solver_tpu_torch.fg.batch import pack_instances
+def hub_instance(degree=63488, n=300, k=3, seed=5):
+    """One instance (n, m, graph map, signs, label) whose variable 0 sits
+    in every one of its `degree` clauses."""
     rng = np.random.default_rng(seed)
     v = rng.integers(1, n, size=(degree, k))
     v[:, 0] = 0
     ec = np.repeat(np.arange(degree), k)
     signs = rng.choice([-1.0, 1.0], degree * k).astype(np.float32)
-    return pack_instances([(n, degree, np.stack(
-        [v.reshape(-1), ec]).astype(np.int32), signs, -1.0)], device="cuda")
+    return (n, degree, np.stack([v.reshape(-1), ec]).astype(np.int32), signs,
+            -1.0)
+
+
+def hub_batch(**kw):
+    """hub_instance packed on the card: a var CSR with one node of
+    `degree` edges."""
+    from pdp_solver_tpu_torch.fg.batch import pack_instances
+    return pack_instances([hub_instance(**kw)], device="cuda")
 
 
 HIDDEN_AGG = 50     # np-nd-np's mem_agg_hidden_dim, the gather's width
@@ -159,6 +168,22 @@ def _sweep_inputs(batch, pi, login):
                        else torch.zeros(E, device="cuda")),
                 v0=v[:, 0].contiguous(), v1=v[:, 1].contiguous(),
                 v2=v[:, 2].contiguous())
+
+
+def _verify_inputs(batch):
+    """A problem state with some variables and clauses inactive, every
+    fourth instance stopped and a random prediction f32[V, 1]."""
+    from pdp_solver_tpu_torch.problem.state import init_problem_state
+    g = torch.Generator().manual_seed(9)
+    problem = init_problem_state(batch)
+    av = problem.active_vars * (
+        torch.rand(batch.num_vars, generator=g) > 0.1).float().cuda()
+    ac = problem.active_clauses * (
+        torch.rand(batch.num_clauses, generator=g) > 0.1).float().cuda()
+    act = batch.instance_mask.clone()
+    act[::4] = 0.0
+    pred = torch.rand(batch.num_vars, 1, generator=g).cuda()
+    return problem.replace(active_vars=av, active_clauses=ac), act, pred
 
 
 def bench_batch(batch, forms, only=None):
@@ -227,6 +252,35 @@ def bench_batch(batch, forms, only=None):
                                               **kw)
 
             lib = None
+        elif form.startswith("verify"):
+            # "verify_and_masks" (kernel 10), "verify split" (the split
+            # path it replaces)
+            from pdp_solver_tpu_torch.ops import verify
+            from pdp_solver_tpu_torch.problem.state import edge_masks_pair
+            from pdp_solver_tpu_torch.train.loss import cnf_evaluate
+            problem, act, pred = _verify_inputs(batch)
+            if form == "verify_and_masks":
+                def call():
+                    return verify.verify_and_masks(batch, problem, act, pred)
+            else:
+                def call():
+                    solved, _ = cnf_evaluate(batch, pred)
+                    return edge_masks_pair(
+                        batch, problem, act * (solved <= 0.5).float())
+            lib = None
+        elif form == "walksat_block":
+            from pdp_solver_tpu_torch.ops import walksat
+            problem, _, pred = _verify_inputs(batch)
+            av, ac = problem.active_vars, problem.active_clauses
+            assign = av * (pred[:, 0] > 0.5).float() * 2 - av
+            em = batch.edge_mask * av[batch.edge_var] * ac[batch.edge_clause]
+            econst = walksat.walksat_edge_constants(batch, av)
+
+            def call():
+                return walksat.walksat_block(
+                    assign, batch=batch, active_vars=av, active_clauses=ac,
+                    em=em, K=8, seed=5, eps=0.5, edge_constants=econst)
+            lib = None
         elif form.startswith(("gather_2d", "index_select")):
             # "gather_2d[ minus][ i32]", "index_select"
             nodes = torch.rand(batch.num_vars, HIDDEN_AGG, generator=g).cuda()
@@ -269,19 +323,21 @@ CHAINED_FORMS = tuple(f"chained_edge_pass[{name}]" for name in (
     "sp_chain", "sp_chain_login", "sround", "cnf_chain", "ws_chain"))
 SWEEP_FORMS = ("sp_full_sweep[pi 0]", "sp_full_sweep[pi 0.01]",
                "sp_full_sweep[login]")
+VERIFY_FORMS = ("verify_and_masks", "verify split")
 GATHER_FORMS = ("gather_2d", "gather_2d minus", "gather_2d i32",
                 "gather_2d minus i32", "index_select")
 SHARED_FORMS = ("segment_sum var C=2", "segment_sum_cols var C=1",
                 "segment_sum_cols clause C=1", "sorted_segment_sum real",
                 "fused_edge_pass[ae]", "fused_edge_pass[em]",
                 "fused_edge_pass[em_ae]", "fused_edge_pass[sp_pass_c]",
-                "fused_edge_pass[smax_scorer]", "fused_edge_pass[scorer]"
-                ) + CHAINED_FORMS + SWEEP_FORMS + GATHER_FORMS
+                "fused_edge_pass[smax_scorer]", "fused_edge_pass[scorer]",
+                "walksat_block") + CHAINED_FORMS + SWEEP_FORMS + VERIFY_FORMS \
+    + GATHER_FORMS
 COMPACTED_FORMS = ("segment_sum var C=2", "segment_sum_cols var C=1",
                    "segment_sum_cols clause C=1", "sorted_segment_sum real",
                    "fused_edge_pass[ae]", "fused_edge_pass[smax_scorer]",
-                   "fused_edge_pass[scorer]"
-                   ) + CHAINED_FORMS + SWEEP_FORMS + GATHER_FORMS
+                   "fused_edge_pass[scorer]") + CHAINED_FORMS + SWEEP_FORMS \
+    + VERIFY_FORMS + GATHER_FORMS
 
 
 def main(argv=None):
@@ -313,7 +369,8 @@ def main(argv=None):
                bench_batch(hub, ("segment_sum var C=2",
                                  "segment_sum_cols var C=1",
                                  "fused_edge_pass[smax_scorer]")
-                           + CHAINED_FORMS + SWEEP_FORMS, args.only),
+                           + CHAINED_FORMS + SWEEP_FORMS + VERIFY_FORMS,
+                           args.only),
                **bench_batch(shared, ("sorted_segment_sum all",),
                              args.only))}
     print(json.dumps(out), flush=True)

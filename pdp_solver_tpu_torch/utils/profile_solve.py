@@ -56,7 +56,9 @@ def own_kernel_names():
     names = set()
     for path in glob.glob(os.path.join(csrc, "*.cu")):
         with open(path) as f:
-            names |= set(re.findall(r"__global__ void (\w+)", f.read()))
+            names |= set(re.findall(
+                r"__global__ void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                r"(\w+)", f.read()))
     return names
 
 

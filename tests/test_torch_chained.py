@@ -270,7 +270,7 @@ def test_sweep_order_is_the_walks(batches, which):
 # --- the argument blocks and the plans ------------------------------------
 
 _CTYPES = {"int": ctypes.c_int, "float": ctypes.c_float,
-           "long": ctypes.c_long}
+           "long": ctypes.c_long, "long long": ctypes.c_longlong}
 
 
 def _c_struct(name):
@@ -287,8 +287,8 @@ def _c_struct(name):
         decl = decl.strip()
         if not decl:
             continue
-        m2 = re.match(r"(?:const )?(\w+)\s*(\*?)\s*(\w+)(?:\[(\w+)\])?$",
-                      decl)
+        m2 = re.match(r"(?:const )?(long long|\w+)\s*(\*?)\s*(\w+)"
+                      r"(?:\[(\w+)\])?$", decl)
         assert m2, decl
         base, star, field, count = m2.groups()
         t = _build.P if star else _CTYPES[base]
@@ -301,7 +301,7 @@ def _c_struct(name):
 
 
 @pytest.mark.parametrize("name", ["FusedArgs", "ChainedArgs", "GatherArgs",
-                                  "SegSumArgs"])
+                                  "SegSumArgs", "SweepArgs", "VerifyArgs"])
 def test_argument_blocks_match_the_c_structures(name):
     """Each ctypes Structure lists its C structure's fields in order, of
     the same size and type, so the kernel reads what the plan wrote."""

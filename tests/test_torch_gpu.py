@@ -12,7 +12,9 @@ floats (as the path's are) and the one-launch SP sweep (kernel 9) to rtol
 log-input sweep (kernel 9, login=True) also bit for bit against the two
 launches it replaces (`sp_chain_login`, `sp_pass_c`), and the verification
 with masks (kernel 10) exactly against its plain version and the split
-path, on every edge. The group walk of kernels 4, 5, 8 and of kernel 1's
+path, on every edge, on the planted shared-set shape, a compacted batch
+and the hub (one 63,488-edge variable); both run a thread-block cluster an
+instance. The group walk of kernels 4, 5, 8 and of kernel 1's
 var side (`csrc/common.cuh`) also bit for bit against its order emulated
 in PyTorch (`ops/reduce.py walk_order_sum`), with the same bits on two
 calls, on a compacted batch (8 instances), one instance and a variable of
@@ -348,10 +350,11 @@ def _walk_ref(x, batch, side):
 @pytest.mark.parametrize("C", [1, 2, 3, 4, 5, 6, 7, 8])
 def test_segment_sum_cols_walk(walk_batches, which, C):
     """Kernel 4 for C = 1..8 over the var and clause CSRs: exact on
-    integer columns, floats to rtol 1e-5 / atol 1e-6 of index_add_ and
-    bit for bit the walk's emulated order; the [E, C] stride form equal
-    to the column form; nodes with no edges 0; two calls the same bits,
-    with the pack-time largest degree and without it."""
+    integer columns, floats to rtol 1e-5 / atol 1e-6 of index_add_ (taken
+    in float64 on the hub's 63,488-edge node) and bit for bit the walk's
+    emulated order; the [E, C] stride form equal to the column form;
+    nodes with no edges 0; two calls the same bits, with the pack-time
+    largest degree and without it."""
     gpu = walk_batches[which]
     g = torch.Generator().manual_seed(C)
     E, e = gpu.num_edges, gpu.num_real_edges
@@ -365,6 +368,11 @@ def test_segment_sum_cols_walk(walk_batches, which, C):
                  None)):
             md = getattr(gpu, f"{side}_max_degree")
             ref = reduce.segment_sum_cols_plain(cols, ids, n, e)
+            if which == "hub" and not integer:
+                # a float32 index_add_ of 63,488 terms in atomic order is
+                # itself ~1e-5 off, and differs from run to run
+                ref = reduce.segment_sum_cols_plain(
+                    [c.double() for c in cols], ids, n, e).float()
             got = reduce.segment_sum_cols(cols, ids, n, e, ptr, perm,
                                           max_degree=md)
             again = reduce.segment_sum_cols(cols, ids, n, e, ptr, perm)
@@ -540,6 +548,69 @@ def test_sp_sweep_bit_equal_to_two_launches(walk_batches, which, case):
     for a, c in zip(got, (eta2,) + tuple(two)):
         assert bool(torch.isfinite(a).all())
         assert torch.equal(a, c)
+
+
+def _planted_hub(degree=63488, n=300, k=3, seed=5):
+    """_hub_batch's graph with signs that an assignment satisfies (an
+    unsatisfied clause gets the sign of its literal of variable 0
+    flipped), and that assignment (0/1)."""
+    rng = np.random.default_rng(seed)
+    v = rng.integers(1, n, size=(degree, k))
+    v[:, 0] = 0
+    x = rng.integers(0, 2, size=n)
+    s = rng.choice([-1, 1], size=(degree, k))
+    sat = ((s > 0) == (x[v] > 0)).any(1)
+    s[~sat, 0] *= -1
+    inst = (n, degree, np.stack([v.reshape(-1), np.repeat(
+        np.arange(degree), k)]).astype(np.int32),
+        s.reshape(-1).astype(np.float32), -1.0)
+    return pack_instances([inst], device="cuda"), [x.astype(np.float32)]
+
+
+@pytest.mark.parametrize("which", ["compacted", "hub"])
+def test_verify_and_masks_compacted_and_hub(which):
+    """Kernel 10 exactly against its plain version and the split path on a
+    compacted batch (8 planted instances of the shared set's shape, a
+    32,768-edge bucket, 4 of them solved) and on the hub (one planted
+    instance whose variable 0 has 63,488 edges, solved), with some
+    variables and clauses inactive and instance 0 already stopped."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(10)
+    if which == "compacted":
+        insts, xs = _planted(rng, 8, 100, 900, 4)
+        gpu = pack_instances(insts, device="cuda")
+        assert gpu.num_edges == 32768
+    else:
+        gpu, xs = _planted_hub()
+    assert verify.use_verify_masks(gpu)
+    pred = rng.uniform(size=gpu.num_vars).astype(np.float32)
+    off = 0
+    for b, x in enumerate(xs):
+        if b % 2 == 0:
+            pred[off:off + len(x)] = x
+        off += len(x)
+    p = torch.from_numpy(pred)[:, None].cuda()
+    problem = init_problem_state(gpu)
+    av, ac = problem.active_vars.clone(), problem.active_clauses.clone()
+    av[::7] = 0.0
+    ac[::5] = 0.0
+    problem = problem.replace(active_vars=av, active_clauses=ac)
+    act = gpu.instance_mask.clone()
+    act[0] = 0.0
+    got = verify.verify_and_masks(gpu, problem, act, p)
+    ref = verify.verify_and_masks_plain(gpu, av, ac, act, p[:, 0])
+    solved, unsat = cnf_evaluate(gpu, p)
+    split = (solved, unsat) + edge_masks_pair(
+        gpu, problem, act * (solved <= 0.5).float())
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("solved", "unsat", "em", "ae"), got, ref,
+                             split):
+        assert torch.equal(a, b), name
+        assert torch.equal(a, c), name
+    n = len(xs)
+    assert got[0][:n].tolist() == [float(b % 2 == 0) for b in range(n)]
+    assert gpu.num_edges > gpu.num_real_edges
 
 
 @pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64],
