@@ -9,9 +9,18 @@ Phases, one flushed line each with the elapsed seconds:
      version on the card, at the full shared-set shapes (128 instances of
      4-SAT, n=100, alpha=9: E=524,288 padded / 460,800 real edges,
      V=16,384). Flags and counts must match exactly, float sums to rtol
-     1e-5 / atol 1e-6 (the plain version sums in another order),
-     walksat_block bit for bit for eps=-1 and eps=0.5; each is then timed
-     (CUDA events) beside its plain version and its bound;
+     1e-5 / atol 1e-6 (the plain version sums in another order); each is
+     then timed (CUDA events) beside its plain version and its bound;
+     WalkSAT (kernel 3: walksat_walk, one launch for a whole walk) bit for
+     bit against its plain version for 1, 8 and 25 blocks of 8
+     iterations, eps -1 and 0.5, from a problem with some variables and
+     clauses inactive and from a random fill (every instance unsat), on
+     the shared set, a compacted batch (8 instances), the hub (one
+     variable in 63,488 clauses: its edges in global memory) and a large
+     banded instance (30,000 variables: its variables too), the one-block
+     and 25-block forms then timed three ways on each, their bounds
+     counting the operations of each instance's iterations up to its
+     stop (every clause in the first, the flipped variable's after);
      The [E, d] segment sum and gather of the neural modules (kernels 6
      and 7) are checked at the np-nd-np shapes (d = 50): the sum to rtol
      1e-5 / atol 1e-5 (the plain index_add_ on the card sums in atomic
@@ -120,7 +129,7 @@ MIN_SOLVED_P_ND_NP = 28
 # variable rows, so kernel 7's gather back to the edges is not on this
 # path, in the JAX package either), the verification, the masks, WalkSAT
 P_ND_NP_KERNELS = ("sp_chain_login", "sp_pass_c", "segment_sum_2d",
-                   "cnf_chain", "em_ae", "walksat_block")
+                   "cnf_chain", "em_ae", "walksat_walk")
 # solved counts of seeds 0-2 on an H100 before kernel 2's var phase took
 # the group walk's order (the same before and after kernels 1 and 4 took
 # it; utils/profile_solve.py --seeds 0 1 2)
@@ -242,7 +251,7 @@ def _flat(outs):
 
 
 def check_kernels(batch, torch, np):
-    from pdp_solver_tpu_torch.ops import fused, walksat
+    from pdp_solver_tpu_torch.ops import fused
     from pdp_solver_tpu_torch.utils.bench_kernels import timed
     rows = {}
     for fn in fused.FUSED_FNS + fused.CHAINED_FNS:
@@ -318,46 +327,165 @@ def check_kernels(batch, torch, np):
             f"{checks}; {timing_note(dict(extra, ms=ms))} (plain "
             f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms{lib})")
 
-    # walksat_block: bit for bit, greedy and seeded, K = 8 as on the path
-    g = torch.Generator().manual_seed(7)
-    av = batch.var_mask * (torch.rand(batch.num_vars, generator=g)
-                           > 0.1).float().cuda()
-    ac = batch.clause_mask * (torch.rand(batch.num_clauses, generator=g)
-                              > 0.2).float().cuda()
-    assign = av * (torch.randint(0, 2, (batch.num_vars,), generator=g)
-                   .float().cuda() * 2 - 1)
-    em = batch.edge_mask * av[batch.edge_var] * ac[batch.edge_clause]
-    kw = dict(batch=batch, active_vars=av, active_clauses=ac, em=em, K=8)
-    for eps, seed in ((-1.0, 11), (0.5, -123456789)):
-        a_ref, e_ref = walksat.walksat_block_plain(assign, seed=seed,
-                                                   eps=eps, **kw)
-        a_got, e_got = walksat.walksat_block(assign, seed=seed, eps=eps,
-                                             **kw)
-        torch.cuda.synchronize()
-        same = (np.array_equal(a_got.cpu().numpy().view(np.int32),
-                               a_ref.cpu().numpy().view(np.int32))
-                and torch.equal(e_got, e_ref))
-        require(same, f"walksat_block (eps={eps}): not bit-exact, "
-                f"{int((a_got != a_ref).sum())} variables and "
-                f"{int((e_got != e_ref).sum())} energies differ")
-        require(float(e_ref.sum()) > 0, "walksat check had nothing to flip")
-    econst = walksat.walksat_edge_constants(batch, av)
-    ms = cuda_ms(lambda: walksat.walksat_block(
-        assign, seed=5, eps=0.5, edge_constants=econst, **kw), reps=20)
-    plain_ms = cuda_ms(lambda: walksat.walksat_block_plain(
-        assign, seed=5, eps=0.5, edge_constants=econst, **kw), reps=3)
-    E, V, F, B = (batch.num_edges, batch.num_vars, batch.num_clauses,
-                  batch.batch_size)
-    nbytes = (4 * E + 2 * F + 5 * V + B) * 4   # w dm em ev | ac cb | ...
-    b_ms, b_by = bound_ms(nbytes, 8 * 10 * batch.num_real_edges)
-    rows["walksat_block"] = {
-        "name": "walksat_block", "route": "cuda",
-        "source": "pdp_solver_tpu_torch/csrc/walksat.cu",
-        "replaces": "pdp_solver_tpu/ops/pallas_walksat.py:285",
-        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-    log(f"kernel walksat_block: bit-exact (eps -1 and 0.5), {ms:.4f} ms "
-        f"per 8 iterations (plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms)")
+    return rows
+
+
+# the numbers of blocks each WalkSAT shape is checked at: one, the old
+# launch's 8 iterations a block run 8 times, and a 200-flip chunk
+WALK_BLOCKS = (1, 8, 25)
+# operations an edge of a clause and a variable of one WalkSAT iteration
+WALK_EDGE_OPS, WALK_VAR_OPS = 10, 20
+
+
+def walk_steps(walksat, batch, assign, kw, seeds, K, eps):
+    """The plain walk one iteration at a time (block j's iteration kk is
+    a one-iteration block salted seeds[j] + kk * 1000003): {blocks:
+    (assign, energy)} after each of WALK_BLOCKS; the iterations each row
+    runs in the kernel (up to and including the first whose entering
+    energy is not positive); and the operations those iterations need
+    a row. The clause phase of a row's first iteration takes every
+    clause; each later one takes only the clauses of the variable the
+    iteration before flipped (its real edges, times the clause width),
+    since no other clause changed. The selection takes every variable,
+    in the iterations that flip."""
+    import torch
+    dev = assign.device
+    ivp = batch.inst_var_ptr.long()
+    icp = batch.inst_clause_ptr.long()
+    var_deg = (batch.var_ptr[1:] - batch.var_ptr[:-1]).double()
+    vb = batch.var_batch.long()
+    k = batch.clause_width
+    every_clause = (WALK_EDGE_OPS * k * (icp[1:] - icp[:-1])).double()
+    select = (WALK_VAR_OPS * (ivp[1:] - ivp[:-1])).double()
+    B = batch.batch_size
+    snaps = {}
+    count = torch.zeros(B, dtype=torch.int64, device=dev)
+    ops = torch.zeros(B, dtype=torch.float64, device=dev)
+    entering = torch.ones(B, dtype=torch.bool, device=dev)
+    clause_ops = every_clause
+    a = assign
+    for j, seed in enumerate(seeds):
+        for kk in range(K):
+            a_next, e = walksat.walksat_block_plain(
+                a, K=1, seed=walksat.wrap32(seed + kk * 1000003), eps=eps,
+                **kw)
+            run = entering & (e > 0)
+            count += entering.long()
+            ops += entering.double() * clause_ops + run.double() * select
+            flipped = torch.zeros(B, dtype=torch.float64, device=dev)
+            flipped.index_add_(0, vb, var_deg * (a_next != a).double())
+            clause_ops = WALK_EDGE_OPS * k * flipped
+            entering = run
+            a = a_next
+        if j + 1 in WALK_BLOCKS:
+            snaps[j + 1] = (a, e)
+    return snaps, count, ops
+
+
+def walk_bound(batch, ops, n_blocks):
+    """bound_ms of one walk: its inputs read once (ev, w, dm, em a real
+    edge, ac a clause, assign and av a variable, seeds) and its outputs
+    written once (the assignment, the energies), or the operations
+    (walk_steps) its instances' live iterations need."""
+    V, F, E = (batch.num_vars, batch.num_real_clauses,
+               batch.num_real_edges)
+    nbytes = 16 * E + 4 * F + 12 * V + 4 * batch.batch_size + 4 * n_blocks
+    return bound_ms(nbytes, float(ops.sum()))
+
+
+def check_walksat(insts, torch, np):
+    """WalkSAT (kernel 3): one walksat_walk launch of 1, 8 and 25 blocks
+    of K = 8 bit for bit against its plain version (assignments as int32
+    views, energies exactly), greedy and eps 0.5, from two inputs (a
+    problem with some variables and clauses inactive and a random
+    prediction; a random fill of every variable, all active, every
+    instance unsat, as the WalkSAT phase starts) on four shapes: the
+    shared set, a compacted batch, the hub (one variable in 63,488
+    clauses: edges in global memory) and a large banded instance (30,000
+    variables: variables in global memory too). The one-block and
+    25-block forms are then timed three ways on each shape. Returns the
+    rows "walksat_block" (one block, shared set, the first input) and
+    "walksat_walk" (25 blocks, shared set, the fill)."""
+    from pdp_solver_tpu_torch.fg.batch import pack_instances
+    from pdp_solver_tpu_torch.ops import walksat
+    from pdp_solver_tpu_torch.utils.bench_kernels import (
+        WALK_SEEDS, hub_batch, large_instance, timed, walk_inputs)
+    K = 8
+    shapes = {"shared": pack_instances(insts, device="cuda"),
+              "compacted": pack_instances(insts[:8], device="cuda"),
+              "hub": hub_batch(),
+              "large": pack_instances([large_instance()], device="cuda")}
+    g = torch.Generator().manual_seed(13)
+    rows, cases = {}, {}
+    for label, b in shapes.items():
+        require(walksat.use_walksat_block(b), f"walksat: {label} is not "
+                "taken by the block rule")
+        shape = walksat.launch_shape(b)
+        n = b.num_instances
+        for fill in ("half", "unsat"):
+            assign, av, ac, em = walk_inputs(b, fill)
+            kw = dict(batch=b, active_vars=av, active_clauses=ac, em=em)
+            for eps in (-1.0, 0.5):
+                # the first seed: the one-block checks of earlier slices
+                first = 11 if eps < 0 else -123456789
+                seeds = [first] + [int(x) for x in torch.randint(
+                    -(1 << 31), 1 << 31, (WALK_BLOCKS[-1] - 1,),
+                    generator=g)]
+                snaps, _, _ = walk_steps(walksat, b, assign, kw, seeds,
+                                         K, eps)
+                for nb in WALK_BLOCKS:
+                    a_got, e_got = walksat.walksat_walk(
+                        assign, seeds=seeds[:nb], K=K, eps=eps, **kw)
+                    torch.cuda.synchronize()
+                    a_ref, e_ref = snaps[nb]
+                    same = (np.array_equal(
+                        a_got.cpu().numpy().view(np.int32),
+                        a_ref.cpu().numpy().view(np.int32))
+                        and torch.equal(e_got, e_ref))
+                    require(same, f"walksat_walk ({label}, {fill}, eps "
+                            f"{eps}, {nb} blocks): not bit-exact, "
+                            f"{int((a_got != a_ref).sum())} variables and "
+                            f"{int((e_got != e_ref).sum())} energies differ")
+                e_first = snaps[1][1][:n]
+                if fill == "unsat":
+                    _, e0 = walksat.walksat_block_plain(
+                        assign, K=1, seed=0, eps=eps, **kw)
+                    require(bool((e0[:n] > 0).all()), f"walksat ({label}):"
+                            " the fill left an instance satisfied")
+                require(float(e_first.sum()) > 0,
+                        f"walksat ({label}, {fill}) had nothing to flip")
+            # timing: eps 0.5, as the solver table's settings
+            econst = walksat.walksat_edge_constants(b, av)
+            tkw = dict(kw, K=K, eps=0.5, edge_constants=econst)
+            reps = dict(reps=5, host_reps=5) if n == 1 else {}
+            for form, seeds in (("block", [5]), ("walk", WALK_SEEDS)):
+                t = timed(lambda: walksat.walksat_walk(
+                    assign, seeds=seeds, **tkw), **reps)
+                _, live, ops = walk_steps(walksat, b, assign, kw, seeds,
+                                          K, 0.5)
+                b_ms, b_by = walk_bound(b, ops, len(seeds))
+                t.update(bound_ms=b_ms, bound_by=b_by,
+                         live_iterations=int(live[:n].sum()),
+                         instances=n)
+                cases[f"{label} {fill} {form}"] = t
+                if label == "shared" and (form, fill) in (
+                        ("block", "half"), ("walk", "unsat")):
+                    plain_ms = cuda_ms(lambda: walksat.walksat_walk_plain(
+                        assign, seeds=seeds, **tkw), reps=1, warmup=1)
+                    name = ("walksat_block" if form == "block"
+                            else "walksat_walk")
+                    rows[name] = dict({
+                        "name": name, "route": "cuda",
+                        "source": "pdp_solver_tpu_torch/csrc/walksat.cu",
+                        "replaces": "pdp_solver_tpu/ops/pallas_walksat.py:285",
+                        "max_abs_err": 0.0, "plain_ms": plain_ms,
+                        "library_ms": None, "blocks": len(seeds)}, **t)
+                log(f"walksat {label} ({shape[0]} threads, staged vars "
+                    f"{shape[1]}, edges {shape[2]}) {fill} {form} "
+                    f"({len(seeds)} blocks): bit-exact; {timing_note(t)}, "
+                    f"{int(live[:n].sum())} live iterations, bound "
+                    f"{b_ms:.5f} ms ({b_by})")
+    rows["walksat_walk"]["cases"] = cases
     return rows
 
 
@@ -1173,7 +1301,7 @@ def reset_counts():
     fused.fused_edge_pass.launches_by_fn = {}
     fused.chained_edge_pass.launches = 0
     fused.chained_edge_pass.launches_by_fn = {}
-    walksat.walksat_block.launches = 0
+    walksat.walksat_walk.launches = 0
     reduce2d.segment_sum_2d.launches = 0
     reduce2d.gather_2d.launches = 0
     reduce.segment_sum_cols.launches = 0
@@ -1188,7 +1316,7 @@ def read_counts():
         fused, reduce, reduce2d, sp_sweep, verify, walksat)
     launches = dict(fused.fused_edge_pass.launches_by_fn)
     launches.update(fused.chained_edge_pass.launches_by_fn)
-    launches["walksat_block"] = walksat.walksat_block.launches
+    launches["walksat_walk"] = walksat.walksat_walk.launches
     launches["segment_sum_2d"] = reduce2d.segment_sum_2d.launches
     launches["gather_2d"] = reduce2d.gather_2d.launches
     launches["segment_sum_cols"] = reduce.segment_sum_cols.launches
@@ -1251,6 +1379,7 @@ def main():
         rows.update(check_reduce(batch, torch, np))
         for name, per_case in check_walk(insts, torch, np).items():
             rows[name]["walk_cases"] = per_case
+        rows.update(check_walksat(insts, torch, np))
         rows.update(check_sp_sweep(
             batch, pack_instances(insts[:8], device="cuda"), torch))
         del batch
@@ -1292,8 +1421,8 @@ def main():
         log(f"launches on the walk-sat path: {json.dumps(wlaunches)}")
         require(wres["solved"] >= MIN_SOLVED_WALK_SAT,
                 f"walk-sat solved {wres['solved']} < {MIN_SOLVED_WALK_SAT}")
-        require(wlaunches["walksat_block"] > 0,
-                "walk-sat never launched walksat_block")
+        require(wlaunches["walksat_walk"] > 0,
+                "walk-sat never launched walksat_walk")
 
         rres, rlaunches = run_path(lambda: solve_reinforce(insts, seed=0))
         log(f"phase 6 reinforce path: solved {rres['solved']}/{len(insts)} "
@@ -1400,9 +1529,12 @@ def main():
         path_rows = []
         for name, row in rows.items():
             path = serves.get(name, launches)
-            # rows 5 and 8 run the CUDA kernel of row 4
+            # rows 5 and 8 run the CUDA kernel of row 4; both WalkSAT
+            # rows are walksat_walk's launches
             key = ("segment_sum_cols" if name.startswith(
-                ("segment_sum_cols", "sorted_segment_sum")) else name)
+                ("segment_sum_cols", "sorted_segment_sum"))
+                else "walksat_walk" if name.startswith("walksat")
+                else name)
             n = path.get(key, 0)
             require(n > 0, f"{row['name']} never launched on its path")
             path_rows.append(dict(row, launches=n))

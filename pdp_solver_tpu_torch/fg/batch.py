@@ -26,6 +26,9 @@ Added for the CUDA kernels (built once at pack time, int32):
                       [clause_ptr[f], clause_ptr[f+1]) (clause-major).
   inst_var_ptr /      the real variables / clauses of instance b.
   inst_clause_ptr
+  max_instance_vars / the most real variables / clauses of one instance
+  max_instance_clauses (the WalkSAT kernel sizes its shared memory and its
+                      CTA by them).
   var_max_degree /    the largest number of real edges of one variable /
   clause_max_degree   clause: the segment sums' group walk skips its
                       blocks for very high degree when no node needs them.
@@ -74,6 +77,7 @@ class FGBatch:
     num_real_edges: int
     num_real_clauses: int
     max_instance_vars: int
+    max_instance_clauses: int
     num_instances: int           # the real instances, rows [0, n) of B
     var_max_degree: int = None
     clause_max_degree: int = None
@@ -196,7 +200,7 @@ def pack_instances(instances: Sequence[tuple], device="cuda",
     var_batch = np.zeros(pad_v, dtype=np.int32)
     clause_batch = np.zeros(pad_f, dtype=np.int32)
     label = np.zeros(pad_b, dtype=np.float32)
-    max_vars = 0
+    max_vars = max_clauses = 0
 
     v_off = f_off = e_off = 0
     for b, inst in enumerate(instances):
@@ -211,6 +215,7 @@ def pack_instances(instances: Sequence[tuple], device="cuda",
         clause_batch[f_off:f_off + m] = b
         label[b] = float(inst[4])
         max_vars = max(max_vars, n)
+        max_clauses = max(max_clauses, m)
         v_off += n
         f_off += m
         e_off += ei
@@ -268,6 +273,7 @@ def pack_instances(instances: Sequence[tuple], device="cuda",
         num_real_edges=e_off,
         num_real_clauses=f_off,
         max_instance_vars=max_vars,
+        max_instance_clauses=max_clauses,
         var_max_degree=int(np.diff(var_ptr).max(initial=0)),
         clause_max_degree=int(np.diff(clause_ptr).max(initial=0)),
         clause_width=clause_width,

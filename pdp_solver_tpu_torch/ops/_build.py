@@ -44,8 +44,8 @@ _SIGNATURES = {
     "pdp_fn_lookup": (I, [ctypes.c_char_p, P]),
     "pdp_fused_edge_pass": (I, [P]),
     "pdp_chained_edge_pass": (I, [P]),
-    "pdp_walksat_block": (I, [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I,
-                              I, ctypes.c_float, P]),
+    "pdp_walksat_setup": (I, [P]),
+    "pdp_walksat_walk": (I, [P]),
     "pdp_segment_sum_2d": (I, [P, I, P, P, I, P, P]),
     "pdp_gather_2d": (I, [P]),
     "pdp_segment_sum_cols": (I, [P]),
@@ -122,6 +122,19 @@ class VerifyArgs(ctypes.Structure):
                 ("var_batch", P), ("solved", P), ("unsat", P), ("em", P),
                 ("ae", P), ("n_inst", I), ("n_rows", I), ("e_real", I),
                 ("e_total", I), ("cluster", I), ("stream", P)]
+
+
+class WalkArgs(ctypes.Structure):
+    """csrc/walksat.cu WalkArgs, field for field."""
+    _fields_ = [("ev", P), ("w", P), ("dm", P), ("em", P), ("ac", P),
+                ("var_ptr", P), ("vref", P), ("lv", P), ("inst_clause_ptr", P),
+                ("inst_var_ptr", P), ("assign", P),
+                ("av", P), ("seeds", P), ("out", P), ("energy", P),
+                ("sums", P), ("n_inst", I), ("n_rows", I), ("n_vars", I),
+                ("width", I), ("max_vars", I), ("max_clauses", I),
+                ("n_blocks", I), ("K", I), ("eps", ctypes.c_float),
+                ("threads", I), ("stage_vars", I), ("stage_edges", I),
+                ("stream", P)]
 
 
 def cluster_size(batch, sms, min_share=THREADS):

@@ -1,17 +1,34 @@
-"""K WalkSAT iterations per launch.
+"""eps-greedy WalkSAT: n blocks of K iterations in one launch.
 
 Counterpart of `pdp_solver_tpu/ops/pallas_walksat.py` (`walksat_block`
 :285, `walksat_edge_constants` :274, `use_walksat_mega` :265). Each
 iteration: clause energies, break-count flip deltas, eps-greedy selection
 per instance (first-index argmax; the random lanes come from `hash01`, the
 JAX kernel's `_hash01` reproduced bit for bit), and one flip per instance
-that still has an unsat clause. Given the same seed the result equals the
+that still has an unsat clause.
+
+walksat_walk(assign, *, batch, ..., K, seeds, eps) runs len(seeds) blocks
+of K iterations, block j salting its iteration kk with seeds[j] + kk *
+1000003: the JAX kernel called once per seed, chained. walksat_block(...,
+seed=) is its one-block form. Given the same seeds the result equals the
 JAX kernel's bit for bit, greedy (eps < 0) or not.
 
-The wrapper runs `walksat_block_plain` when the batch lies on the CPU and
-the CUDA kernel (`csrc/walksat.cu`) when it lies on the card; calls that
-launched the kernel are counted in `walksat_block.launches`.
+The wrappers run the plain version (`walksat_walk_plain`, a loop of
+`walksat_block_plain`) when the batch lies on the CPU, and launch the CUDA
+kernel (`csrc/walksat.cu`, one CTA an instance for the whole walk) when it
+lies on the card, or raise. active_vars, active_clauses and em are 0/1
+flags, as `ProblemState` and `compute_edge_mask` give them: every energy
+and per-variable count is then an integer, which the kernel keeps in
+int32, so its results equal the plain version's f32 sums bit for bit. A
+plan per batch holds the kernel's argument block, its clause tables
+(`clause_tables`), its shape (`launch_shape`: threads, what is staged in
+shared memory) and, for an instance too large to stage, its global
+scratch. The kernel takes the batches of `use_walksat_block` (a uniform
+clause width of 2 to 8); on the card another width raises. Launches are
+counted in `walksat_walk.launches`.
 """
+
+import ctypes
 
 import torch
 
@@ -25,9 +42,12 @@ BIG = 3e38
 B_MAX = 512
 V_MAX = 63488
 _UNIFORM_K = (2, 3, 4, 5, 6, 7, 8)
-# shared memory of one CTA: 3 floats per variable of the instance
-SMEM_BYTES = 232448
-MAX_INSTANCE_VARS = SMEM_BYTES // 12 - 64
+# the kernel: clause widths up to WS_MAX_WIDTH, up to WS_MAX_THREADS
+# threads a CTA (csrc/walksat.cu), and the dynamic shared memory a CTA
+# may take on an H100 (232,448 bytes less the kernel's static slots)
+MAX_WIDTH = 8
+MAX_THREADS = 1024
+SMEM_BYTES = 232448 - 1024
 
 
 def wrap32(x):
@@ -61,6 +81,55 @@ def use_walksat_block(batch) -> bool:
                 and batch.num_vars <= V_MAX)
 
 
+def launch_shape(batch):
+    """(threads, stage_vars, stage_edges) of the kernel on a batch: a
+    thread for each variable and for every 4 clauses of the largest
+    instance (a multiple of 32 from 64 to MAX_THREADS; after its first
+    iteration the kernel recomputes only the flipped variable's clauses,
+    and more warps than that cost the barriers more than they give); its
+    variables in shared memory (16 B each) where they fit, and then its
+    clauses (14 B a slot of 4 or 8 a clause, 8 B a clause) and var-major
+    CSR (4 B an edge and a variable) where they fit too. Raises for a
+    clause width the kernel does not take."""
+    k = batch.clause_width
+    if not 1 <= k <= MAX_WIDTH:
+        raise ValueError(f"walksat: the kernel takes a uniform clause width "
+                         f"of 1 to {MAX_WIDTH}, the batch has {k or 'mixed'}")
+    mv, mc = batch.max_instance_vars, batch.max_instance_clauses
+    slots = 4 if k <= 4 else 8
+    threads = min(MAX_THREADS, max(64, -(-max(mv, -(-mc // 4)) // 32) * 32))
+    var_bytes = 16 * mv
+    edge_bytes = 14 * mc * slots + 8 * mc + 4 * mc * k + 4 * (mv + 1)
+    stage_vars = var_bytes <= SMEM_BYTES
+    stage_edges = stage_vars and var_bytes + edge_bytes <= SMEM_BYTES
+    return threads, stage_vars, stage_edges
+
+
+def clause_tables(batch):
+    """The kernel's clause tables, which depend on the batch alone: vref
+    (i32[E real]) the clause of each real edge in var-major order, local
+    to its instance, -1 on a clause's second or later slot of one
+    variable (the kernel takes such a clause once); lv (i16[F real *
+    slots], slots 4 or 8 as in launch_shape) each real clause's variables,
+    local to its instance, 0 past the clause width (read only where the
+    clauses are staged, whose instances have fewer than 2**15
+    variables)."""
+    k = batch.clause_width
+    slots = 4 if k <= 4 else 8
+    f, e = batch.num_real_clauses, batch.num_real_edges
+    inst = batch.clause_batch[:f]
+    ev = batch.edge_var[:e].view(f, k)
+    earlier = torch.ones(k, k, dtype=torch.bool, device=batch.device)
+    repeat = ((ev[:, :, None] == ev[:, None, :]) & earlier.tril(-1)).any(-1)
+    clause = (torch.arange(f, device=batch.device)
+              - batch.inst_clause_ptr.long()[inst])
+    perm = batch.var_perm.long()
+    vref = torch.where(repeat.view(-1)[perm], -1, clause[perm // k])
+    lv = torch.zeros(f, slots, dtype=torch.int16, device=batch.device)
+    lv[:, :k] = ev - batch.inst_var_ptr.long()[inst][:, None]
+    return vref.to(torch.int32), lv.view(-1)
+
+
 def walksat_edge_constants(batch, active_vars):
     """w = sign * mask * active_var (scales the gathered assignment into
     the literal value) and dm = mask * active_var (the active degree)."""
@@ -72,7 +141,7 @@ def walksat_edge_constants(batch, active_vars):
 
 def walksat_block_plain(assign, *, batch, active_vars, active_clauses, em,
                         K, seed, eps, edge_constants=None):
-    """The plain PyTorch version of walksat_block."""
+    """The plain PyTorch version of one block of K iterations."""
     w, dm = (walksat_edge_constants(batch, active_vars)
              if edge_constants is None else edge_constants)
     dev = assign.device
@@ -112,53 +181,142 @@ def walksat_block_plain(assign, *, batch, active_vars, active_clauses, em,
     return assign, energy
 
 
-def walksat_block(assign, *, batch, active_vars, active_clauses, em, K,
-                  seed, eps, edge_constants=None):
-    """Run K WalkSAT iterations (one kernel launch on the card).
-
-    assign: f32[V] in {-1, 0, +1} (0 on inactive variables); seed: int
-    (any 32-bit value); eps < 0 is pure greedy. Returns (new_assign f32[V],
-    energy f32[B]), energy being each instance's unsat count ENTERING the
-    last iteration (the same lag as the per-iteration loop's done flag)."""
-    seed = wrap32(int(seed))
-    if batch.device.type == "cpu":
-        return walksat_block_plain(
+def walksat_walk_plain(assign, *, batch, active_vars, active_clauses, em,
+                       K, seeds, eps, edge_constants=None):
+    """The plain PyTorch version of walksat_walk: one block a seed."""
+    if edge_constants is None:
+        edge_constants = walksat_edge_constants(batch, active_vars)
+    energy = None
+    for seed in seeds:
+        assign, energy = walksat_block_plain(
             assign, batch=batch, active_vars=active_vars,
             active_clauses=active_clauses, em=em, K=K, seed=seed, eps=eps,
             edge_constants=edge_constants)
-    if batch.device.type != "cuda":
-        raise ValueError(f"walksat_block: unsupported device {batch.device}")
-    if batch.max_instance_vars > MAX_INSTANCE_VARS:
-        raise ValueError(
-            f"walksat_block: an instance has {batch.max_instance_vars} "
-            f"variables; one CTA holds at most {MAX_INSTANCE_VARS}")
-    V, F, E, B = (batch.num_vars, batch.num_clauses, batch.num_edges,
-                  batch.batch_size)
-    w, dm = (walksat_edge_constants(batch, active_vars)
-             if edge_constants is None else edge_constants)
-    cols = {"assign": (assign, V), "active_vars": (active_vars, V),
-            "active_clauses": (active_clauses, F), "em": (em, E),
-            "w": (w, E), "dm": (dm, E)}
-    for name, (x, n) in cols.items():
-        if x.shape != (n,) or x.dtype != torch.float32 or \
-                x.device != batch.device:
-            raise ValueError(f"walksat_block: {name} must be float32[{n}] "
-                             f"on {batch.device}, got {x.dtype}"
-                             f"{tuple(x.shape)} on {x.device}")
-    out = assign.contiguous().clone()
-    energy = torch.empty(B, dtype=torch.float32, device=batch.device)
-    w, dm, em = w.contiguous(), dm.contiguous(), em.contiguous()
-    ac, av = active_clauses.contiguous(), active_vars.contiguous()
-    rc = _build.library().pdp_walksat_block(
-        batch.edge_var32.data_ptr(), w.data_ptr(), dm.data_ptr(),
-        em.data_ptr(), ac.data_ptr(), batch.clause_ptr.data_ptr(),
-        batch.inst_clause_ptr.data_ptr(), batch.inst_var_ptr.data_ptr(),
-        out.data_ptr(), av.data_ptr(), batch.var_mask.data_ptr(),
-        energy.data_ptr(), B, batch.max_instance_vars, int(K), seed,
-        float(eps), torch.cuda.current_stream(batch.device).cuda_stream)
-    _build.check(rc, "walksat_block")
-    walksat_block.launches += 1
-    return out, energy
+    return assign, energy
 
 
-walksat_block.launches = 0
+class _Plan:
+    """The walk on one batch: the inputs' sizes and, on the card, the
+    kernel's argument block with everything that does not change from
+    call to call (the batch's pointers and counts, the clause tables, the
+    launch shape, the scratch), its shared memory opted in once. A
+    plan's scratch serves one launch at a time: launches on one
+    stream."""
+
+    def __init__(self, batch):
+        self.device = batch.device
+        self.sizes = {"V": batch.num_vars, "F": batch.num_clauses,
+                      "E": batch.num_edges}
+        self.rows = batch.batch_size
+        self.args = None
+        if self.device.type != "cuda":
+            return
+        threads, stage_vars, stage_edges = launch_shape(batch)
+        a = _build.WalkArgs()
+        a.ev = batch.edge_var32.data_ptr()
+        a.var_ptr = batch.var_ptr.data_ptr()
+        self.tables = clause_tables(batch)
+        a.vref, a.lv = (x.data_ptr() for x in self.tables)
+        a.inst_clause_ptr = batch.inst_clause_ptr.data_ptr()
+        a.inst_var_ptr = batch.inst_var_ptr.data_ptr()
+        a.n_inst, a.n_rows = batch.num_instances, batch.batch_size
+        a.n_vars, a.width = batch.num_vars, batch.clause_width
+        a.max_vars = batch.max_instance_vars
+        a.max_clauses = batch.max_instance_clauses
+        a.threads = threads
+        a.stage_vars, a.stage_edges = int(stage_vars), int(stage_edges)
+        self.scratch = None
+        if not stage_vars:
+            self.scratch = torch.empty(2 * batch.num_vars,
+                                       dtype=torch.int32,
+                                       device=self.device)
+            a.sums = self.scratch.data_ptr()
+        self.args = a
+        self.ref = ctypes.byref(a)
+        lib = _build.library()
+        with torch.cuda.device(self.device):
+            _build.check(lib.pdp_walksat_setup(self.ref), "walksat setup")
+        self.call = lib.pdp_walksat_walk
+        self.stream = _build.stream_fn(self.device)
+
+    def check(self, **cols):
+        """Each column f32[n] of its kind on the batch's device (raises
+        otherwise), made contiguous."""
+        kept = []
+        for name, (x, kind) in cols.items():
+            n = self.sizes[kind]
+            if x.shape != (n,) or x.dtype != torch.float32:
+                raise ValueError(f"walksat: {name} must be f32[{n}], got "
+                                 f"{x.dtype} {tuple(x.shape)}")
+            if x.device != self.device:
+                raise ValueError(f"walksat: {name} is on {x.device}, the "
+                                 f"batch on {self.device}")
+            kept.append(x if x.is_contiguous() else x.contiguous())
+        return kept
+
+
+_PLANS = _build.PlanCache()
+
+
+def _plan(batch):
+    if batch.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"walksat: unsupported device {batch.device}")
+    return _PLANS.get((batch,), None, _Plan, batch)
+
+
+def walksat_walk(assign, *, batch, active_vars, active_clauses, em, K,
+                 seeds, eps, edge_constants=None):
+    """Run len(seeds) blocks of K WalkSAT iterations (one kernel launch on
+    the card).
+
+    assign: f32[V] in {-1, 0, +1} (0 on inactive variables); seeds: ints
+    (any 32-bit values; block j salts its iteration kk with seeds[j] + kk
+    * 1000003); eps < 0 is pure greedy. Returns (new_assign f32[V], energy
+    f32[B]), energy being each instance's unsat count ENTERING the last
+    iteration (the same lag as the per-iteration loop's done flag)."""
+    seeds = [wrap32(int(s)) for s in seeds]
+    if K < 1 or not seeds:
+        raise ValueError(f"walksat: K ({K}) and the number of seeds "
+                         f"({len(seeds)}) must be at least 1")
+    plan = _plan(batch)
+    assign, av, ac, em = plan.check(
+        assign=(assign, "V"), active_vars=(active_vars, "V"),
+        active_clauses=(active_clauses, "F"), em=(em, "E"))
+    if edge_constants is None:
+        edge_constants = walksat_edge_constants(batch, av)
+    w, dm = plan.check(w=(edge_constants[0], "E"),
+                       dm=(edge_constants[1], "E"))
+    a = plan.args
+    if a is None:
+        return walksat_walk_plain(
+            assign, batch=batch, active_vars=av, active_clauses=ac, em=em,
+            K=K, seeds=seeds, eps=eps, edge_constants=(w, dm))
+    V = plan.sizes["V"]
+    seeds_d = torch.tensor(seeds, dtype=torch.int32).to(plan.device,
+                                                        non_blocking=True)
+    # the new assignment and the energies are the two parts of one
+    # allocation
+    out = assign.new_empty(V + plan.rows)
+    a.assign, a.av, a.ac, a.em = (assign.data_ptr(), av.data_ptr(),
+                                  ac.data_ptr(), em.data_ptr())
+    a.w, a.dm, a.seeds = w.data_ptr(), dm.data_ptr(), seeds_d.data_ptr()
+    a.out = out.data_ptr()
+    a.energy = a.out + 4 * V
+    a.n_blocks, a.K, a.eps = len(seeds), int(K), float(eps)
+    a.stream = plan.stream()
+    rc = plan.call(plan.ref)
+    if rc:
+        _build.check(rc, "walksat_walk")
+    walksat_walk.launches += 1
+    return out[:V], out[V:]
+
+
+walksat_walk.launches = 0
+
+
+def walksat_block(assign, *, batch, active_vars, active_clauses, em, K,
+                  seed, eps, edge_constants=None):
+    """Run K WalkSAT iterations: walksat_walk with the one seed."""
+    return walksat_walk(assign, batch=batch, active_vars=active_vars,
+                        active_clauses=active_clauses, em=em, K=K,
+                        seeds=[seed], eps=eps, edge_constants=edge_constants)

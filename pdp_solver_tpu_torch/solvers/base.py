@@ -53,15 +53,15 @@ from pdp_solver_tpu_torch.ops import fused
 from pdp_solver_tpu_torch.ops.segment import segment_argmax_first, segment_sum
 from pdp_solver_tpu_torch.ops.verify import use_verify_masks, verify_and_masks
 from pdp_solver_tpu_torch.ops.walksat import (
-    use_walksat_block, walksat_block, walksat_edge_constants)
+    use_walksat_block, walksat_walk)
 from pdp_solver_tpu_torch.problem.simplify import fused_simplify
 from pdp_solver_tpu_torch.problem.state import (
     ProblemState, compute_edge_mask, edge_active_instance_mask,
     edge_masks_pair, init_problem_state)
 from pdp_solver_tpu_torch.train.loss import cnf_evaluate
 
-# WalkSAT iterations per block launch (the JAX package's PDP_WALKSAT_K
-# default)
+# WalkSAT iterations per block, one seed a block (the JAX package's
+# PDP_WALKSAT_K default)
 WALKSAT_K = 8
 
 
@@ -392,8 +392,10 @@ class PDPSolver:
     def _local_search(self, generator, batch, problem, var_pred,
                       iterations=None, seeds=None):
         """eps-greedy WalkSAT on the still-active subgraph, one flip per
-        instance per iteration: blocks of WALKSAT_K iterations per kernel
-        launch, the remainder one chained pass per iteration."""
+        instance per iteration: every whole block of WALKSAT_K iterations
+        in one walksat_walk call (one kernel launch on the card, its block
+        seeds drawn first), the remainder one chained pass per
+        iteration."""
         V, B, dev = batch.num_vars, batch.batch_size, batch.device
         eps = self.cfg.epsilon
         iters = (self.cfg.local_search_iterations if iterations is None
@@ -407,14 +409,18 @@ class PDPSolver:
         # nothing, so the loops run out without a done test
         K = WALKSAT_K
         if use_walksat_block(batch) and iters >= K > 1:
-            econst = walksat_edge_constants(batch, av)
-            for blk in range(iters // K):
-                seed = (seeds[blk] if seeds is not None
-                        else random_seed32(generator))
-                assign, _ = walksat_block(
-                    assign, batch=batch, active_vars=av,
-                    active_clauses=problem.active_clauses, em=em, K=K,
-                    seed=seed, eps=eps, edge_constants=econst)
+            n = iters // K
+            if seeds is None:
+                blocks = [random_seed32(generator) for _ in range(n)]
+            elif len(seeds) < n:
+                raise ValueError(f"local_search: {iters} iterations take "
+                                 f"{n} block seeds, got {len(seeds)}")
+            else:
+                blocks = list(seeds[:n])
+            assign, _ = walksat_walk(
+                assign, batch=batch, active_vars=av,
+                active_clauses=problem.active_clauses, em=em, K=K,
+                seeds=blocks, eps=eps)
             iters = iters % K
 
         arange_v = torch.arange(V, device=dev)

@@ -171,7 +171,8 @@ def compacting_solve(solver, params, generator, instances, iterations, *,
             solved[orig] = solved_k[j]
         all_stats["attempts"].append(
             {"iterations": it_k, "ls": ls_k, "instances": len(remaining),
-             "solved": int(sum(solved_k)), "wall_s": st_k["wall_s"],
+             "solved": int(sum(solved_k)),
+             "loop_solved": st_k["loop_solved"], "wall_s": st_k["wall_s"],
              "ls_wall_s": st_k["ls_wall_s"],
              "progress": st_k.get("progress", [])})
         all_stats["compactions"].extend(st_k["compactions"])
@@ -279,6 +280,7 @@ def _solve_attempt(solver, params, generator, instances, iterations, *,
                 _park(parked, orig, problem_host, slices, slot)
 
     # --- phase 2: local search on the unsolved set -----------------------
+    stats["loop_solved"] = int(sum(solved))
     t1 = time.time()
     todo = [i for i in range(count) if not solved[i] and i in parked]
     if ls_iterations > 0 and todo:

@@ -9,9 +9,11 @@ there is one.
 
 On the shared set (128 instances of 4-SAT, n=100, alpha=9: E = 524,288
 padded / 460,800 real edges), on a compacted batch (its first 8
-instances, a 32,768-edge bucket) and at high degree (a var CSR with one
+instances, a 32,768-edge bucket), at high degree (a var CSR with one
 63,488-edge node; the shared set's clause ids over all E edges, whose
-last run holds the 63,488 padding edges), it gives for each form:
+last run holds the 63,488 padding edges) and, for WalkSAT, on one large
+banded instance (`large_instance`: 30,000 variables, 126,000 clauses), it
+gives for each form:
   ms        ms / call, CUDA events over 50 back-to-back calls;
   host_us   host us / call, perf_counter over 500 calls with no
             synchronize, after a warm-up;
@@ -20,7 +22,12 @@ last run holds the 63,488 padding edges), it gives for each form:
 The forms: "chained_edge_pass[name]" for the five chained functors;
 "sp_full_sweep[pi 0]", "[pi 0.01]" and "[login]"; "verify_and_masks"
 and "verify split" (the split path it replaces: cnf_evaluate, the freeze,
-edge_masks_pair); "walksat_block" (K = 8, eps 0.5); "gather_2d" and
+edge_masks_pair); "walksat_block" (K = 8, eps 0.5, from a problem with
+some variables and clauses inactive and a random prediction), "walksat_block
+unsat" (from a random fill, every instance unsat) and "walksat 25 blocks"
+(a 200-flip chunk of the local search from that fill: one call where the
+tree has `walksat_walk`, else 25 `walksat_block` calls; on one-instance
+batches 5 calls instead of 50 and 500); "gather_2d" and
 "gather_2d minus" at np-nd-np's width (d = 50) with i64 ids, the same
 with " i32" ids (`edge_var32`), and "index_select", the gather's PyTorch
 call. --only keeps the forms whose names contain one of the strings
@@ -97,10 +104,10 @@ def cuda_ms(fn, reps=50, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def timed(fn, reps=50):
+def timed(fn, reps=50, host_reps=HOST_REPS):
     """ms / call (CUDA events), host us / call and device us / call."""
-    dev, by = device_us(fn)
-    return {"ms": cuda_ms(fn, reps=reps), "host_us": host_us(fn),
+    dev, by = device_us(fn, host_reps)
+    return {"ms": cuda_ms(fn, reps=reps), "host_us": host_us(fn, host_reps),
             "device_us": dev, "device_kernels": by}
 
 
@@ -121,6 +128,52 @@ def hub_batch(**kw):
     `degree` edges."""
     from pdp_solver_tpu_torch.fg.batch import pack_instances
     return pack_instances([hub_instance(**kw)], device="cuda")
+
+
+def large_instance(n=30000, alpha=4.2, k=3, window=512, seed=7):
+    """One random k-SAT instance (n, m, graph map, signs, label) of n
+    variables whose clause c draws its k distinct variables from a window
+    of `window` variables sliding with c (a banded instance, as a
+    bandwidth-reducing order leaves one): the windowed invariants hold, so
+    the WalkSAT block rule takes it with n above what one CTA can hold in
+    shared memory."""
+    rng = np.random.default_rng(seed)
+    m = int(n * alpha)
+    lo = np.clip(np.arange(m) * n // m - window // 2, 0, n - window)
+    off = rng.integers(0, window, size=(m, k))
+    while True:
+        srt = np.sort(off, axis=1)
+        dup = (srt[:, 1:] == srt[:, :-1]).any(axis=1)
+        if not dup.any():
+            break
+        off[dup] = rng.integers(0, window, size=(int(dup.sum()), k))
+    v = (lo[:, None] + off).reshape(-1)
+    ec = np.repeat(np.arange(m), k)
+    signs = rng.choice([-1.0, 1.0], m * k).astype(np.float32)
+    return (n, m, np.stack([v, ec]).astype(np.int32), signs, -1.0)
+
+
+# the block seeds of a timed WalkSAT chunk (200 flips: 25 blocks of 8)
+WALK_SEEDS = [5 + 7919 * j for j in range(25)]
+
+
+def walk_inputs(batch, fill):
+    """WalkSAT's inputs (assign, active_vars, active_clauses, em) on a
+    batch on the card. fill "half": _verify_inputs' problem state (some
+    variables and clauses inactive) and its random prediction; "unsat": a
+    random fill of every variable, all active, as the WalkSAT phase
+    starts, which leaves every instance of these batches unsat."""
+    if fill == "half":
+        problem, _, pred = _verify_inputs(batch)
+        av, ac = problem.active_vars, problem.active_clauses
+        assign = av * (pred[:, 0] > 0.5).float() * 2 - av
+    else:
+        g = torch.Generator().manual_seed(11)
+        av, ac = batch.var_mask, batch.clause_mask
+        assign = av * (torch.randint(0, 2, (batch.num_vars,), generator=g)
+                       .float().cuda() * 2 - 1)
+    em = batch.edge_mask * av[batch.edge_var] * ac[batch.edge_clause]
+    return assign, av, ac, em
 
 
 HIDDEN_AGG = 50     # np-nd-np's mem_agg_hidden_dim, the gather's width
@@ -200,6 +253,7 @@ def bench_batch(batch, forms, only=None):
            "clause": (batch.edge_clause, batch.num_clauses, batch.clause_ptr,
                       None)}
     for form in forms:
+        reps = None
         if form.startswith("segment_sum"):
             # "segment_sum var C=2" ([E, 2] rows), "segment_sum_cols var
             # C=1", "segment_sum_cols clause C=1"
@@ -268,18 +322,27 @@ def bench_batch(batch, forms, only=None):
                     return edge_masks_pair(
                         batch, problem, act * (solved <= 0.5).float())
             lib = None
-        elif form == "walksat_block":
+        elif form.startswith("walksat"):
+            # "walksat_block" (K = 8 from walk_inputs' "half" fill),
+            # "walksat_block unsat" (from the "unsat" fill) and "walksat
+            # 25 blocks" (the fill's first WalkSAT chunk of 200 flips in
+            # one walksat_walk call)
             from pdp_solver_tpu_torch.ops import walksat
-            problem, _, pred = _verify_inputs(batch)
-            av, ac = problem.active_vars, problem.active_clauses
-            assign = av * (pred[:, 0] > 0.5).float() * 2 - av
-            em = batch.edge_mask * av[batch.edge_var] * ac[batch.edge_clause]
-            econst = walksat.walksat_edge_constants(batch, av)
-
-            def call():
-                return walksat.walksat_block(
-                    assign, batch=batch, active_vars=av, active_clauses=ac,
-                    em=em, K=8, seed=5, eps=0.5, edge_constants=econst)
+            assign, av, ac, em = walk_inputs(
+                batch, "half" if form == "walksat_block" else "unsat")
+            kw = dict(batch=batch, active_vars=av, active_clauses=ac, em=em,
+                      K=8, eps=0.5,
+                      edge_constants=walksat.walksat_edge_constants(batch,
+                                                                    av))
+            if not form.endswith("25 blocks"):
+                def call():
+                    return walksat.walksat_block(assign, seed=5, **kw)
+            else:
+                def call():
+                    return walksat.walksat_walk(assign, seeds=WALK_SEEDS,
+                                                **kw)
+            # one instance of 63,488 or 126,000 clauses walks for ms
+            reps = 5 if batch.num_instances == 1 else None
             lib = None
         elif form.startswith(("gather_2d", "index_select")):
             # "gather_2d[ minus][ i32]", "index_select"
@@ -309,7 +372,8 @@ def bench_batch(batch, forms, only=None):
                 def lib():
                     return ins[0][batch.edge_var]
         try:
-            row = timed(call)
+            row = (timed(call) if reps is None
+                   else timed(call, reps=reps, host_reps=reps))
         except (RuntimeError, ValueError) as e:
             out[form] = {"error": str(e)[:200]}
             continue
@@ -324,20 +388,21 @@ CHAINED_FORMS = tuple(f"chained_edge_pass[{name}]" for name in (
 SWEEP_FORMS = ("sp_full_sweep[pi 0]", "sp_full_sweep[pi 0.01]",
                "sp_full_sweep[login]")
 VERIFY_FORMS = ("verify_and_masks", "verify split")
+WALK_FORMS = ("walksat_block", "walksat_block unsat", "walksat 25 blocks")
 GATHER_FORMS = ("gather_2d", "gather_2d minus", "gather_2d i32",
                 "gather_2d minus i32", "index_select")
 SHARED_FORMS = ("segment_sum var C=2", "segment_sum_cols var C=1",
                 "segment_sum_cols clause C=1", "sorted_segment_sum real",
                 "fused_edge_pass[ae]", "fused_edge_pass[em]",
                 "fused_edge_pass[em_ae]", "fused_edge_pass[sp_pass_c]",
-                "fused_edge_pass[smax_scorer]", "fused_edge_pass[scorer]",
-                "walksat_block") + CHAINED_FORMS + SWEEP_FORMS + VERIFY_FORMS \
+                "fused_edge_pass[smax_scorer]", "fused_edge_pass[scorer]") \
+    + WALK_FORMS + CHAINED_FORMS + SWEEP_FORMS + VERIFY_FORMS \
     + GATHER_FORMS
 COMPACTED_FORMS = ("segment_sum var C=2", "segment_sum_cols var C=1",
                    "segment_sum_cols clause C=1", "sorted_segment_sum real",
                    "fused_edge_pass[ae]", "fused_edge_pass[smax_scorer]",
-                   "fused_edge_pass[scorer]") + CHAINED_FORMS + SWEEP_FORMS \
-    + VERIFY_FORMS + GATHER_FORMS
+                   "fused_edge_pass[scorer]") + WALK_FORMS + CHAINED_FORMS \
+    + SWEEP_FORMS + VERIFY_FORMS + GATHER_FORMS
 
 
 def main(argv=None):
@@ -369,10 +434,13 @@ def main(argv=None):
                bench_batch(hub, ("segment_sum var C=2",
                                  "segment_sum_cols var C=1",
                                  "fused_edge_pass[smax_scorer]")
-                           + CHAINED_FORMS + SWEEP_FORMS + VERIFY_FORMS,
-                           args.only),
+                           + CHAINED_FORMS + SWEEP_FORMS + VERIFY_FORMS
+                           + WALK_FORMS, args.only),
                **bench_batch(shared, ("sorted_segment_sum all",),
-                             args.only))}
+                             args.only)),
+           "large": bench_batch(pack_instances([large_instance()],
+                                               device="cuda"),
+                                WALK_FORMS, args.only)}
     print(json.dumps(out), flush=True)
     return 0
 

@@ -68,5 +68,7 @@ def solve_headline(insts, seed, device="cuda", settings=HEADLINE):
             "pdp_wall_s": stats["pdp_wall_s"],
             "ls_wall_s": round(stats["ls_wall_s"], 3),
             "attempt_solved": [a["solved"] for a in stats["attempts"]],
+            "attempt_loop_solved": [a["loop_solved"]
+                                    for a in stats["attempts"]],
             "chunks": stats["chunks"],
             "compactions": len(stats["compactions"])}

@@ -2,8 +2,8 @@
 
     python -m pdp_solver_tpu_torch.utils.profile_solve [--seeds 0 1 2]
         [--model p-d-p|np-nd-np|p-nd-np|walk-sat|reinforce]
-        [--settings headline|reference] [--sp-sweep] [--verify-masks]
-        [--no-profile]
+        [--settings headline|reference] [--min-edges N] [--sp-sweep]
+        [--verify-masks] [--no-profile]
 
 On the shared set, with p-d-p at the headline settings (or, with
 --settings reference, at the JAX solver table's reference settings),
@@ -18,7 +18,11 @@ chip_smoke.py), it prints one JSON line with:
     by kernel (the top 15, and every kernel of the port's own library
     with its microseconds a call), the kernel launches per iteration, and
     the device's idle share (1 - busy / the unprofiled wall).
-walk-sat has no hot loop, and --no-profile skips it for any model.
+walk-sat has no hot loop: for it the trace covers one whole solve (seed
+0, after a warm-up solve), giving the device busy time of a solve and the
+launches and device ms of each of the port's kernels. --no-profile skips
+the trace for any model. --min-edges sets p-d-p's compaction floor (the
+headline settings use 32768; the JAX package's records 65536).
 --sp-sweep and --verify-masks set PDP_SP_SWEEP=on and PDP_VERIFY_MASKS=on
 for the whole run (the profiled chunk and the seeds' solves): the
 one-launch sweep (kernel 9) and the one-launch verification with masks
@@ -123,6 +127,34 @@ def hot_loop(insts, solver, params, n=50):
     }
 
 
+def solve_profile(solve):
+    """A torch.profiler trace of one whole solve (after an unprofiled
+    warm-up solve): device busy ms, the kernel launches, and the port's
+    own kernels with their device ms and launches."""
+    from torch.profiler import ProfilerActivity, profile
+    solve()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        solve()
+        torch.cuda.synchronize()
+    kernels = {}
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us > 0 and getattr(evt, "device_type", None) is not None and \
+                "cuda" in str(evt.device_type).lower():
+            kernels[evt.key] = (us, evt.count)
+    own_names = own_kernel_names()
+    return {
+        "device_busy_ms": sum(us for us, _ in kernels.values()) / 1e3,
+        "kernel_launches": sum(c for _, c in kernels.values()),
+        "own_kernels": [{"name": k[:120], "device_ms": us / 1e3,
+                         "count": c} for k, (us, c) in sorted(
+                             kernels.items())
+                        if any(re.search(rf"\b{n}\b", k)
+                               for n in own_names)]}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seeds", type=int, nargs="*", default=[0, 1, 2],
@@ -137,6 +169,9 @@ def main(argv=None):
     ap.add_argument("--verify-masks", action="store_true",
                     help="PDP_VERIFY_MASKS=on: verification and masks in "
                          "one launch")
+    ap.add_argument("--min-edges", type=int,
+                    help="p-d-p's compaction floor (compacting_solve's "
+                         "min_edges) in place of the settings' own")
     ap.add_argument("--no-profile", action="store_true",
                     help="skip the hot-loop timing and trace")
     args = ap.parse_args(argv)
@@ -159,6 +194,8 @@ def main(argv=None):
     profile = not args.no_profile
     if args.model == "p-d-p":
         h = REFERENCE if args.settings == "reference" else HEADLINE
+        if args.min_edges is not None:
+            h = dict(h, min_edges=args.min_edges)
         out["settings"] = dict(h, name=args.settings)
         if profile:
             out["hot_loop"] = hot_loop(insts, headline_solver(h), {})
@@ -185,6 +222,9 @@ def main(argv=None):
         out["seeds"] = [solve_reinforce(insts, s) for s in args.seeds]
     else:
         out["settings"] = CLASSICAL
+        if profile:
+            out["solve_profile"] = solve_profile(
+                lambda: solve_walk_sat(insts, 0))
         out["seeds"] = [solve_walk_sat(insts, s) for s in args.seeds]
     print(json.dumps(out), flush=True)
     return 0

@@ -301,7 +301,8 @@ def _c_struct(name):
 
 
 @pytest.mark.parametrize("name", ["FusedArgs", "ChainedArgs", "GatherArgs",
-                                  "SegSumArgs", "SweepArgs", "VerifyArgs"])
+                                  "SegSumArgs", "SweepArgs", "VerifyArgs",
+                                  "WalkArgs"])
 def test_argument_blocks_match_the_c_structures(name):
     """Each ctypes Structure lists its C structure's fields in order, of
     the same size and type, so the kernel reads what the plan wrote."""

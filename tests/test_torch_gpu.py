@@ -5,7 +5,11 @@ the fixture, never at import). On the card's machine run them with
 `python -m pytest tests/test_torch_gpu.py -m gpu`. Tolerances as in
 chip_smoke.py: flags and counts exact, float sums rtol 1e-5 / atol 1e-6
 (the [E, d] segment sum rtol 1e-5 / atol 1e-5), walksat_block and the
-[E, d] gather bit-exact. The multi-column segment sum (kernels 4, 5 and
+[E, d] gather bit-exact. The one-launch WalkSAT walk (kernel 3) bit for
+bit against its plain version for 1, 8 and 25 blocks, greedy and
+eps-greedy, on the shared set, a compacted batch, the hub (its edges in
+global memory) and a large banded instance of 30,000 variables (its
+variables too). The multi-column segment sum (kernels 4, 5 and
 8) is exact on signed integer-valued columns, its sums of non-negative
 floats (as the path's are) and the one-launch SP sweep (kernel 9) to rtol
 1e-5 / atol 1e-6 (the plain versions sum with atomics on the card). The
@@ -106,6 +110,64 @@ def test_walksat_block_matches_plain(batches, eps):
     assert torch.equal(a_got, a_ref) and torch.equal(e_got, e_ref)
     np.testing.assert_array_equal(a_got.cpu().numpy().view(np.int32),
                                   a_ref.cpu().numpy().view(np.int32))
+
+
+@pytest.fixture(scope="module")
+def walk_shapes():
+    """The shared set, a compacted batch (its first 8 instances), the hub
+    (one variable in 63,488 clauses: edges in global memory) and one
+    large banded instance (30,000 variables: variables in global memory
+    too)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from pdp_solver_tpu_torch.utils.bench_kernels import (
+        hub_batch, large_instance)
+    insts = make_ksat_set()
+    return {"shared": pack_instances(insts, device="cuda"),
+            "compacted": pack_instances(insts[:8], device="cuda"),
+            "hub": hub_batch(),
+            "large": pack_instances([large_instance()], device="cuda")}
+
+
+@pytest.mark.parametrize("eps", [-1.0, 0.5])
+@pytest.mark.parametrize("which", ["shared", "compacted", "hub", "large"])
+def test_walksat_walk_matches_plain(walk_shapes, which, eps):
+    """One walksat_walk launch of 1, 8 and 25 blocks bit for bit against
+    the plain walk (assignments as int32 views, energies exactly), from a
+    random fill with some variables and clauses inactive, and launching
+    the staging mode the batch's shape calls for."""
+    gpu = walk_shapes[which]
+    assert walksat.use_walksat_block(gpu)
+    _, stage_vars, stage_edges = walksat.launch_shape(gpu)
+    assert (stage_vars, stage_edges) == {
+        "shared": (True, True), "compacted": (True, True),
+        "hub": (True, False), "large": (False, False)}[which]
+    g = torch.Generator().manual_seed(3)
+    av = gpu.var_mask * (torch.rand(gpu.num_vars, generator=g)
+                         > 0.1).float().cuda()
+    ac = gpu.clause_mask * (torch.rand(gpu.num_clauses, generator=g)
+                            > 0.1).float().cuda()
+    assign = av * (torch.randint(0, 2, (gpu.num_vars,), generator=g)
+                   .float().cuda() * 2 - 1)
+    em = gpu.edge_mask * av[gpu.edge_var] * ac[gpu.edge_clause]
+    kw = dict(batch=gpu, active_vars=av, active_clauses=ac, em=em, K=8,
+              eps=eps)
+    seeds = [int(s) for s in torch.randint(-(1 << 31), 1 << 31, (25,),
+                                           generator=g)]
+    a, ref = assign, {}
+    for j, seed in enumerate(seeds):
+        a, e = walksat.walksat_block_plain(a, seed=seed, **kw)
+        ref[j + 1] = (a, e)
+    launches = walksat.walksat_walk.launches
+    for n in (1, 8, 25):
+        got_a, got_e = walksat.walksat_walk(assign, seeds=seeds[:n], **kw)
+        torch.cuda.synchronize()
+        ref_a, ref_e = ref[n]
+        assert np.array_equal(got_a.cpu().numpy().view(np.int32),
+                              ref_a.cpu().numpy().view(np.int32)), n
+        assert torch.equal(got_e, ref_e), n
+    assert walksat.walksat_walk.launches == launches + 3
+    assert float(ref[1][1].sum()) > 0
 
 
 @pytest.mark.parametrize("d", [50, 150, 37])
