@@ -48,13 +48,24 @@ Phases, one flushed line each with the elapsed seconds:
      p-nd-np's) against its plain version (rtol 1e-5 / atol 1e-6) and bit
      for bit against the two launches it replaces (`sp_chain` or
      `sp_chain_login`, then `sp_pass_c`), on the shared set and the
-     compacted batch;
+     compacted batch, and on both replicated twice;
+     kernels 1 and 2 on the replicated layout: every fused and chained
+     functor on the shared set and the compacted batch replicated twice
+     (replica 0's padding edges, clauses, variables and rows inside the
+     prefix the kernels treat as real), held as above on every output
+     row, the SP passes' mask 1 on padding edges as the solver's is;
      the verification with the freeze and the next masks in one launch
      (kernel 10) exactly against its plain version and the split path it
      replaces (cnf_chain, the freeze, em_ae), on the shared set's graphs
      with planted signs, some variables and clauses inactive, some
      instances stopped and a prediction that solves half of them, timed
-     beside both;
+     beside both; the replicated walk (kernel 3 with R = 2: a launch a
+     block, a done flag on the card) bit for bit against the plain walk
+     with its replica stop on the shared set and a compacted batch,
+     replicated, from a random fill and from a problem where every
+     instance gets a solved replica before the last block, timed per call
+     and per block; np-d-np's decimator pass (`smax`, kernel 1) with the
+     other functors;
   3. p-d-p path: compacting_solve at the headline settings (tolerance
      0.08, t_max 50, 1000 iterations, 1000 WalkSAT flips, restart schedule
      0.35/0.35/0.3, chunk 50, simplify_rounds 1) on the shared set
@@ -85,9 +96,29 @@ Phases, one flushed line each with the elapsed seconds:
      through kernel 9 (login) and kernel 10, each launched once per
      iteration (equal counts) and no `sp_chain_login` or `em_ae` left;
      >= 28/128 solved, printed beside phase 8's count;
- 10. seeds 1 and 2 of p-d-p and reinforce, printed with seed 0 beside
+ 10. np-d-np path: compacting_solve with the trained r4 checkpoint at
+     full width (hidden 150; 1000 iterations, 1000 WalkSAT flips,
+     tolerance 0.02, t_max 10, chunk 50) on the shared set, every solution
+     verified with numpy and printed beside the JAX package's 5, 5 and 1
+     of 128; the decimator's pass (`smax`, kernel 1), kernels 6 and 7, the
+     masks, the simplification, the verification and WalkSAT launched;
+ 11. np-d-np on the medium 3-SAT band (48 instances, n 60, alpha 3.5, 300
+     iterations, decimation only), trained and from a fresh init, every
+     solution verified with numpy: the trained run solves >= 29/48 (JAX
+     0.8125) and at least 0.30 more than the fresh init (JAX 0.083);
+ 12. p-d-p compacting_solve(replicas=2) at the headline settings: >= 0.60
+     solved, printed beside phase 3's count;
+ 13. p-d-p forward(replication=2) on the shared set (300 iterations, 200
+     WalkSAT flips, check_termination): every deduplicated solution
+     verified with numpy and against the solver's flags, and the
+     replicated walk launched once a block (25 launches). Then the same
+     forward from one injected state on the card and on the CPU: after 1
+     iteration every state column on every edge to rtol 1e-5 / atol
+     1e-6 and the carry (the problem, the flags, the edge mask) exactly;
+     after 30 under 1% of the variables' flags or values differ;
+ 14. seeds 1 and 2 of p-d-p and reinforce, printed with seed 0 beside
      the counts from before kernel 2's var phase took the walk's order;
- 11. the {"kernels": [...]} line, the card's name and power limit, and as
+ 15. the {"kernels": [...]} line, the card's name and power limit, and as
      the last line {"ok": true, "device": {...}}.
 
 Every launch count is set to 0 just before each path and read just after
@@ -138,6 +169,25 @@ PRIOR_SOLVED = {"p-d-p": [86, 84, 87], "reinforce": [12, 16, 10]}
 # may take either sign; the share of differing forces after 10 iterations
 SCORE_TIE = 1e-5
 MAX_FORCE_DIFF_SHARE = 0.01
+# np-d-np with the r4 weights: the JAX records on the shared set are 5, 5
+# and 1 of 128 (seeds 0-2, docs/r5_solver_table.json); on the medium
+# 3-SAT band (decimation only) 0.8125 trained, 0.0833 untrained
+# (np_d_np_3sat there). The band's gates: at least 0.60 trained, and at
+# least 0.30 above a fresh init
+JAX_NP_D_NP = [5, 5, 1]
+JAX_BAND = {"trained": 0.8125, "untrained": 0.0833}
+MIN_BAND_SOLVED = 29
+MIN_BAND_GAIN = 0.30
+# the kernels np-d-np's path must launch: its decimator's pass (smax), the
+# masks, the simplification, the verification, the aggregators' sum and
+# gather (kernels 6, 7) and WalkSAT
+NP_D_NP_KERNELS = ("smax", "em", "em_ae", "sround", "cnf_chain",
+                   "segment_sum_2d", "gather_2d", "walksat_walk")
+# the replicated p-d-p forward of phase 13
+REP_ITERATIONS, REP_FLIPS = 300, 200
+# its card-against-CPU comparison: iterations run on each side (the
+# headline decimator's first fixes come after ~20)
+REP_CMP_ITERATIONS = 30
 REDUCE2D_TOL = dict(rtol=1e-5, atol=1e-5)
 HIDDEN_AGG = 50      # np-nd-np's mem_agg_hidden_dim: the width kernels 6/7 see
 FLOAT_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -187,9 +237,11 @@ def bound_ms(nbytes, flops):
                                  else "operations")
 
 
-def fn_inputs(fn, batch, seed):
+def fn_inputs(fn, batch, seed, active_mask=False):
     """Seeded inputs at the batch's shapes, each drawn like the column its
-    name says it is (0/1 masks are 0 on padding)."""
+    name says it is (0/1 masks are 0 on padding). With active_mask the SP
+    passes' `mask` is drawn as the solver's active-edge flag, which is 1
+    on padding edges too (their variable's instance is active)."""
     import torch
     g = torch.Generator().manual_seed(seed)
     sizes = {"V": batch.num_vars, "F": batch.num_clauses,
@@ -201,6 +253,8 @@ def fn_inputs(fn, batch, seed):
         u = torch.rand(sizes[kind], generator=g).to(batch.device)
         if name == "sign":
             x = batch.edge_sign
+        elif name == "mask" and active_mask and fn.name.startswith("sp_"):
+            x = (u > 0.2).float()
         elif name in ("mask", "bmask"):
             x = batch.edge_mask
         elif name in ("force", "sa"):
@@ -250,6 +304,58 @@ def _flat(outs):
     return flat
 
 
+def hold_pass(fn, batch, ins, torch, label=""):
+    """One fused or chained pass on the card against its plain version on
+    the same inputs, on every output row (flags and counts exactly, else
+    FLOAT_TOL); where it walks the variables, the same bits on a second
+    call; a chained pass's variable sums the bits of the walk's order over
+    the plain terms. Returns (max abs err, the checks beyond the plain
+    version that held)."""
+    from pdp_solver_tpu_torch.ops import fused
+    chained = fn in fused.CHAINED_FNS
+    call = fused.chained_edge_pass if chained else fused.fused_edge_pass
+    plain = (fused.chained_edge_pass_plain if chained
+             else fused.fused_edge_pass_plain)
+    what = f"{fn.name}{label}"
+    ref = plain(fn, batch, ins)
+    got = call(fn, batch, ins)
+    torch.cuda.synchronize()
+    err = 0.0
+    for r, o in zip(ref, got):
+        require((r is None) == (o is None), f"{what}: unexpected output")
+    refs, gots = _flat(ref), _flat(got)
+    for r, o in zip(refs, gots):
+        require(r.shape == o.shape, f"{what}: shape {tuple(o.shape)}"
+                f" != {tuple(r.shape)}")
+        require(bool(torch.isfinite(o).all()), f"{what}: non-finite")
+        err = max(err, float((o - r).abs().max()))
+        if fn.name in EXACT_FNS:
+            require(torch.equal(o, r), f"{what}: not exact "
+                    f"(max abs err {err})")
+        else:
+            ok = torch.allclose(o, r, **FLOAT_TOL)
+            require(ok, f"{what}: max abs err {err} beyond "
+                    f"rtol {FLOAT_TOL['rtol']} / atol "
+                    f"{FLOAT_TOL['atol']}")
+    extra = {}
+    if chained or fn.side == "var":
+        # the group walk: the same bits on a second call
+        again = call(fn, batch, ins)
+        torch.cuda.synchronize()
+        require(all(torch.equal(o, a) for o, a in zip(
+            gots, _flat(again))), f"{what}: two calls differ")
+        extra["twice_equal"] = True
+    if chained and fn.n_vred:
+        # the variable sums in the walk's order over the plain terms
+        emu = fused.chained_vred_walk_order(fn, batch, ins)
+        torch.cuda.synchronize()
+        require(torch.equal(got[1], emu), f"{what}: not the walk's "
+                f"order (max abs diff "
+                f"{float((got[1] - emu).abs().max()):.3g})")
+        extra["walk_order_bits"] = True
+    return err, extra
+
+
 def check_kernels(batch, torch, np):
     from pdp_solver_tpu_torch.ops import fused
     from pdp_solver_tpu_torch.utils.bench_kernels import timed
@@ -260,43 +366,7 @@ def check_kernels(batch, torch, np):
         plain = (fused.chained_edge_pass_plain if chained
                  else fused.fused_edge_pass_plain)
         ins = fn_inputs(fn, batch, seed=len(rows) + 1)
-        ref = plain(fn, batch, ins)
-        got = call(fn, batch, ins)
-        torch.cuda.synchronize()
-        err = 0.0
-        for r, o in zip(ref, got):
-            require((r is None) == (o is None),
-                    f"{fn.name}: unexpected output")
-        refs, gots = _flat(ref), _flat(got)
-        for r, o in zip(refs, gots):
-            require(r.shape == o.shape, f"{fn.name}: shape {tuple(o.shape)}"
-                    f" != {tuple(r.shape)}")
-            require(bool(torch.isfinite(o).all()), f"{fn.name}: non-finite")
-            err = max(err, float((o - r).abs().max()))
-            if fn.name in EXACT_FNS:
-                require(torch.equal(o, r), f"{fn.name}: not exact "
-                        f"(max abs err {err})")
-            else:
-                ok = torch.allclose(o, r, **FLOAT_TOL)
-                require(ok, f"{fn.name}: max abs err {err} beyond "
-                        f"rtol {FLOAT_TOL['rtol']} / atol "
-                        f"{FLOAT_TOL['atol']}")
-        extra = {}
-        if chained or fn.side == "var":
-            # the group walk: the same bits on a second call
-            again = call(fn, batch, ins)
-            torch.cuda.synchronize()
-            require(all(torch.equal(o, a) for o, a in zip(
-                gots, _flat(again))), f"{fn.name}: two calls differ")
-            extra["twice_equal"] = True
-        if chained and fn.n_vred:
-            # the variable sums in the walk's order over the plain terms
-            emu = fused.chained_vred_walk_order(fn, batch, ins)
-            torch.cuda.synchronize()
-            require(torch.equal(got[1], emu), f"{fn.name}: not the walk's "
-                    f"order (max abs diff "
-                    f"{float((got[1] - emu).abs().max()):.3g})")
-            extra["walk_order_bits"] = True
+        err, extra = hold_pass(fn, batch, ins, torch)
         extra.update(timed(lambda: call(fn, batch, ins)))
         ms = extra.pop("ms")
         plain_ms = cuda_ms(lambda: plain(fn, batch, ins), reps=10)
@@ -330,6 +400,33 @@ def check_kernels(batch, torch, np):
     return rows
 
 
+def check_kernels_replicated(insts, torch):
+    """Kernels 1 and 2 on the replicated layout (`replicate_batch`, R =
+    2): every fused and chained functor on the shared set and on a
+    compacted batch (8 instances of 128 rows), each replicated twice, so
+    that the prefix the kernels treat as real holds replica 0's padding
+    edges, clauses, variables and rows. Each is held as in phase 2
+    (`hold_pass`, every output row, padding included), the SP passes'
+    mask drawn as the solver's active-edge flag (1 on padding edges).
+    Returns {functor: {shape: max abs err}}."""
+    from pdp_solver_tpu_torch.fg.batch import pack_instances, replicate_batch
+    from pdp_solver_tpu_torch.ops import fused
+    errs = {}
+    for label, sub in (("shared", insts), ("compacted", insts[:8])):
+        b = replicate_batch(pack_instances(sub, device="cuda"), 2)
+        require(b.inner_padding, f"replicated {label}: no padding inside "
+                "the real prefix")
+        for i, fn in enumerate(fused.FUSED_FNS + fused.CHAINED_FNS):
+            ins = fn_inputs(fn, b, seed=100 + i, active_mask=True)
+            err, extra = hold_pass(fn, b, ins, torch,
+                                   label=f" (replicated {label})")
+            errs.setdefault(fn.name, {})[label] = err
+        log(f"kernels 1-2 on the replicated {label} batch (E={b.num_edges},"
+            f" {b.num_real_edges - b.real.num_edges} padding edges inside "
+            f"the prefix): every functor matches its plain version")
+    return errs
+
+
 # the numbers of blocks each WalkSAT shape is checked at: one, the old
 # launch's 8 iterations a block run 8 times, and a 200-flip chunk
 WALK_BLOCKS = (1, 8, 25)
@@ -347,16 +444,19 @@ def walk_steps(walksat, batch, assign, kw, seeds, K, eps):
     clause; each later one takes only the clauses of the variable the
     iteration before flipped (its real edges, times the clause width),
     since no other clause changed. The selection takes every variable,
-    in the iterations that flip."""
+    in the iterations that flip. The variables, clauses and edges are the
+    rows' real ones (`batch.real`), which the kernel walks."""
     import torch
     dev = assign.device
-    ivp = batch.inst_var_ptr.long()
-    icp = batch.inst_clause_ptr.long()
-    var_deg = (batch.var_ptr[1:] - batch.var_ptr[:-1]).double()
+    real = batch.real
+    ivp = batch.inst_var_ptr[:-1].long()
+    icp = batch.inst_clause_ptr[:-1].long()
+    var_deg = (real.var_ptr[1:] - real.var_ptr[:-1]).double()
     vb = batch.var_batch.long()
     k = batch.clause_width
-    every_clause = (WALK_EDGE_OPS * k * (icp[1:] - icp[:-1])).double()
-    select = (WALK_VAR_OPS * (ivp[1:] - ivp[:-1])).double()
+    every_clause = (WALK_EDGE_OPS * k
+                    * (real.clause_end.long() - icp)).double()
+    select = (WALK_VAR_OPS * (real.var_end.long() - ivp)).double()
     B = batch.batch_size
     snaps = {}
     count = torch.zeros(B, dtype=torch.int64, device=dev)
@@ -384,11 +484,12 @@ def walk_steps(walksat, batch, assign, kw, seeds, K, eps):
 
 def walk_bound(batch, ops, n_blocks):
     """bound_ms of one walk: its inputs read once (ev, w, dm, em a real
-    edge, ac a clause, assign and av a variable, seeds) and its outputs
-    written once (the assignment, the energies), or the operations
-    (walk_steps) its instances' live iterations need."""
-    V, F, E = (batch.num_vars, batch.num_real_clauses,
-               batch.num_real_edges)
+    edge, ac a real clause, assign and av a variable, seeds) and its
+    outputs written once (the assignment, the energies), or the
+    operations (walk_steps) its instances' live iterations need. The real
+    clauses and edges are the rows' (`batch.real`): a replicated batch's
+    padding inside the prefix is none of the walk's work."""
+    V, F, E = batch.num_vars, batch.real.num_clauses, batch.real.num_edges
     nbytes = 16 * E + 4 * F + 12 * V + 4 * batch.batch_size + 4 * n_blocks
     return bound_ms(nbytes, float(ops.sum()))
 
@@ -487,6 +588,93 @@ def check_walksat(insts, torch, np):
                     f"{b_ms:.5f} ms ({b_by})")
     rows["walksat_walk"]["cases"] = cases
     return rows
+
+
+def check_walksat_replicated(insts, torch, np):
+    """The replicated walk (kernel 3 with R = 2: a launch a block, each
+    CTA returning at once once the device's done flag is set) bit for bit
+    against the plain walk with its replica stop (assignments as int32
+    views, energies exactly), 25 blocks of K = 8 at eps 0.5, on the shared
+    set and on a compacted batch (8 instances of 128 rows: padding rows
+    and variables between the replicas), from a random fill (every
+    instance unsat) and from a problem with most clauses inactive, where
+    every instance has a solved replica before the last block. The
+    shared set's random fill is then timed three ways, per call and per
+    block, its bound counting each row's live iterations up to the stop.
+    Returns the row "walksat_walk[replicas=2]"."""
+    from pdp_solver_tpu_torch.fg.batch import pack_instances, replicate_batch
+    from pdp_solver_tpu_torch.ops import walksat
+    from pdp_solver_tpu_torch.utils.bench_kernels import (
+        WALK_SEEDS, timed, walk_inputs)
+    K, R, seeds = 8, 2, WALK_SEEDS
+    g = torch.Generator().manual_seed(19)
+    row, cases = None, {}
+    for label, sub in (("shared", insts), ("compacted", insts[:8])):
+        b = replicate_batch(pack_instances(sub, device="cuda"), R)
+        require(walksat.use_walksat_block(b), f"walksat replicated: {label}"
+                " is not taken by the block rule")
+        for fill in ("unsat", "easy"):
+            assign, av, ac, em = walk_inputs(b, "unsat")
+            if fill == "easy":
+                ac = ac * (torch.rand(b.num_clauses, generator=g)
+                           > 0.8).float().cuda()
+                em = b.edge_mask * av[b.edge_var] * ac[b.edge_clause]
+            kw = dict(batch=b, active_vars=av, active_clauses=ac, em=em,
+                      K=K, eps=0.5)
+            a, stop = assign, None
+            for j, seed in enumerate(seeds):
+                a, e = walksat.walksat_block_plain(a, seed=seed, **kw)
+                if walksat.replicas_done(b, e, R) > 0:
+                    stop = j
+                    break
+            n0 = walksat.walksat_walk.launches
+            got_a, got_e = walksat.walksat_walk(assign, seeds=seeds,
+                                                replicas=R, **kw)
+            torch.cuda.synchronize()
+            require(walksat.walksat_walk.launches - n0 == len(seeds),
+                    "walksat replicated: not one launch a block")
+            same = (np.array_equal(got_a.cpu().numpy().view(np.int32),
+                                   a.cpu().numpy().view(np.int32))
+                    and torch.equal(got_e, e))
+            require(same, f"walksat replicated ({label}, {fill}): not "
+                    f"bit-exact, {int((got_a != a).sum())} variables differ")
+            if fill == "easy":
+                require(stop is not None and stop < len(seeds) - 1,
+                        f"walksat replicated ({label}): the walk never "
+                        "stopped early")
+            n_run = len(seeds) if stop is None else stop + 1
+            log(f"walksat replicated {label} {fill} (R = {R}, "
+                f"{b.num_instances} rows launched): bit-exact, every "
+                f"instance solved by a replica after "
+                f"{'no' if stop is None else stop + 1} of {len(seeds)} "
+                "blocks")
+            if (label, fill) != ("shared", "unsat"):
+                continue
+            t = timed(lambda: walksat.walksat_walk(assign, seeds=seeds,
+                                                   replicas=R, **kw))
+            _, live, ops = walk_steps(walksat, b, assign, dict(
+                batch=b, active_vars=av, active_clauses=ac, em=em),
+                seeds[:n_run], K, 0.5)
+            b_ms, b_by = walk_bound(b, ops, len(seeds))
+            plain_ms = cuda_ms(lambda: walksat.walksat_walk_plain(
+                assign, seeds=seeds, replicas=R, **kw), reps=1, warmup=1)
+            row = dict({
+                "name": "walksat_walk[replicas=2]", "route": "cuda",
+                "source": "pdp_solver_tpu_torch/csrc/walksat.cu",
+                "replaces": "pdp_solver_tpu/ops/pallas_walksat.py:285",
+                "max_abs_err": 0.0, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "blocks": len(seeds), "launches_per_call": len(seeds),
+                "blocks_run": n_run, "live_iterations": int(live.sum())},
+                **t)
+            row["ms_per_block"] = row["ms"] / len(seeds)
+            log(f"walksat replicated shared unsat ({len(seeds)} blocks, "
+                f"{len(seeds)} launches): {timing_note(t)}, "
+                f"{row['ms_per_block']:.4f} ms a block, plain "
+                f"{plain_ms:.2f} ms, bound {b_ms:.5f} ms ({b_by})")
+            cases[f"{label} {fill}"] = t
+    row["cases"] = cases
+    return {"walksat_walk[replicas=2]": row}
 
 
 def check_reduce2d(batch, torch):
@@ -1014,22 +1202,28 @@ def check_sp_sweep(batch, compacted, torch):
     two launches it replaces (its variable sums take the chained pass's
     walk order), for pi = 0 (p-d-p), 0.01 (reinforce) and in its
     log-input form at pi = 0 (p-nd-np), at the shared-set shapes, on a
-    compacted batch and on the hub batch (one 63,488-edge variable, cut
-    in pieces over a cluster of 16 CTAs). On the hub the plain version is
+    compacted batch, on the hub batch (one 63,488-edge variable, cut
+    in pieces over a cluster of 16 CTAs) and on the shared set and the
+    compacted batch replicated twice (replica 0's padding inside the
+    prefix, the mask 1 on padding edges as the solver's active-edge flag
+    is). On the hub the plain version is
     taken in float64 and held at an absolute 5e-5 (a float32 sum of
     63,488 terms in any order is itself ~1e-5 off; a wrong sum is off by
     a whole term, ~1e-2 or more), beside the two launches' bits."""
+    from pdp_solver_tpu_torch.fg.batch import replicate_batch
     from pdp_solver_tpu_torch.ops import fused, sp_sweep
     from pdp_solver_tpu_torch.utils.bench_kernels import hub_batch, timed
     E, V, F, B = (batch.num_edges, batch.num_vars, batch.num_clauses,
                   batch.batch_size)
     e = batch.num_real_edges
-    hub = hub_batch()
+    shapes = (("shared", batch), ("compacted", compacted),
+              ("high_degree", hub_batch()),
+              ("shared_replicated", replicate_batch(batch, 2)),
+              ("compacted_replicated", replicate_batch(compacted, 2)))
     per_case = {}
     for pi, login in ((0.0, False), (0.01, False), (0.0, True)):
         case = f"login, pi {pi}" if login else f"pi {pi}"
-        for label, b in (("shared", batch), ("compacted", compacted),
-                         ("high_degree", hub)):
+        for label, b in shapes:
             kw = sweep_inputs(b, torch, 31, pi, login)
             cols = tuple(kw.values())
             chain = fused.SP_CHAIN_LOGIN if login else fused.SP_CHAIN
@@ -1101,8 +1295,10 @@ def check_sp_sweep(batch, compacted, torch):
             "name": name, "route": "cuda",
             "source": "pdp_solver_tpu_torch/csrc/sp_sweep.cu",
             "replaces": "pdp_solver_tpu/ops/pallas_sp.py:166",
-            "max_abs_err": max(max(r["max_abs_err"], r["compacted"][
-                "max_abs_err"]) for r in cases.values()),
+            "max_abs_err": max(max([r["max_abs_err"]] + [
+                r[k]["max_abs_err"] for k in ("compacted", "shared_replicated",
+                                              "compacted_replicated")])
+                for r in cases.values()),
             "ms": main["ms"], "host_us": main["host_us"],
             "device_us": main["device_us"], "cluster": main["cluster"],
             "plain_ms": main["plain_ms"],
@@ -1294,6 +1490,115 @@ def reinforce_card_vs_cpu(insts, torch):
             "force_diff_share_10": share}
 
 
+def replicated_forward(insts, torch):
+    """p-d-p's forward(replication=2) on the shared set at the headline
+    settings with REP_ITERATIONS iterations and REP_FLIPS WalkSAT flips,
+    check_termination on: every instance's deduplicated solution verified
+    with numpy against its CNF and against the solver's own verification
+    (raises if they disagree)."""
+    from pdp_solver_tpu_torch.fg.batch import pack_instances
+    from pdp_solver_tpu_torch.solvers.base import WALKSAT_K
+    from pdp_solver_tpu_torch.train.loss import cnf_evaluate
+    from pdp_solver_tpu_torch.utils.headline import (
+        HEADLINE, headline_solver, verify_solution)
+    solver = headline_solver(dict(HEADLINE, ls=REP_FLIPS))
+    batch = pack_instances(insts, device="cuda")
+    gen = torch.Generator().manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    state = solver.get_init_state(gen, batch, randomized=True,
+                                  replication=2)
+    (pred, _), _ = solver.forward({}, gen, batch, state, REP_ITERATIONS,
+                                  check_termination=True, replication=2)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    require(pred.shape == (batch.num_vars, 1), "the replicated forward's "
+            f"prediction has shape {tuple(pred.shape)}")
+    sol = (pred[:, 0] > 0.5).float().cpu().numpy()
+    ok, off = [], 0
+    for inst in insts:
+        ok.append(verify_solution(inst, sol[off:off + inst[0]]))
+        off += inst[0]
+    flags = cnf_evaluate(batch, pred)[0][:len(insts)].cpu().numpy() > 0
+    if ok != flags.tolist():
+        raise RuntimeError("a solution the solver reports disagrees with "
+                           "numpy")
+    return {"solved": sum(ok), "wall_s": wall,
+            "blocks": REP_FLIPS // WALKSAT_K}
+
+
+def _tensors(x):
+    """The tensors of a state or carry (dataclasses, tuples), in order."""
+    import dataclasses
+    import torch
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if dataclasses.is_dataclass(x):
+        x = [getattr(x, f.name) for f in dataclasses.fields(x)]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _tensors(v)]
+    return []
+
+
+def replicated_card_vs_cpu(insts, torch):
+    """Phase 13's forward(replication=2) from one injected state at full
+    size, on the card and on the CPU: after one iteration (the sequential
+    decimator's first, which fixes nothing) every message and decimator
+    column on every edge, padding included, to FLOAT_TOL, and the loop's
+    carry (the problem's flags and solution, the active instances, the
+    edge mask) exactly; then on to REP_CMP_ITERATIONS on each side from
+    its own state, the decimator fixing variables, and the share of
+    variables whose active flag or solution differs, which must stay
+    under MAX_FORCE_DIFF_SHARE (a near tie of |score| that the order of a
+    sum decides can send an instance another way)."""
+    from pdp_solver_tpu_torch.fg.batch import pack_instances, replicate_batch
+    from pdp_solver_tpu_torch.utils.headline import HEADLINE, headline_solver
+    solver = headline_solver(dict(HEADLINE, ls=REP_FLIPS))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        batch = pack_instances(insts, device=dev)
+        gen = torch.Generator().manual_seed(0)
+        state = solver.get_init_state(gen, batch, randomized=True,
+                                      replication=2)
+        _, s1, c1 = solver.forward({}, gen, batch, state, 1,
+                                   check_termination=True, finalize=False,
+                                   replication=2)
+        runs[dev] = [replicate_batch(batch, 2), s1, c1]
+    (bg, sg, cg), (bc, sc, cc) = runs["cuda"], runs["cpu"]
+    msg_err = 0.0
+    for a, b in zip(_tensors(sg), _tensors(sc)):
+        a = a.cpu()
+        require(a.shape == b.shape, "replicated card vs cpu: state shapes "
+                "differ")
+        if a.is_floating_point():
+            msg_err = max(msg_err, float((a - b).abs().max()))
+            require(torch.allclose(a, b, **FLOAT_TOL), "replicated card vs "
+                    f"cpu: states differ by {msg_err} after 1 iteration")
+    carry_g, carry_c = _tensors(cg), _tensors(cc)
+    for a, b in zip(carry_g, carry_c):
+        require(torch.equal(a.cpu(), b), "replicated card vs cpu: the "
+                "problem, flags or edge mask differ after 1 iteration")
+    for dev, run in runs.items():
+        b, st, carry = run
+        _, run[1], run[2] = solver.forward(
+            {}, torch.Generator().manual_seed(1), b, st,
+            REP_CMP_ITERATIONS - 1,
+            check_termination=True, carry=carry, finalize=False,
+            replication=2)
+    pg, pc = runs["cuda"][2][0], runs["cpu"][2][0]
+    real = bc.var_mask > 0
+    differ = ((pg.active_vars.cpu() != pc.active_vars)
+              | (pg.solution.cpu() != pc.solution)) & real
+    share = float(differ.sum()) / float(real.sum())
+    fixed = int(((pc.active_vars == 0) & real).sum())
+    flags = int((runs["cuda"][2][1].cpu() != runs["cpu"][2][1]).sum())
+    require(share < MAX_FORCE_DIFF_SHARE, f"replicated card vs cpu: "
+            f"{share:.4%} of the variables differ after "
+            f"{REP_CMP_ITERATIONS} iterations")
+    return {"state_max_abs_err": msg_err, "var_diff_share": share,
+            "inactive_vars": fixed, "flag_diffs": flags}
+
+
 def reset_counts():
     from pdp_solver_tpu_torch.ops import (
         fused, reduce, reduce2d, sp_sweep, verify, walksat)
@@ -1375,11 +1680,14 @@ def main():
             f"real) V={batch.num_vars} F={batch.num_clauses} "
             f"B={batch.batch_size}")
         rows = check_kernels(batch, torch, np)
+        for name, errs in check_kernels_replicated(insts, torch).items():
+            rows[name]["replicated_max_abs_err"] = errs
         rows.update(check_reduce2d(batch, torch))
         rows.update(check_reduce(batch, torch, np))
         for name, per_case in check_walk(insts, torch, np).items():
             rows[name]["walk_cases"] = per_case
         rows.update(check_walksat(insts, torch, np))
+        rows.update(check_walksat_replicated(insts, torch, np))
         rows.update(check_sp_sweep(
             batch, pack_instances(insts[:8], device="cuda"), torch))
         del batch
@@ -1508,6 +1816,74 @@ def main():
                 f"{qlaunches.get('sp_chain_login', 0)} sp_chain_login, "
                 f"{qlaunches.get('em_ae', 0)} em_ae")
 
+        from pdp_solver_tpu_torch.utils.neural import (
+            np_d_np_3sat_band, np_d_np_params, solve_np_d_np)
+        dparams = np_d_np_params()
+        dres, dlaunches = run_path(lambda: solve_np_d_np(
+            insts, seed=0, params=dparams))
+        log(f"phase 10 np-d-np path: solved {dres['solved']}/{len(insts)} "
+            f"(verified with numpy; the JAX package's records: "
+            f"{JAX_NP_D_NP} of {len(insts)}, seeds 0-2) in "
+            f"{dres['wall_s']:.2f} s; loop {dres['loop_wall_s']} s, walksat "
+            f"{dres['ls_wall_s']} s, {dres['chunks']} chunks, "
+            f"{dres['compactions']} compactions, progress "
+            f"{dres['progress']}")
+        log(f"launches on the np-d-np path: {json.dumps(dlaunches)}")
+        for name in NP_D_NP_KERNELS:
+            require(dlaunches.get(name, 0) > 0,
+                    f"np-d-np never launched {name}")
+
+        band = np_d_np_3sat_band(dparams)
+        fresh = np_d_np_3sat_band(np_d_np_params(trained=False, seed=0))
+        log(f"phase 11 np-d-np on the medium 3-SAT band (48 instances, n 60,"
+            f" alpha 3.5, 300 iterations, decimation only): trained "
+            f"{band['solved']}/48 = {band['solved_fraction']:.4f} (JAX "
+            f"{JAX_BAND['trained']}), fresh init {fresh['solved']}/48 = "
+            f"{fresh['solved_fraction']:.4f} (JAX untrained "
+            f"{JAX_BAND['untrained']}), verified with numpy; "
+            f"{band['wall_s']:.2f} s and {fresh['wall_s']:.2f} s")
+        require(band["solved"] >= MIN_BAND_SOLVED,
+                f"np-d-np solved {band['solved']}/48 of the band < "
+                f"{MIN_BAND_SOLVED}")
+        gain = band["solved_fraction"] - fresh["solved_fraction"]
+        require(gain >= MIN_BAND_GAIN, "the trained np-d-np beats its "
+                f"fresh init by {gain:.4f} < {MIN_BAND_GAIN}")
+
+        xres, xlaunches = run_path(lambda: solve_headline(
+            insts, seed=0, replicas=2))
+        log(f"phase 12 p-d-p compacting_solve(replicas=2): solved "
+            f"{xres['solved']}/{len(insts)} = {xres['solved_fraction']:.4f}"
+            f" (verified with numpy; phase 3 with one slot an instance "
+            f"solved {res['solved']}) in {xres['wall_s']:.2f} s; attempts "
+            f"{xres['attempt_solved']}, pdp {xres['pdp_wall_s']} s, walksat "
+            f"{xres['ls_wall_s']} s, {xres['compactions']} compactions")
+        log(f"launches on the replicas=2 path: {json.dumps(xlaunches)}")
+        require(xres["solved_fraction"] >= MIN_SOLVED,
+                f"p-d-p with replicas=2 solved {xres['solved_fraction']} < "
+                f"{MIN_SOLVED}")
+
+        fres, flaunches = run_path(lambda: replicated_forward(insts, torch))
+        log(f"phase 13 p-d-p forward(replication=2) on the shared set "
+            f"({REP_ITERATIONS} iterations, {REP_FLIPS} flips, "
+            f"check_termination): {fres['solved']}/{len(insts)} "
+            f"deduplicated solutions verified with numpy (the solver's "
+            f"flags agree) in {fres['wall_s']:.2f} s; "
+            f"{flaunches['walksat_walk']} walk launches for "
+            f"{fres['blocks']} blocks")
+        log(f"launches on the replicated forward: {json.dumps(flaunches)}")
+        require(flaunches["walksat_walk"] == fres["blocks"],
+                f"the replicated walk launched {flaunches['walksat_walk']} "
+                f"times for {fres['blocks']} blocks")
+        rcmp = replicated_card_vs_cpu(insts, torch)
+        log(f"phase 13 replicated card vs cpu: every state column on every "
+            f"edge within rtol {FLOAT_TOL['rtol']} / atol "
+            f"{FLOAT_TOL['atol']} (max abs err "
+            f"{rcmp['state_max_abs_err']:.3g}) and the carry exact after 1 "
+            f"iteration; after {REP_CMP_ITERATIONS}, "
+            f"{rcmp['var_diff_share']:.4%} of the variables differ "
+            f"({rcmp['inactive_vars']} inactive on the CPU), "
+            f"{rcmp['flag_diffs']} instance flags differ")
+
         # seeds 0-2 of p-d-p and reinforce beside earlier counts (seed 0
         # is phases 3 and 6)
         pdp = [res["solved"]] + [solve_headline(insts, seed=k)["solved"]
@@ -1525,7 +1901,8 @@ def main():
                   "sorted_segment_sum": rlaunches,
                   "sp_full_sweep": slaunches, "sp_chain_login": plaunches,
                   "sp_full_sweep[login]": qlaunches,
-                  "verify_and_masks": qlaunches}
+                  "verify_and_masks": qlaunches, "smax": dlaunches,
+                  "walksat_walk[replicas=2]": flaunches}
         path_rows = []
         for name, row in rows.items():
             path = serves.get(name, launches)

@@ -78,6 +78,27 @@ def _np_nd_np_config(tree):
         raise KeyError(f"not an np-nd-np parameter tree: lacks {e}") from e
 
 
+def _np_d_np_config(tree):
+    """The np-d-np widths, read off the parameter shapes: the propagator's
+    aggregators as np-nd-np's (their w1_a takes the mem_agg columns and
+    the sign feature), the scorer's classifier for classifier_dim (its
+    aggregator's w1_a takes the mem_agg columns alone, NeuralPredictorConfig
+    .aggregator_cfg's feature_dim 0; load_into checks its shapes)."""
+    try:
+        agg = tree["prop"]["var_agg"]
+        cls = tree["scorer"]["classifier"]
+        mem_agg = np.shape(agg["w2_m"]["w"])[1]
+        return SolverConfig(
+            model_type="np-d-np", hidden_dim=np.shape(agg["w2_a"]["w"])[1],
+            edge_dim=np.shape(agg["w1_a"]["w"])[0] - mem_agg,
+            mem_hidden_dim=np.shape(agg["w1_m"]["w"])[1],
+            mem_agg_hidden_dim=mem_agg,
+            agg_hidden_dim=np.shape(agg["w1_a"]["w"])[1],
+            classifier_dim=np.shape(cls["l1"]["w"])[1])
+    except (KeyError, TypeError, IndexError) as e:
+        raise KeyError(f"not an np-d-np parameter tree: lacks {e}") from e
+
+
 def _p_nd_np_config(tree):
     """The p-nd-np widths, read off the parameter shapes: the decimator's
     GRU takes the 3 stacked SP columns and the sign (edge_dim = w_ih rows
@@ -143,16 +164,21 @@ def params_from_jax(np_params, device="cuda"):
     {} (p-d-p) gives {}. A tree with "prop", "dec" and "predictor" gives
     the ModuleDict of PDPSolver.init_params: p-nd-np when "prop" holds the
     SP adaptors (`var_proj`, `fn_proj`) and no aggregator, else np-nd-np.
+    A tree with "prop" (the neural propagator) and "scorer" gives np-d-np's.
     Its widths are read off the shapes, and it is loaded by `load_into`
     (which raises on an unknown, missing or misshapen key)."""
     tree = dict(np_params)
     if not tree:
         return {}
-    unknown = sorted(set(tree) - {"prop", "dec", "predictor"})
+    if "scorer" in tree:
+        kind, make = {"prop", "scorer"}, _np_d_np_config
+    else:
+        kind = {"prop", "dec", "predictor"}
+        make = _p_nd_np_config if _is_p_nd_np(tree) else _np_nd_np_config
+    unknown = sorted(set(tree) - kind)
     if unknown:
         raise KeyError(f"no ported module takes parameters {unknown}")
-    cfg = (_p_nd_np_config if _is_p_nd_np(tree) else _np_nd_np_config)(tree)
-    return load_into(PDPSolver(cfg).init_params(device), tree)
+    return load_into(PDPSolver(make(tree)).init_params(device), tree)
 
 
 def messages_from_jax(np_msgs, device="cuda") -> SPMessages:
@@ -199,7 +225,8 @@ def state_from_jax(np_state, device="cuda"):
     ReinforceDecimatorState, ProblemState or neural (var [E, h], fn [E, h])
     pair as numpy arrays -> the port's counterpart on `device`. walk-sat's
     empty state ((), (), ()) stays empty; p-nd-np's mixed state (SP
-    messages, a neural pair, ()) keeps its mix."""
+    messages, a neural pair, ()) and np-d-np's (two neural pairs and a
+    SeqDecimatorState) keep their mix."""
     kind = type(np_state).__name__
     if kind == "SPMessages":
         return messages_from_jax(np_state, device)
@@ -215,7 +242,9 @@ def state_from_jax(np_state, device="cuda"):
             return SolverState(prop=(), dec=(), aux=())
         if _is_neural_pair(dec):
             return SolverState(prop=state_from_jax(prop, device),
-                               dec=state_from_jax(dec, device), aux=())
+                               dec=state_from_jax(dec, device),
+                               aux=_aux_from_jax(aux, device) if aux
+                               else ())
         return SolverState(prop=messages_from_jax(prop, device),
                            dec=messages_from_jax(dec, device),
                            aux=_aux_from_jax(aux, device))

@@ -15,6 +15,12 @@
 // var_perm[var_ptr[v] .. var_ptr[v+1]) in increasing edge order. Padding
 // edges [e_real, e_total) take part in no reduce (their contributions are
 // masked to zero in every functor) but still get their edge outputs.
+// A replicated batch (fg/batch.py) also holds padding edges inside
+// [0, e_real), each in a padding clause's clause_ptr range while its
+// edge_clause names its replica's last real clause (inner_pad 1): the
+// clause phase gives such an edge's outputs the columns of the clause
+// edge_clause names, recomputed from that clause's edges, as the plain
+// version does.
 //
 // Reduces: one thread per clause (its edges are contiguous) in the chained
 // pass's first phase; every reduce to variables (the fused pass's var side
@@ -83,6 +89,25 @@ struct SmaxScorer {
     r[5] = fm1 * flag(sign == 1.0f);
     r[6] = fm1 * flag(sign == -1.0f);
     r[7] = fm1;
+  }
+};
+
+// decimator convergence smooth-max columns (decimate.py _smax_pass2 :114,
+// the same as columns 0-1 of _smax_pass4 :122). in: prev_eta, eta, em,
+// bmask. The JAX package takes _smax_pass4 whenever termination is
+// tracked, but its paramagnetic columns 2-3 are read for classical message
+// states only (decimate.py :270); np-d-np's sequential decimator, over the
+// neural propagator's fn[:, 0], reads columns 0-1 alone, so this one
+// 2-column functor gives every output np-d-np uses, with or without
+// termination tracking.
+struct Smax {
+  static const char* name() { return "smax"; }
+  static constexpr int SIDE = 1, NIN = 4, NR = 2, NE = 0;
+  __device__ static void f(const Cols& a, int e, float* r, float*) {
+    const float diff = fabsf(a.in[0][e] - a.in[1][e]) * a.in[2][e];
+    const float c = safe_exp(30.0f * diff) * a.in[3][e];
+    r[0] = diff * c;
+    r[1] = c;
   }
 };
 
@@ -279,7 +304,7 @@ struct WalksatChain {
 };
 
 #define PDP_FUSED_FNS(X) \
-  X(SpPassC) X(SmaxScorer) X(Scorer) X(EmAe) X(Em) X(Ae)
+  X(SpPassC) X(SmaxScorer) X(Smax) X(Scorer) X(EmAe) X(Em) X(Ae)
 #define PDP_CHAINED_FNS(X) \
   X(SpChain) X(SpChainLogin) X(SimplifyRound) X(CnfChain) X(WalksatChain)
 
@@ -348,12 +373,12 @@ __global__ void fused_reduce_kernel(WalkPlan p, Cols a, const int* ptr,
 // own inputs, and the clause's edges are contiguous, so neighbouring
 // threads write neighbouring runs; the var walk then reads only what its
 // sums need).
+// clause c's sum of f1 over its edges and f2 of it
 template <class F>
-__global__ void chained_clause_kernel(Cols a, const int* clause_ptr,
-                                      int n_clauses, float* cout, float* bc,
-                                      float* irc) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= n_clauses) return;
+__device__ __forceinline__ void clause_columns(const Cols& a,
+                                               const int* clause_ptr, int c,
+                                               float* co, float* b,
+                                               float* ir) {
   float cr[F::NCRED], t[F::NCRED];
 #pragma unroll
   for (int i = 0; i < F::NCRED; ++i) cr[i] = 0.0f;
@@ -363,12 +388,30 @@ __global__ void chained_clause_kernel(Cols a, const int* clause_ptr,
 #pragma unroll
     for (int i = 0; i < F::NCRED; ++i) cr[i] += t[i];
   }
-  float co[PDP_N1(F::NCOUT)], b[PDP_N1(F::NBC)], ir[PDP_N1(F::NIRED)];
   F::f2(a, c, cr, co, b, ir);
+}
+
+template <class F>
+__global__ void chained_clause_kernel(Cols a, const int* clause_ptr,
+                                      int n_clauses, float* cout, float* bc,
+                                      float* irc, int inner_pad) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= n_clauses) return;
+  float co[PDP_N1(F::NCOUT)], b[PDP_N1(F::NBC)], ir[PDP_N1(F::NIRED)];
+  clause_columns<F>(a, clause_ptr, c, co, b, ir);
   if (F::NE > 0) {
+    const int e1 = clause_ptr[c + 1];
     for (int e = clause_ptr[c]; e < e1; ++e) {
       float vr[PDP_N1(F::NVRED)], o[PDP_N1(F::NE)];
-      F::f3(a, e, b, vr, o);
+      if (inner_pad && a.ec[e] != c) {
+        // a padding edge inside the prefix: its own clause's columns
+        float co2[PDP_N1(F::NCOUT)], b2[PDP_N1(F::NBC)],
+            ir2[PDP_N1(F::NIRED)];
+        clause_columns<F>(a, clause_ptr, a.ec[e], co2, b2, ir2);
+        F::f3(a, e, b2, vr, o);
+      } else {
+        F::f3(a, e, b, vr, o);
+      }
 #pragma unroll
       for (int i = 0; i < F::NE; ++i) a.eo[i][e] = o[i];
     }
@@ -468,6 +511,7 @@ struct ChainedArgs {
   int n_inst;
   int e_real;
   int e_total;
+  int inner_pad;
   const void* ins[PDP_MAX_IN];
   float* eouts[PDP_MAX_EOUT];
   const int* ev;
@@ -525,7 +569,7 @@ static int launch_chained(const ChainedArgs& f, const Cols& a,
                 "edge outputs come from the var phase");
   if (f.n_clauses > 0)
     chained_clause_kernel<F><<<blocks_for(f.n_clauses), PDP_THREADS, 0, st>>>(
-        a, f.clause_ptr, f.n_clauses, f.cout, f.bc, f.irc);
+        a, f.clause_ptr, f.n_clauses, f.cout, f.bc, f.irc, f.inner_pad);
   if constexpr (F::NVRED > 0) {
     WalkPlan p;
     if (!make_walk_plan(f.n_vars, f.e_real, f.group, f.heavy != 0,

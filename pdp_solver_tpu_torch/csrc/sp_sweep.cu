@@ -65,6 +65,9 @@
 // and variable, by the packing contract: the CTA sums that variable in the
 // walk's order; any other id is summed on the spot, one thread repeating the
 // walk's order lane by lane), and applies the same per-edge formulas.
+// Padding edges inside [0, e_real) (a replicated batch, inner_pad 1) sit
+// in padding clauses' ranges; their eta takes the sum of the clause their
+// edge_clause names, as edge_pass.cu's clause phase does.
 // Tried on the H100 and not kept (device us, shared set, against 20-21 for
 // the two phases in turn): variables before clauses with the clauses
 // between the barrier's arrival and wait (21-25); the walk's terms staged in
@@ -125,6 +128,7 @@ struct SweepArgs {
   int max_inst_vars;
   int e_real;
   int e_total;
+  int inner_pad;
   int group;
   int heavy;
   int cluster;
@@ -187,6 +191,14 @@ __device__ void clause_phase(const SweepArgs& a, int ca, int cb,
       for (int i = lo; i < hi; ++i)
         s += sp_log_u_masked<LOGIN>(tu[i], tem[i]);
       for (int i = lo; i < hi; ++i) tcl[i] = s;
+      if (a.inner_pad) {
+        // padding edges inside the prefix: the sum of the clause their
+        // edge_clause names (fg/batch.py, edge_pass.cu)
+        for (int i = lo; i < hi; ++i) {
+          const int ce = a.ec[e0 + i];
+          if (ce != c) tcl[i] = clause_log_u_sum<LOGIN>(a, ce);
+        }
+      }
     }
     part_sync(nt);
     for (int i = tid; i < n; i += nt) {

@@ -53,7 +53,28 @@
 // version's f32 sums. Instances too large to stage keep their clauses
 // (template SE = false) or also their variables (SV = false: the output
 // and a global scratch) in global memory, in the same kernel. W is the
-// widest clause the kernel's registers take (4 or 8).
+// widest clause the kernel's registers take (4 or 8). An instance is its
+// real variables and clauses, [inst_var_ptr[b], var_end[b]) and
+// [inst_clause_ptr[b], clause_end[b]), and the var-major CSR of its real
+// edges: a replicated batch keeps each replica's padding (but the last's)
+// inside its last real instance's ranges (fg/batch.py), which the walk
+// leaves out, copying those variables as they are, so an instance is
+// sized, staged and walked as in the packed batch (fg/batch.py RealRows).
+//
+// Replicas (a batch replicated R times, instance r * B0 + b a replica of
+// b): the JAX package runs its blocks while some instance has no solved
+// replica, testing after each block (solvers/base.py block_done :658),
+// which freezes the unsolved replicas of the solved instances. That test
+// spans the whole grid, and the CTAs of a launch (512 with staged shared
+// memory) are not all resident at once, so no CTA may wait on it inside a
+// launch. With R > 1 the wrapper launches once a block, in place: each
+// CTA, after writing its energy, counts itself in on an arrival counter
+// (a fence, then an atomic add); the last one reads every energy and
+// writes the done flag (every instance has a replica whose energy is not
+// positive) and sets the counter back to 0; a launch whose flag is set
+// returns at once in every CTA. So the walk never waits on the host, and
+// a launch after the walk is done costs an empty grid. R = 1 keeps the
+// single launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -72,7 +93,8 @@ struct WalkArgs {
   const float* dm;             // f32[E] mask * active_var
   const float* em;             // f32[E] edge mask
   const float* ac;             // f32[F] active clauses
-  const int* var_ptr;          // i32[V+1] the var-major CSR (real edges)
+  const int* var_ptr;          // i32[V+1] the var-major CSR of the real
+                               // edges (edge_mask 1)
   const int* vref;             // i32[E real] its edges' local clauses, -1
                                // on a variable's second slot in a clause
   const short* lv;             // i16[F real * W] clause-major local
@@ -85,7 +107,11 @@ struct WalkArgs {
   float* out;                  // f32[V] the assignment leaving the walk
   float* energy;               // f32[n_rows]
   int* sums;                   // i32[2V] scratch when SV is false
-  int n_inst;                  // real instances: rows [0, n_inst)
+  const int* var_end;          // i32[n_rows] each row's real variables
+  const int* clause_end;       // and clauses end here
+  const float* inst_mask;      // f32[n_rows] (replicas > 1)
+  int* flags;                  // i32[2]: arrivals, done (replicas > 1)
+  int n_inst;                  // the rows launched: [0, n_inst)
   int n_rows;
   int n_vars;
   int width;                   // the uniform clause width, 1..8
@@ -97,6 +123,8 @@ struct WalkArgs {
   int threads;
   int stage_vars;
   int stage_edges;
+  int replicas;                // R; the rows are R * B0
+  int check_done;              // return at once if flags[1] is set
   void* stream;
 };
 
@@ -259,6 +287,36 @@ struct WalkClauses {
   }
 };
 
+// After a CTA of a replicated walk has written its energy: the last CTA
+// to arrive sets flags[1] to 1 if every instance b < B0 with inst_mask 1
+// has a replica r whose energy (row r * B0 + b) is not positive, else to
+// 0, and sets the arrival counter back to 0. CTA 0 writes the rows after
+// n_inst before it arrives.
+__device__ void replicas_done(const WalkArgs& a) {
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(&a.flags[0], 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int b0 = a.n_rows / a.replicas;
+  int open = 0;
+  for (int b = threadIdx.x; b < b0; b += blockDim.x) {
+    if (!(a.inst_mask[b] > 0.0f)) continue;
+    bool solved = false;
+    for (int r = 0; r < a.replicas && !solved; ++r)
+      solved = !(__ldcg(&a.energy[r * b0 + b]) > 0.0f);
+    open |= !solved;
+  }
+  open = __syncthreads_or(open);
+  if (threadIdx.x == 0) {
+    a.flags[1] = open ? 0 : 1;
+    a.flags[0] = 0;
+  }
+}
+
 template <int W, bool SV, bool SE>
 __global__ void __launch_bounds__(WS_MAX_THREADS, 1)
     walksat_walk_kernel(const WalkArgs a) {
@@ -266,10 +324,12 @@ __global__ void __launch_bounds__(WS_MAX_THREADS, 1)
   // the warps' selection keys, by iteration parity
   __shared__ unsigned long long keys[2][32];
   __shared__ int energy;
+  // a replicated walk that an earlier launch found done
+  if (a.check_done && *(volatile const int*)&a.flags[1]) return;
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, wid = tid >> 5, nw = nt >> 5;
-  const int v0 = a.inst_var_ptr[b], nv = a.inst_var_ptr[b + 1] - v0;
-  const int c0 = a.inst_clause_ptr[b], nc = a.inst_clause_ptr[b + 1] - c0;
+  const int v0 = a.inst_var_ptr[b], nv = a.var_end[b] - v0;
+  const int c0 = a.inst_clause_ptr[b], nc = a.clause_end[b] - c0;
   const int k = a.width;
   const bool rand = a.eps >= 0.0f;
 
@@ -279,6 +339,9 @@ __global__ void __launch_bounds__(WS_MAX_THREADS, 1)
       a.out[i] = a.assign[i];
     for (int r = a.n_inst + tid; r < a.n_rows; r += nt) a.energy[r] = 0.0f;
   }
+  // the padding variables inside the row's range: unchanged
+  for (int i = v0 + nv + tid; i < a.inst_var_ptr[b + 1]; i += nt)
+    a.out[i] = a.assign[i];
 
   float* asg;
   int *delta, *uvs;
@@ -417,6 +480,7 @@ __global__ void __launch_bounds__(WS_MAX_THREADS, 1)
   if constexpr (SV)
     for (int i = tid; i < nv; i += nt) a.out[v0 + i] = asg[i];
   if (tid == 0) a.energy[b] = en;
+  if (a.replicas > 1) replicas_done(a);
 }
 
 typedef void (*WalkKernel)(const WalkArgs);
@@ -449,13 +513,17 @@ int pdp_walksat_setup(const WalkArgs* a) {
       (int)walk_smem(*a));
 }
 
-// n_blocks * K iterations from `assign` into `out` (never the same
-// buffer) for instances [0, n_inst); energy: f32[n_rows], each instance's
-// unsat count entering the last iteration it ran, 0 on the rows of no
-// instance.
+// n_blocks * K iterations from `assign` into `out` (the same buffer, or
+// buffers that do not overlap) for instances [0, n_inst); energy:
+// f32[n_rows], each instance's unsat count entering the last iteration it
+// ran, 0 on the rows of no instance. With replicas > 1: the done flag's
+// arrival protocol above; with check_done, nothing is written if the flag
+// is set.
 int pdp_walksat_walk(const WalkArgs* a) {
   WalkKernel kernel = walk_kernel(*a);
-  if (!kernel || a->n_blocks < 1 || a->K < 1)
+  if (!kernel || a->n_blocks < 1 || a->K < 1 || a->replicas < 1 ||
+      a->n_rows % a->replicas || !a->var_end || !a->clause_end ||
+      (a->replicas > 1 && (!a->flags || !a->inst_mask)))
     return (int)cudaErrorInvalidValue;
   kernel<<<a->n_inst > 0 ? a->n_inst : 1, a->threads, walk_smem(*a),
            static_cast<cudaStream_t>(a->stream)>>>(*a);

@@ -32,9 +32,38 @@ Added for the CUDA kernels (built once at pack time, int32):
   var_max_degree /    the largest number of real edges of one variable /
   clause_max_degree   clause: the segment sums' group walk skips its
                       blocks for very high degree when no node needs them.
-  num_instances       the real instances (rows [0, n) of the B padded
-                      ones): the one-cluster-an-instance kernels size
+  num_instances       the rows [0, n) of the B that the per-instance
+                      kernels launch (3, 9, 10, the chained pass's
+                      instance sums): the real instances of a packed
+                      batch; the one-cluster-an-instance kernels size
                       their clusters by it (ops/_build.py cluster_size).
+  real                `RealRows`: each row's real variables and clauses
+                      and the var-major CSR of the edges with edge_mask 1.
+                      In a packed batch these are the ranges and the CSR
+                      above; in a replicated one they leave out the
+                      padding inside the prefix (the WalkSAT kernel walks
+                      them).
+
+A replicated batch (`replicate_batch`, R copies in the JAX package's
+layout: replica r of instance b is instance r*B + b, variable v + r*V,
+clause f + r*F, edge e + r*E) keeps the padding of every replica but the
+last between the replicas. Its "real" prefix (num_real_edges,
+num_real_clauses, num_instances and the CSR) is every row of replicas 0
+to R-2, padding included, then the last replica's real rows; the padding
+inside it is inert, masked as the JAX package masks all its padding: a
+padding variable or clause belongs to its replica's last real instance
+(as var_batch and clause_batch say), a padding edge to that replica's
+last real variable (as edge_var says) and, in clause_ptr, to the
+replica's padding clauses, k apiece where the width stays uniform (the
+positional clause view of the uniform-width paths), else dealt evenly
+(or to its last real clause, where there is no padding clause). Every
+term a padding edge adds to a sum is a masked zero, and the WalkSAT
+kernel leaves padding variables out of its selection, as the plain
+version does. The last replica's padding is the suffix, as in a packed
+batch. A padding edge inside the prefix lies in a padding clause's
+clause_ptr range while edge_clause names its replica's last real clause:
+the clause-major kernels give its edge outputs that clause's columns, as
+the plain versions do (`FGBatch.inner_padding`).
 
 clause_width, fast_var, fast_clause and var_window are the JAX package's
 pack-time metadata, kept so the port takes the same paths (the WalkSAT
@@ -52,6 +81,24 @@ REDUCE_TILE = 1024
 REDUCE_WINDOW = 2048
 REDUCE_ALIGN = 1024
 _ODD_K = (3, 5, 6, 7)
+
+@dataclasses.dataclass(frozen=True)
+class RealRows:
+    """The real part of a batch's rows: row b's real variables are
+    [inst_var_ptr[b], var_end[b]) and its real clauses [inst_clause_ptr[b],
+    clause_end[b]); the edges with edge_mask 1 of variable v are
+    var_perm[var_ptr[v]:var_ptr[v+1]], in increasing edge order."""
+
+    var_end: torch.Tensor        # i32[B]
+    clause_end: torch.Tensor     # i32[B]
+    var_ptr: torch.Tensor        # i32[V+1]
+    var_perm: torch.Tensor       # i32[num_edges]
+    num_vars: int
+    num_clauses: int
+    num_edges: int
+    max_vars: int                # the most of one row
+    max_clauses: int
+
 
 @dataclasses.dataclass(frozen=True)
 class FGBatch:
@@ -78,7 +125,8 @@ class FGBatch:
     num_real_clauses: int
     max_instance_vars: int
     max_instance_clauses: int
-    num_instances: int           # the real instances, rows [0, n) of B
+    num_instances: int           # rows [0, n) of B the kernels launch
+    real: RealRows
     var_max_degree: int = None
     clause_max_degree: int = None
     clause_width: int = 0
@@ -105,6 +153,12 @@ class FGBatch:
     @property
     def device(self):
         return self.edge_var.device
+
+    @property
+    def inner_padding(self):
+        """Whether padding edges lie inside [0, num_real_edges) (a
+        replicated batch with padding)."""
+        return self.real.num_edges < self.num_real_edges
 
 
 def bucket_dims(v: int, f: int, e: int, b: int,
@@ -252,6 +306,9 @@ def pack_instances(instances: Sequence[tuple], device="cuda",
         return torch.from_numpy(np.ascontiguousarray(x)).to(
             device=device, dtype=dtype)
 
+    var_ptr_t, var_perm_t = t(var_ptr, torch.int32), t(var_perm, torch.int32)
+    inst_var_ptr = t(_ptr(var_batch[:v_off], pad_b), torch.int32)
+    inst_clause_ptr = t(_ptr(clause_batch[:f_off], pad_b), torch.int32)
     return FGBatch(
         edge_var=t(edge_var, torch.int64),
         edge_clause=t(edge_clause, torch.int64),
@@ -265,11 +322,11 @@ def pack_instances(instances: Sequence[tuple], device="cuda",
         label=t(label, torch.float32),
         edge_var32=t(edge_var, torch.int32),
         edge_clause32=t(edge_clause, torch.int32),
-        var_ptr=t(var_ptr, torch.int32),
-        var_perm=t(var_perm, torch.int32),
+        var_ptr=var_ptr_t,
+        var_perm=var_perm_t,
         clause_ptr=t(clause_ptr, torch.int32),
-        inst_var_ptr=t(_ptr(var_batch[:v_off], pad_b), torch.int32),
-        inst_clause_ptr=t(_ptr(clause_batch[:f_off], pad_b), torch.int32),
+        inst_var_ptr=inst_var_ptr,
+        inst_clause_ptr=inst_clause_ptr,
         num_real_edges=e_off,
         num_real_clauses=f_off,
         max_instance_vars=max_vars,
@@ -280,4 +337,122 @@ def pack_instances(instances: Sequence[tuple], device="cuda",
         fast_var=fast_var,
         fast_clause=fast_clause,
         var_window=var_window,
-        num_instances=n_inst)
+        num_instances=n_inst,
+        real=RealRows(
+            var_end=inst_var_ptr[1:], clause_end=inst_clause_ptr[1:],
+            var_ptr=var_ptr_t, var_perm=var_perm_t, num_vars=v_off,
+            num_clauses=f_off, num_edges=e_off, max_vars=max_vars,
+            max_clauses=max_clauses))
+
+
+def replicate_batch(batch: FGBatch, replication: int) -> FGBatch:
+    """R copies of every instance in one batch (the reference's
+    batch_replication; the JAX package's replicate_batch
+    `pdp_solver_tpu/fg/batch.py:423`, with the same ids, signs, masks and
+    pack-time metadata): replica r of instance b is instance r*B + b,
+    variable v + r*V, clause f + r*F, edge e + r*E, so a [R, V] reshape
+    gathers a variable's replicas. The CSR is rebuilt for this layout, its
+    real prefix ending in the last replica's real rows (see the module
+    docstring). R <= 1 returns the batch."""
+    if replication <= 1:
+        return batch
+    R = replication
+    E, V, F, B = (batch.num_edges, batch.num_vars, batch.num_clauses,
+                  batch.batch_size)
+
+    def host(x):
+        return x.cpu().numpy()
+
+    def tile(x, stride=None):
+        x = np.tile(host(x), R)
+        if stride is not None:
+            x = x + np.repeat(np.arange(R, dtype=x.dtype), len(x) // R) \
+                * x.dtype.type(stride)
+        return x
+
+    edge_var = tile(batch.edge_var32, V)
+    edge_clause = tile(batch.edge_clause32, F)
+    var_batch = tile(batch.var_batch, B)
+    clause_batch = tile(batch.clause_batch, B)
+    e_real, f_real = batch.num_real_edges, batch.num_real_clauses
+    n_real = batch.num_instances
+    v_real = int(host(batch.inst_var_ptr)[n_real])
+    e_pre, f_pre = (R - 1) * E + e_real, (R - 1) * F + f_real
+    v_pre, n_pre = (R - 1) * V + v_real, (R - 1) * B + n_real
+
+    k = batch.clause_width
+    clause_width = k if k > 0 and E == k * F else 0
+    tile_aligned = E % REDUCE_TILE == 0 and k in (0, 2, 4, 8)
+
+    # clause_ptr: each replica's real degrees, then its gap of padding
+    # edges dealt over its padding clauses, the first ones taking one more
+    # (the last replica's padding is the suffix and has none)
+    counts = np.tile(np.diff(host(batch.clause_ptr)).astype(np.int64), R)
+    gap, n_pad = E - e_real, F - f_real
+    if gap:
+        for r in range(R - 1):
+            if n_pad:
+                counts[r * F + f_real:(r + 1) * F] = (
+                    gap // n_pad + (np.arange(n_pad) < gap % n_pad))
+            else:
+                counts[r * F + f_real - 1] += gap
+    clause_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+
+    real_var = edge_var[:e_pre]
+    var_ptr = _ptr(real_var, R * V)
+    inst_var_ptr = _ptr(var_batch[:v_pre], R * B)
+    inst_clause_ptr = _ptr(clause_batch[:f_pre], R * B)
+    # the real rows: each replica's rows end where the batch's do, and the
+    # var-major CSR holds the edges with edge_mask 1
+    real_edges = np.flatnonzero(np.tile(host(batch.edge_mask), R) > 0)
+    real_perm = real_edges[np.argsort(edge_var[real_edges], kind="stable")]
+    var_end = inst_var_ptr[:-1] + np.tile(
+        np.diff(host(batch.inst_var_ptr)), R)
+    clause_end = inst_clause_ptr[:-1] + np.tile(
+        np.diff(host(batch.inst_clause_ptr)), R)
+    dev = batch.device
+
+    def t(x, dtype):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(
+            device=dev, dtype=dtype)
+
+    def tiled(x):
+        return x.repeat(R)
+
+    return FGBatch(
+        edge_var=t(edge_var, torch.int64),
+        edge_clause=t(edge_clause, torch.int64),
+        edge_sign=tiled(batch.edge_sign),
+        var_batch=t(var_batch, torch.int64),
+        clause_batch=t(clause_batch, torch.int64),
+        edge_mask=tiled(batch.edge_mask),
+        var_mask=tiled(batch.var_mask),
+        clause_mask=tiled(batch.clause_mask),
+        instance_mask=tiled(batch.instance_mask),
+        label=tiled(batch.label),
+        edge_var32=t(edge_var, torch.int32),
+        edge_clause32=t(edge_clause, torch.int32),
+        var_ptr=t(var_ptr, torch.int32),
+        var_perm=t(np.argsort(real_var, kind="stable"), torch.int32),
+        clause_ptr=t(clause_ptr, torch.int32),
+        inst_var_ptr=t(inst_var_ptr, torch.int32),
+        inst_clause_ptr=t(inst_clause_ptr, torch.int32),
+        num_real_edges=e_pre,
+        num_real_clauses=f_pre,
+        max_instance_vars=int(np.diff(inst_var_ptr).max(initial=0)),
+        max_instance_clauses=int(np.diff(inst_clause_ptr).max(initial=0)),
+        var_max_degree=int(np.diff(var_ptr).max(initial=0)),
+        clause_max_degree=int(counts.max(initial=0)),
+        clause_width=clause_width,
+        fast_var=batch.fast_var and tile_aligned,
+        fast_clause=batch.fast_clause and tile_aligned,
+        var_window=batch.var_window if tile_aligned else 0,
+        num_instances=n_pre,
+        real=RealRows(
+            var_end=t(var_end, torch.int32),
+            clause_end=t(clause_end, torch.int32),
+            var_ptr=t(_ptr(edge_var[real_edges], R * V), torch.int32),
+            var_perm=t(real_perm, torch.int32), num_vars=R * v_real,
+            num_clauses=R * f_real, num_edges=R * e_real,
+            max_vars=batch.real.max_vars,
+            max_clauses=batch.real.max_clauses))

@@ -13,7 +13,12 @@ The sequential decimator, per iteration: the
 paramagnetic early stop (classical message states only, :270), the
 per-instance convergence test with its t_max timeout, then each converged
 instance fixes its max-|score| variable (or every variable within the
-decimation_threshold band) and the problem is re-simplified.
+decimation_threshold band) and the problem is re-simplified. It reads SP
+messages (p-d-p: the survey scorer's aggregation rides the convergence
+pass) or the neural propagator's (var, fn) [E, h] pair (np-d-np: the
+survey is fn[:, 0], the convergence columns come from the `smax` pass and
+the score from the caller's scorer, the neural predictor with its tanh
+head).
 
 Everything stays on the device: the JAX `lax.cond` on "anything to
 decimate" becomes a select between the simplified and the unchanged
@@ -94,10 +99,13 @@ class SeqDecimatorState:
     has_prev: torch.Tensor   # f32[]  0 on the first iteration
 
 
-def seq_decimator_init_state(batch):
+def seq_decimator_init_state(batch, replication=1):
+    """Fresh bookkeeping for the batch, or for its R-fold replica
+    (`fg.batch.replicate_batch`)."""
     return SeqDecimatorState(
-        prev_eta=torch.zeros_like(batch.edge_mask),
-        counters=torch.zeros_like(batch.instance_mask),
+        prev_eta=batch.edge_mask.new_zeros(batch.num_edges * replication),
+        counters=batch.instance_mask.new_zeros(
+            batch.batch_size * replication),
         has_prev=torch.zeros((), device=batch.device))
 
 
@@ -119,20 +127,33 @@ def _select(cond, new: ProblemState, old: ProblemState) -> ProblemState:
 def sequential_decimator_apply(cfg: SeqDecimatorConfig, scorer_cfg, batch,
                                seq_state: SeqDecimatorState, message_state,
                                problem: ProblemState, edge_mask,
-                               active_instances):
+                               active_instances, scorer_fn=None):
     """Returns (new_seq_state, new_problem, new_active_instances);
-    active_instances may be None (no termination tracking)."""
-    V, B = batch.num_vars, batch.batch_size
-    eta, force = message_state.fn
+    active_instances may be None (no termination tracking).
 
-    # convergence + paramagnetic smooth-max columns and the survey
-    # scorer's aggregation, one edge -> variable pass
-    nd8, _ = fused.fused_edge_pass(
-        fused.SMAX_SCORER, batch,
-        (problem.active_clauses, seq_state.prev_eta, eta, edge_mask,
-         batch.edge_mask, force, batch.edge_sign))
-    nd, scorer_agg = nd8[:4], nd8[4:]
-    sm = nd[0::2] / torch.clamp(nd[1::2], min=1.0)             # [2, V]
+    message_state: SPMessages, scored by the survey scorer of scorer_cfg;
+    or the neural propagator's (var, fn) pair, scored by
+    scorer_fn(message_state, problem) -> [V, 1] (JAX's scorer_fn,
+    `pdp_solver_tpu/solvers/base.py` _scorer_fn)."""
+    V, B = batch.num_vars, batch.batch_size
+    classical = isinstance(message_state, SPMessages)
+    if classical:
+        eta, force = message_state.fn
+        # convergence + paramagnetic smooth-max columns and the survey
+        # scorer's aggregation, one edge -> variable pass
+        nd8, _ = fused.fused_edge_pass(
+            fused.SMAX_SCORER, batch,
+            (problem.active_clauses, seq_state.prev_eta, eta, edge_mask,
+             batch.edge_mask, force, batch.edge_sign))
+        nd, scorer_agg = nd8[:4], nd8[4:]
+    else:
+        # the survey is the fn state's column 0, a strided view: made
+        # contiguous once, it is also the next prev_eta
+        eta = message_state[1][:, 0].contiguous()
+        nd, _ = fused.fused_edge_pass(
+            fused.SMAX, batch,
+            (seq_state.prev_eta, eta, edge_mask, batch.edge_mask))
+    sm = nd[0::2] / torch.clamp(nd[1::2], min=1.0)             # [C, V]
     sm = sm * problem.active_vars[None, :]
     neg_inf = torch.full_like(sm, float("-inf"))
     mx = segment_max(torch.where(batch.var_mask[None, :] > 0, sm,
@@ -141,8 +162,10 @@ def sequential_decimator_apply(cfg: SeqDecimatorConfig, scorer_cfg, batch,
     mx = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
     diff_b = mx[:, 0]
 
-    if active_instances is not None:
-        # paramagnetic early stop (classical message states only)
+    if active_instances is not None and classical:
+        # paramagnetic early stop (classical message states only: the
+        # JAX package skips it for the neural propagator's hidden column,
+        # which sits at or below 0 routinely)
         active_instances = torch.where(
             mx[:, 1] <= 1e-10, torch.zeros_like(active_instances),
             active_instances)
@@ -159,7 +182,10 @@ def sequential_decimator_apply(cfg: SeqDecimatorConfig, scorer_cfg, batch,
     counters = gate * counters + (1.0 - gate) * seq_state.counters
     flag_b = flag_b * gate
 
-    score = survey_scorer_tail(scorer_cfg, scorer_agg)[:, 0]      # [V]
+    if classical:
+        score = survey_scorer_tail(scorer_cfg, scorer_agg)[:, 0]  # [V]
+    else:
+        score = scorer_fn(message_state, problem)[:, 0]
     coeff = torch.abs(score) * problem.active_vars * flag_b[batch.var_batch]
     if cfg.decimation_threshold < 1.0:
         max_b = segment_max_shifted(coeff, batch.var_batch, B,
@@ -208,9 +234,9 @@ class ReinforceDecimatorState:
     has_prev: torch.Tensor   # f32[]  0 on the first iteration
 
 
-def reinforce_decimator_init_state(batch):
+def reinforce_decimator_init_state(batch, replication=1):
     return ReinforceDecimatorState(
-        prev_eta=torch.zeros_like(batch.edge_mask),
+        prev_eta=batch.edge_mask.new_zeros(batch.num_edges * replication),
         has_prev=torch.zeros((), device=batch.device))
 
 

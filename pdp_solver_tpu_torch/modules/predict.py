@@ -1,4 +1,5 @@
-"""Predictors and scorers: the neural predictor, the survey scorer, the
+"""Predictors and scorers: the neural predictor (with a sigmoid head; with
+a tanh head and one output it is np-d-np's scorer), the survey scorer, the
 identity predictor and the REINFORCE predictor.
 
 Counterpart of `pdp_solver_tpu/modules/predict.py` (the neural predictor
@@ -65,11 +66,12 @@ class NeuralPredictor(nn.Module):
 
 def identity_predictor_apply(generator, problem, random_fill, last_call):
     """Reads the decimated solution; on the last call optionally fills the
-    still-active variables with uniform noise (predict.py :73)."""
+    still-active variables with uniform noise (predict.py :73), drawn from
+    the CPU generator and copied to the solution's device, as the
+    solver's other classical draws are."""
     pred = problem.solution[:, None]
     if random_fill and last_call:
-        noise = torch.rand(pred.shape, generator=generator,
-                           device=pred.device)
+        noise = torch.rand(pred.shape, generator=generator).to(pred.device)
         pred = torch.where(problem.active_vars[:, None] > 0, noise, pred)
     return pred, None
 

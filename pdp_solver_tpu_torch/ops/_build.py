@@ -78,7 +78,8 @@ class ChainedArgs(ctypes.Structure):
     """csrc/edge_pass.cu ChainedArgs, field for field."""
     _fields_ = [("fn", I), ("n_in", I), ("n_eout", I), ("n_vars", I),
                 ("n_clauses", I), ("n_inst", I), ("e_real", I),
-                ("e_total", I), ("ins", P * MAX_IN), ("eouts", P * MAX_EOUT),
+                ("e_total", I), ("inner_pad", I), ("ins", P * MAX_IN),
+                ("eouts", P * MAX_EOUT),
                 ("ev", P), ("ec", P), ("var_ptr", P), ("var_perm", P),
                 ("clause_ptr", P), ("inst_clause_ptr", P), ("group", I),
                 ("heavy", I), ("partials", P), ("counters", P), ("cout", P),
@@ -109,7 +110,8 @@ class SweepArgs(ctypes.Structure):
                 ("var_perm", P), ("inst_clause_ptr", P),
                 ("inst_var_ptr", P), ("sums", P), ("pieces", P),
                 ("n_inst", I), ("n_vars", I), ("max_inst_vars", I),
-                ("e_real", I), ("e_total", I), ("group", I), ("heavy", I),
+                ("e_real", I), ("e_total", I), ("inner_pad", I),
+                ("group", I), ("heavy", I),
                 ("cluster", I), ("login", I), ("pi", ctypes.c_float),
                 ("stream", P)]
 
@@ -130,11 +132,13 @@ class WalkArgs(ctypes.Structure):
                 ("var_ptr", P), ("vref", P), ("lv", P), ("inst_clause_ptr", P),
                 ("inst_var_ptr", P), ("assign", P),
                 ("av", P), ("seeds", P), ("out", P), ("energy", P),
-                ("sums", P), ("n_inst", I), ("n_rows", I), ("n_vars", I),
+                ("sums", P), ("var_end", P), ("clause_end", P),
+                ("inst_mask", P), ("flags", P),
+                ("n_inst", I), ("n_rows", I), ("n_vars", I),
                 ("width", I), ("max_vars", I), ("max_clauses", I),
                 ("n_blocks", I), ("K", I), ("eps", ctypes.c_float),
                 ("threads", I), ("stage_vars", I), ("stage_edges", I),
-                ("stream", P)]
+                ("replicas", I), ("check_done", I), ("stream", P)]
 
 
 def cluster_size(batch, sms, min_share=THREADS):

@@ -139,6 +139,13 @@ def _smax_scorer(ins, ev, ec, s):
             fm1 * neg_w, fm1), ()
 
 
+def _smax(ins, ev, ec, s):
+    prev_eta, eta, em, bmask = ins
+    diff = torch.abs(prev_eta - eta) * em
+    c = safe_exp(30.0 * diff) * bmask
+    return (diff * c, c), ()
+
+
 def _scorer(ins, ev, ec, s):
     ac, eta, force, sign, mask = ins
     em = ac[ec] * mask
@@ -170,6 +177,11 @@ SMAX_SCORER = EdgeFn(
     "smax_scorer", "var", "FEEEEEE",
     ("ac", "prev_eta", "eta", "em", "bmask", "force", "sign"), 8, 0,
     _smax_scorer, 30)
+# the convergence smooth-max columns alone (decimate.py _smax_pass2 :114;
+# columns 0-1 of _smax_pass4 :122): np-d-np's sequential decimator over
+# the neural propagator's fn[:, 0]
+SMAX = EdgeFn("smax", "var", "EEEE", ("prev_eta", "eta", "em", "bmask"), 2,
+              0, _smax, 8)
 SCORER = EdgeFn("scorer", "var", "FEEEE",
                 ("ac", "eta", "force", "sign", "mask"), 4, 0, _scorer, 12)
 EM_AE = EdgeFn("em_ae", "none", "VVFE", ("av", "abv", "ac", "mask"), 0, 2,
@@ -280,7 +292,7 @@ WS_CHAIN = ChainFn("ws_chain", "VVEEEF",
                    ("sa", "av", "sign", "mask", "em", "ac"),
                    2, 0, 3, 2, 0, 1, _ws_f1, _ws_f2, _ws_f3, 14)
 
-FUSED_FNS = (SP_PASS_C, SMAX_SCORER, SCORER, EM_AE, EM, AE)
+FUSED_FNS = (SP_PASS_C, SMAX_SCORER, SMAX, SCORER, EM_AE, EM, AE)
 CHAINED_FNS = (SP_CHAIN, SP_CHAIN_LOGIN, SROUND, CNF_CHAIN, WS_CHAIN)
 
 # the JAX package's uniform clause widths for its chained passes
@@ -362,6 +374,7 @@ class _Plan:
         F = batch.num_clauses
         a.n_vars, a.n_clauses = batch.num_vars, F
         a.n_inst = batch.batch_size
+        a.inner_pad = int(batch.inner_padding)
         a.var_ptr = batch.var_ptr.data_ptr()
         a.var_perm = (batch.var_perm.data_ptr() if batch.var_perm.numel()
                       else None)

@@ -95,6 +95,7 @@ class _Plan:
         a.n_inst, a.n_vars = batch.num_instances, V
         a.max_inst_vars = batch.max_instance_vars
         a.e_real, a.e_total = e, batch.num_edges
+        a.inner_pad = int(batch.inner_padding)
         a.group = _build.group_width(e, V)
         md = batch.var_max_degree
         stride = _build.HEAVY_ITERS * a.group

@@ -11,7 +11,11 @@ walksat_walk(assign, *, batch, ..., K, seeds, eps) runs len(seeds) blocks
 of K iterations, block j salting its iteration kk with seeds[j] + kk *
 1000003: the JAX kernel called once per seed, chained. walksat_block(...,
 seed=) is its one-block form. Given the same seeds the result equals the
-JAX kernel's bit for bit, greedy (eps < 0) or not.
+JAX kernel's bit for bit, greedy (eps < 0) or not. With replicas=R > 1
+(a replicated batch, `fg.batch.replicate_batch`) the blocks stop after
+the first one at whose end every instance has a solved replica
+(`replicas_done`, the JAX package's block_done, solvers/base.py
+:658-668), which freezes the unsolved replicas as the JAX loop does.
 
 The wrappers run the plain version (`walksat_walk_plain`, a loop of
 `walksat_block_plain`) when the batch lies on the CPU, and launch the CUDA
@@ -24,8 +28,11 @@ plan per batch holds the kernel's argument block, its clause tables
 (`clause_tables`), its shape (`launch_shape`: threads, what is staged in
 shared memory) and, for an instance too large to stage, its global
 scratch. The kernel takes the batches of `use_walksat_block` (a uniform
-clause width of 2 to 8); on the card another width raises. Launches are
-counted in `walksat_walk.launches`.
+clause width of 2 to 8); on the card another width raises. A whole walk
+is one launch; with replicas > 1 it is one launch a block, in place, each
+CTA returning at once when a flag on the device says the walk is done
+(the last CTA of each launch sets it), so the host never waits. Launches
+are counted in `walksat_walk.launches`.
 """
 
 import ctypes
@@ -90,12 +97,13 @@ def launch_shape(batch):
     variables in shared memory (16 B each) where they fit, and then its
     clauses (14 B a slot of 4 or 8 a clause, 8 B a clause) and var-major
     CSR (4 B an edge and a variable) where they fit too. Raises for a
-    clause width the kernel does not take."""
+    clause width the kernel does not take. The instances are the walk's:
+    each row's real variables and clauses (`batch.real`)."""
     k = batch.clause_width
     if not 1 <= k <= MAX_WIDTH:
         raise ValueError(f"walksat: the kernel takes a uniform clause width "
                          f"of 1 to {MAX_WIDTH}, the batch has {k or 'mixed'}")
-    mv, mc = batch.max_instance_vars, batch.max_instance_clauses
+    mv, mc = batch.real.max_vars, batch.real.max_clauses
     slots = 4 if k <= 4 else 8
     threads = min(MAX_THREADS, max(64, -(-max(mv, -(-mc // 4)) // 32) * 32))
     var_bytes = 16 * mv
@@ -107,13 +115,13 @@ def launch_shape(batch):
 
 def clause_tables(batch):
     """The kernel's clause tables, which depend on the batch alone: vref
-    (i32[E real]) the clause of each real edge in var-major order, local
-    to its instance, -1 on a clause's second or later slot of one
-    variable (the kernel takes such a clause once); lv (i16[F real *
-    slots], slots 4 or 8 as in launch_shape) each real clause's variables,
-    local to its instance, 0 past the clause width (read only where the
-    clauses are staged, whose instances have fewer than 2**15
-    variables)."""
+    (i32, one an edge of the walk's var-major CSR, `batch.real`) the clause
+    of each real edge in var-major order, local to its instance, -1 on a
+    clause's second or later slot of one variable (the kernel takes such a
+    clause once); lv (i16[F real * slots], slots 4 or 8 as in
+    launch_shape) each clause's variables, local to its instance, 0 past
+    the clause width (read only where the clauses are staged, whose
+    instances have fewer than 2**15 variables)."""
     k = batch.clause_width
     slots = 4 if k <= 4 else 8
     f, e = batch.num_real_clauses, batch.num_real_edges
@@ -123,11 +131,20 @@ def clause_tables(batch):
     repeat = ((ev[:, :, None] == ev[:, None, :]) & earlier.tril(-1)).any(-1)
     clause = (torch.arange(f, device=batch.device)
               - batch.inst_clause_ptr.long()[inst])
-    perm = batch.var_perm.long()
+    perm = batch.real.var_perm.long()
     vref = torch.where(repeat.view(-1)[perm], -1, clause[perm // k])
     lv = torch.zeros(f, slots, dtype=torch.int16, device=batch.device)
     lv[:, :k] = ev - batch.inst_var_ptr.long()[inst][:, None]
     return vref.to(torch.int32), lv.view(-1)
+
+
+def replicas_done(batch, energy, replicas):
+    """1.0 (a 0-d f32 tensor) once every instance of the replicated batch
+    has a replica with no unsat clause (energy <= 0), else 0.0."""
+    unsat = (energy > 0).to(torch.float32) * batch.instance_mask
+    solved_any = torch.amax(1.0 - unsat.reshape(replicas, -1), dim=0)
+    left = (1.0 - solved_any) * batch.instance_mask[:solved_any.shape[0]]
+    return (torch.sum(left) <= 0).to(torch.float32)
 
 
 def walksat_edge_constants(batch, active_vars):
@@ -182,8 +199,10 @@ def walksat_block_plain(assign, *, batch, active_vars, active_clauses, em,
 
 
 def walksat_walk_plain(assign, *, batch, active_vars, active_clauses, em,
-                       K, seeds, eps, edge_constants=None):
-    """The plain PyTorch version of walksat_walk: one block a seed."""
+                       K, seeds, eps, edge_constants=None, replicas=1):
+    """The plain PyTorch version of walksat_walk: one block a seed, with
+    replicas > 1 up to the first block at whose end every instance has a
+    solved replica."""
     if edge_constants is None:
         edge_constants = walksat_edge_constants(batch, active_vars)
     energy = None
@@ -192,6 +211,8 @@ def walksat_walk_plain(assign, *, batch, active_vars, active_clauses, em,
             assign, batch=batch, active_vars=active_vars,
             active_clauses=active_clauses, em=em, K=K, seed=seed, eps=eps,
             edge_constants=edge_constants)
+        if replicas > 1 and replicas_done(batch, energy, replicas) > 0:
+            break
     return assign, energy
 
 
@@ -211,18 +232,25 @@ class _Plan:
         self.args = None
         if self.device.type != "cuda":
             return
+        real = batch.real
         threads, stage_vars, stage_edges = launch_shape(batch)
         a = _build.WalkArgs()
         a.ev = batch.edge_var32.data_ptr()
-        a.var_ptr = batch.var_ptr.data_ptr()
+        a.var_ptr = real.var_ptr.data_ptr()
         self.tables = clause_tables(batch)
         a.vref, a.lv = (x.data_ptr() for x in self.tables)
         a.inst_clause_ptr = batch.inst_clause_ptr.data_ptr()
         a.inst_var_ptr = batch.inst_var_ptr.data_ptr()
+        a.var_end = real.var_end.data_ptr()
+        a.clause_end = real.clause_end.data_ptr()
+        a.inst_mask = batch.instance_mask.data_ptr()
+        # the replicated walk's arrivals counter and done flag (zeros;
+        # the last CTA of a launch leaves the counter 0)
+        self.flags = torch.zeros(2, dtype=torch.int32, device=self.device)
+        a.flags = self.flags.data_ptr()
         a.n_inst, a.n_rows = batch.num_instances, batch.batch_size
         a.n_vars, a.width = batch.num_vars, batch.clause_width
-        a.max_vars = batch.max_instance_vars
-        a.max_clauses = batch.max_instance_clauses
+        a.max_vars, a.max_clauses = real.max_vars, real.max_clauses
         a.threads = threads
         a.stage_vars, a.stage_edges = int(stage_vars), int(stage_edges)
         self.scratch = None
@@ -265,19 +293,23 @@ def _plan(batch):
 
 
 def walksat_walk(assign, *, batch, active_vars, active_clauses, em, K,
-                 seeds, eps, edge_constants=None):
+                 seeds, eps, edge_constants=None, replicas=1):
     """Run len(seeds) blocks of K WalkSAT iterations (one kernel launch on
-    the card).
+    the card; with replicas > 1 one a block, see the module docstring).
 
     assign: f32[V] in {-1, 0, +1} (0 on inactive variables); seeds: ints
     (any 32-bit values; block j salts its iteration kk with seeds[j] + kk
     * 1000003); eps < 0 is pure greedy. Returns (new_assign f32[V], energy
     f32[B]), energy being each instance's unsat count ENTERING the last
-    iteration (the same lag as the per-iteration loop's done flag)."""
+    iteration (the same lag as the per-iteration loop's done flag) of the
+    last block that ran."""
     seeds = [wrap32(int(s)) for s in seeds]
     if K < 1 or not seeds:
         raise ValueError(f"walksat: K ({K}) and the number of seeds "
                          f"({len(seeds)}) must be at least 1")
+    if replicas < 1 or batch.batch_size % replicas:
+        raise ValueError(f"walksat: {replicas} replicas of a batch of "
+                         f"{batch.batch_size} rows")
     plan = _plan(batch)
     assign, av, ac, em = plan.check(
         assign=(assign, "V"), active_vars=(active_vars, "V"),
@@ -290,7 +322,8 @@ def walksat_walk(assign, *, batch, active_vars, active_clauses, em, K,
     if a is None:
         return walksat_walk_plain(
             assign, batch=batch, active_vars=av, active_clauses=ac, em=em,
-            K=K, seeds=seeds, eps=eps, edge_constants=(w, dm))
+            K=K, seeds=seeds, eps=eps, edge_constants=(w, dm),
+            replicas=replicas)
     V = plan.sizes["V"]
     seeds_d = torch.tensor(seeds, dtype=torch.int32).to(plan.device,
                                                         non_blocking=True)
@@ -299,16 +332,30 @@ def walksat_walk(assign, *, batch, active_vars, active_clauses, em, K,
     out = assign.new_empty(V + plan.rows)
     a.assign, a.av, a.ac, a.em = (assign.data_ptr(), av.data_ptr(),
                                   ac.data_ptr(), em.data_ptr())
-    a.w, a.dm, a.seeds = w.data_ptr(), dm.data_ptr(), seeds_d.data_ptr()
+    a.w, a.dm = w.data_ptr(), dm.data_ptr()
     a.out = out.data_ptr()
     a.energy = a.out + 4 * V
-    a.n_blocks, a.K, a.eps = len(seeds), int(K), float(eps)
+    a.K, a.eps, a.replicas = int(K), float(eps), int(replicas)
     a.stream = plan.stream()
+    if replicas == 1:
+        a.seeds, a.n_blocks, a.check_done = seeds_d.data_ptr(), len(seeds), 0
+        _launch(plan)
+        return out[:V], out[V:]
+    # one launch a block, in place after the first (which reads `assign`
+    # and ignores the flag a walk before it left)
+    for j in range(len(seeds)):
+        a.seeds, a.n_blocks = seeds_d.data_ptr() + 4 * j, 1
+        a.check_done = int(j > 0)
+        _launch(plan)
+        a.assign = a.out
+    return out[:V], out[V:]
+
+
+def _launch(plan):
     rc = plan.call(plan.ref)
     if rc:
         _build.check(rc, "walksat_walk")
     walksat_walk.launches += 1
-    return out[:V], out[V:]
 
 
 walksat_walk.launches = 0

@@ -3,9 +3,13 @@ post-processing.
 
 Counterpart of `pdp_solver_tpu/solvers/base.py` (`SolverConfig`,
 `PDPSolver.forward`/`_forward`/`_forward_core` :332-603,
-`local_search`/`_local_search` :607-828) for five of its six assemblies:
+`local_search`/`_local_search` :607-828, `_deduplicate` :917) for its six
+assemblies:
   p-d-p     SP propagator + sequential decimator (SP scorer) + identity
             predictor;
+  np-d-np   neural propagator + sequential decimator over its fn[:, 0]
+            (scored by a neural predictor with a tanh head) + identity
+            predictor, with parameters "prop" and "scorer";
   np-nd-np  neural propagator + neural (GRU) decimator + neural predictor,
             with parameters (`init_params`, or a JAX checkpoint through
             `convert.params_from_jax`);
@@ -16,7 +20,15 @@ Counterpart of `pdp_solver_tpu/solvers/base.py` (`SolverConfig`,
             prediction (random fill on the active variables);
   reinforce SP propagator with the external-force factor pi + REINFORCE
             decimator (SP scorer with pi) + REINFORCE predictor.
-np-d-np raises NotImplementedError.
+
+In-batch replication (`forward(replication=R)`, the reference's
+batch_replication): the batch is replicated R times
+(`fg.batch.replicate_batch`), every instance's replicas run side by side
+from independent inits (`get_init_state(replication=R)`), an instance
+stops once any of its replicas is solved (`_group_any`), the WalkSAT
+blocks stop once every instance has a solved replica, and each instance
+keeps its first replica of least energy (`_deduplicate`). As in the JAX
+package, a resumed solve (`carry=`) takes a batch the caller replicated.
 
 The JAX hot loop is one `lax.while_loop` that stops once no instance is
 active. Here it is a Python loop of `iteration_num` iterations with no host
@@ -46,6 +58,7 @@ import os
 import torch
 from torch import nn
 
+from pdp_solver_tpu_torch.fg.batch import replicate_batch
 from pdp_solver_tpu_torch.modules import decimate as D
 from pdp_solver_tpu_torch.modules import predict as P
 from pdp_solver_tpu_torch.modules import propagate as PR
@@ -53,7 +66,7 @@ from pdp_solver_tpu_torch.ops import fused
 from pdp_solver_tpu_torch.ops.segment import segment_argmax_first, segment_sum
 from pdp_solver_tpu_torch.ops.verify import use_verify_masks, verify_and_masks
 from pdp_solver_tpu_torch.ops.walksat import (
-    use_walksat_block, walksat_walk)
+    replicas_done, use_walksat_block, walksat_walk)
 from pdp_solver_tpu_torch.problem.simplify import fused_simplify
 from pdp_solver_tpu_torch.problem.state import (
     ProblemState, compute_edge_mask, edge_active_instance_mask,
@@ -103,6 +116,8 @@ class SolverState:
     """p-d-p: SPMessages, SPMessages, SeqDecimatorState.
     reinforce: SPMessages, SPMessages, ReinforceDecimatorState.
     np-nd-np: (var, fn) [E, h] pairs for prop and dec, and aux ().
+    np-d-np: (var, fn) [E, h] pairs for prop and dec (the propagator's
+    last output), and SeqDecimatorState.
     p-nd-np: SPMessages for prop, a (var, fn) [E, h] pair for dec, and
     aux ().
     walk-sat: (), (), ()."""
@@ -122,7 +137,8 @@ def _uniform(generator, shape, device):
 
 
 class PDPSolver:
-    """The p-d-p, np-nd-np, p-nd-np, walk-sat and reinforce assemblies."""
+    """The p-d-p, np-d-np, np-nd-np, p-nd-np, walk-sat and reinforce
+    assemblies."""
 
     def __init__(self, config: SolverConfig):
         self.cfg = config
@@ -130,25 +146,22 @@ class PDPSolver:
         if t not in ("np-nd-np", "p-nd-np", "np-d-np", "p-d-p", "walk-sat",
                      "reinforce"):
             raise ValueError(f"unknown model_type {t!r}")
-        if t == "np-d-np":
-            raise NotImplementedError(
-                f"model_type {t!r} is not ported yet (p-d-p, np-nd-np, "
-                "p-nd-np, walk-sat and reinforce are)")
         c = config
         self.prop_cfg = self.dec_cfg = self.scorer_cfg = None
-        # which parts are neural: the propagator (np-nd-np), the GRU
-        # decimator and the neural predictor (np-nd-np, p-nd-np)
-        self.neural_prop = t == "np-nd-np"
+        # which parts are neural: the propagator (np-nd-np, np-d-np), the
+        # GRU decimator and the neural predictor (np-nd-np, p-nd-np)
+        self.neural_prop = t in ("np-nd-np", "np-d-np")
         self.neural_dec = t in ("np-nd-np", "p-nd-np")
         if t == "walk-sat":
             return
+        seq_cfg = D.SeqDecimatorConfig(
+            tolerance=c.tolerance, t_max=c.t_max,
+            decimation_threshold=c.decimation_threshold,
+            decimation_guard=c.decimation_guard,
+            simplify_rounds=c.simplify_rounds)
         if t == "p-d-p":
             self.prop_cfg = PR.SurveyPropagatorConfig()
-            self.dec_cfg = D.SeqDecimatorConfig(
-                tolerance=c.tolerance, t_max=c.t_max,
-                decimation_threshold=c.decimation_threshold,
-                decimation_guard=c.decimation_guard,
-                simplify_rounds=c.simplify_rounds)
+            self.dec_cfg = seq_cfg
             self.scorer_cfg = P.SurveyScorerConfig()
             return
         if t == "reinforce":
@@ -160,6 +173,19 @@ class PDPSolver:
         if c.meta_dim:
             raise NotImplementedError("per-instance meta features are not "
                                       "ported yet")
+        neural_prop_cfg = PR.NeuralPropagatorConfig(
+            edge_dim=c.edge_dim, decimator_dim=c.hidden_dim,
+            meta_dim=c.meta_dim, hidden_dim=c.hidden_dim,
+            mem_hidden_dim=c.mem_hidden_dim,
+            mem_agg_hidden_dim=c.mem_agg_hidden_dim,
+            agg_hidden_dim=c.agg_hidden_dim, dropout=c.dropout)
+        if t == "np-d-np":
+            # the sequential decimator's scorer is a neural predictor with
+            # a tanh head and one output (reference solver.py:630-634)
+            self.prop_cfg = neural_prop_cfg
+            self.dec_cfg = seq_cfg
+            self.scorer_cfg = self._predictor_cfg(1, "tanh")
+            return
         if t == "p-nd-np":
             self.prop_cfg = PR.SurveyPropagatorConfig(
                 include_adaptors=True, decimator_dim=c.hidden_dim)
@@ -167,50 +193,60 @@ class PDPSolver:
             # package's fix of the reference's (3, 1), solvers/base.py:170)
             msg_dims = (3, 2)
         else:
-            self.prop_cfg = PR.NeuralPropagatorConfig(
-                edge_dim=c.edge_dim, decimator_dim=c.hidden_dim,
-                meta_dim=c.meta_dim, hidden_dim=c.hidden_dim,
-                mem_hidden_dim=c.mem_hidden_dim,
-                mem_agg_hidden_dim=c.mem_agg_hidden_dim,
-                agg_hidden_dim=c.agg_hidden_dim, dropout=c.dropout)
+            self.prop_cfg = neural_prop_cfg
             msg_dims = (c.hidden_dim, c.hidden_dim)
         self.dec_cfg = D.NeuralDecimatorConfig(
             var_message_dim=msg_dims[0], fn_message_dim=msg_dims[1],
             meta_dim=c.meta_dim, hidden_dim=c.hidden_dim,
             edge_dim=c.edge_dim, dropout=c.dropout)
-        self.pred_cfg = P.NeuralPredictorConfig(
-            decimator_dim=c.hidden_dim, prediction_dim=c.prediction_dim,
+        self.pred_cfg = self._predictor_cfg(c.prediction_dim, "sigmoid")
+
+    def _predictor_cfg(self, prediction_dim, kind):
+        c = self.cfg
+        return P.NeuralPredictorConfig(
+            decimator_dim=c.hidden_dim, prediction_dim=prediction_dim,
             edge_dim=c.edge_dim, meta_dim=c.meta_dim,
             mem_hidden_dim=c.mem_hidden_dim,
             agg_hidden_dim=c.agg_hidden_dim,
             mem_agg_hidden_dim=c.mem_agg_hidden_dim,
-            classifier_dim=c.classifier_dim, classifier_kind="sigmoid")
+            classifier_dim=c.classifier_dim, classifier_kind=kind)
+
+    def _param_keys(self):
+        if self.neural_dec:
+            return ("prop", "dec", "predictor")
+        return ("prop", "scorer") if self.neural_prop else ()
 
     def init_params(self, device="cuda"):
         """Freshly initialised parameters: {} for the classical assemblies
-        (p-d-p, walk-sat, reinforce), for np-nd-np and p-nd-np a
+        (p-d-p, walk-sat, reinforce); for np-nd-np and p-nd-np a
         ModuleDict of the propagator ("prop": the neural propagator, or
         p-nd-np's SP adaptors), the decimator ("dec") and the predictor
-        ("predictor"), in eval mode."""
-        if not self.neural_dec:
+        ("predictor"); for np-d-np one of the neural propagator ("prop")
+        and the decimator's scorer ("scorer"); in eval mode."""
+        if not self._param_keys():
             return {}
         prop = (PR.NeuralPropagator(self.prop_cfg) if self.neural_prop
                 else PR.SurveyAdaptors(self.prop_cfg))
-        return nn.ModuleDict({
-            "prop": prop,
-            "dec": D.NeuralDecimator(self.dec_cfg),
-            "predictor": P.NeuralPredictor(self.pred_cfg),
-        }).to(device).eval()
+        if not self.neural_dec:
+            parts = {"prop": prop,
+                     "scorer": P.NeuralPredictor(self.scorer_cfg)}
+        else:
+            parts = {"prop": prop, "dec": D.NeuralDecimator(self.dec_cfg),
+                     "predictor": P.NeuralPredictor(self.pred_cfg)}
+        return nn.ModuleDict(parts).to(device).eval()
 
-    def get_init_state(self, generator, batch, randomized: bool
-                       ) -> SolverState:
+    def get_init_state(self, generator, batch, randomized: bool,
+                       replication: int = 1) -> SolverState:
         """p-d-p and reinforce: random (or uniform) SP messages for the
         propagator and for the decimator's first hand-back, and fresh
         decimator bookkeeping. np-nd-np: random U(-1, 1) (or zero) [E, h]
-        states. p-nd-np: SP messages for the propagator (from the CPU
-        generator) and U(-1, 1) (or zero) [E, h] states for the decimator.
-        walk-sat: no state."""
-        E, dev = batch.num_edges, batch.device
+        states. np-d-np: two such pairs (the propagator's, and the one
+        its first decimation reads) and fresh decimator bookkeeping.
+        p-nd-np: SP messages for the propagator (from the CPU generator)
+        and U(-1, 1) (or zero) [E, h] states for the decimator. walk-sat:
+        no state. With replication R, the state of the R-fold replicated
+        batch (R * E edges, R * B instances)."""
+        E, dev = batch.num_edges * replication, batch.device
         if self.cfg.model_type == "walk-sat":
             return SolverState(prop=(), dec=(), aux=())
 
@@ -225,26 +261,29 @@ class PDPSolver:
                                  fn=tuple(x.to(dev) for x in m.fn))
         if self.neural_prop:
             prop, dec = neural_states(2)
-            return SolverState(prop=prop, dec=dec, aux=())
+            aux = (() if self.neural_dec
+                   else D.seq_decimator_init_state(batch, replication))
+            return SolverState(prop=prop, dec=dec, aux=aux)
         prop = to_dev(PR.survey_propagator_init_state(generator, E,
                                                       randomized, "cpu"))
         if self.neural_dec:
             return SolverState(prop=prop, dec=neural_states(1)[0], aux=())
         dec = P.scorer_message_init_state(generator, E, randomized, "cpu")
-        aux = (D.reinforce_decimator_init_state(batch)
+        aux = (D.reinforce_decimator_init_state(batch, replication)
                if self.cfg.model_type == "reinforce"
-               else D.seq_decimator_init_state(batch))
+               else D.seq_decimator_init_state(batch, replication))
         return SolverState(prop=prop, dec=to_dev(dec), aux=aux)
 
     # -- building blocks ------------------------------------------------
 
     def _check_params(self, params):
-        if not self.neural_dec:
+        keys = self._param_keys()
+        if not keys:
             if params:
                 raise ValueError(f"{self.cfg.model_type} takes no "
                                  "parameters")
             return
-        missing = {"prop", "dec", "predictor"} - set(params or {})
+        missing = set(keys) - set(params or {})
         if missing:
             raise ValueError(f"{self.cfg.model_type} parameters lack "
                              f"{sorted(missing)}")
@@ -255,6 +294,19 @@ class PDPSolver:
         return PR.survey_propagator_apply(
             self.prop_cfg, batch, prop, dec, em, ae,
             adaptors=params["prop"] if self.neural_dec else None)
+
+    def _scorer_fn(self, params, batch):
+        """np-d-np's score of each variable [V, 1]: the tanh predictor on
+        the propagator's messages under their own edge mask (JAX
+        solvers/base.py _scorer_fn :286-293); None for the survey scorer
+        of p-d-p, which rides the decimator's pass."""
+        if not self.neural_prop or self.neural_dec:
+            return None
+
+        def fn(message_state, problem):
+            em = compute_edge_mask(batch, problem)
+            return params["scorer"](batch, message_state, em)[0]
+        return fn
 
     def _predict(self, params, generator, batch, problem, dec, em,
                  last_call):
@@ -272,19 +324,27 @@ class PDPSolver:
     @torch.no_grad()
     def forward(self, params, generator, batch, init_state: SolverState,
                 iteration_num: int, *, check_termination: bool = False,
-                carry=None, finalize=True):
+                replication: int = 1, carry=None, finalize=True):
         """One solve (or one chunk of it).
 
         finalize=True returns ((variable_prediction [V, 1], None), state):
         the decimated solution with random fill on still-active variables
-        (p-d-p, walk-sat), the sign of the summed forces (reinforce) or the
-        neural prediction (np-nd-np, p-nd-np), improved by local search when
-        local_search_iterations > 0. walk-sat runs no hot loop: its state
-        comes back untouched and every instance stays active.
-        finalize=False returns ((None, None), state, carry) with carry =
-        (problem, active instances, edge mask); pass it back as `carry=` to
-        continue the same solve."""
+        (p-d-p, np-d-np, walk-sat), the sign of the summed forces
+        (reinforce) or the neural prediction (np-nd-np, p-nd-np), improved
+        by local search when local_search_iterations > 0. walk-sat runs no
+        hot loop: its state comes back untouched and every instance stays
+        active. finalize=False returns ((None, None), state, carry) with
+        carry = (problem, active instances, edge mask); pass it back as
+        `carry=` to continue the same solve.
+
+        replication R > 1: init_state is the replicated batch's
+        (get_init_state(..., replication=R)); the state and the carry come
+        back in the replicated layout and the prediction, deduplicated, in
+        the batch's. With `carry=` the batch must already be replicated
+        (as in the JAX package)."""
         self._check_params(params)
+        if replication > 1 and carry is None:
+            batch = replicate_batch(batch, replication)
         if carry is None:
             problem = fused_simplify(batch, init_problem_state(batch))
             resume = None
@@ -297,7 +357,7 @@ class PDPSolver:
         else:
             problem, state, active_b = self._forward_core(
                 params, generator, batch, problem, init_state,
-                iteration_num, check_termination, resume)
+                iteration_num, check_termination, resume, replication)
 
         em = compute_edge_mask(batch, problem)
         if not finalize:
@@ -307,16 +367,23 @@ class PDPSolver:
                                  state.dec, em, last_call=True)
         if self.cfg.local_search_iterations > 0:
             var_pred = self._local_search(generator, batch, problem,
-                                          var_pred)
+                                          var_pred, replication=replication)
         var_pred, problem = _update_solution(problem, var_pred)
+        if replication > 1:
+            var_pred = _deduplicate(batch, problem, var_pred, replication)
         return (var_pred, None), state
 
     def _forward_core(self, params, generator, batch, problem, state,
-                      iteration_num, check_termination, resume=None):
+                      iteration_num, check_termination, resume=None,
+                      replication=1):
         """The hot loop (solvers/base.py :456-603, unfolded path).
-        REINFORCE draws its coin from `generator` once per iteration."""
-        use_vm = (check_termination and use_verify_masks(batch)
+        REINFORCE draws its coin from `generator` once per iteration. With
+        replication an instance is solved once any of its replicas is,
+        and the verification stays split, as in the JAX package."""
+        use_vm = (check_termination and replication == 1
+                  and use_verify_masks(batch)
                   and os.environ.get("PDP_VERIFY_MASKS", "off") == "on")
+        scorer_fn = self._scorer_fn(params, batch)
         if resume is not None:
             active_b, em = resume
         else:
@@ -346,7 +413,8 @@ class PDPSolver:
             else:
                 aux, problem, maybe_active = D.sequential_decimator_apply(
                     self.dec_cfg, self.scorer_cfg, batch, state.aux, prop,
-                    problem, em, active_b if check_termination else None)
+                    problem, em, active_b if check_termination else None,
+                    scorer_fn=scorer_fn)
                 if check_termination:
                     # the JAX loop has stopped once no instance is active;
                     # the counters are the only state a later iteration
@@ -372,6 +440,7 @@ class PDPSolver:
                                                          active_b, var_pred)
                 else:
                     solved, _ = cnf_evaluate(batch, var_pred)
+                    solved = _group_any(solved, replication)
                 active_b = active_b * (solved <= 0.5).to(torch.float32)
             if not use_vm:
                 em, ae = edge_masks_pair(batch, problem, active_b)
@@ -381,21 +450,27 @@ class PDPSolver:
 
     @torch.no_grad()
     def local_search(self, generator, batch, problem, var_pred, iterations,
-                     seeds=None):
+                     seeds=None, replication=1):
         """Runs `iterations` WalkSAT flips from the prediction and returns
         the improved prediction [V, 1]; feeding the output back in
         continues the search. `seeds` optionally fixes the block seeds
-        (one per block of WALKSAT_K iterations)."""
+        (one per block of WALKSAT_K iterations). With replication the
+        batch is a replicated one, and the search stops once every
+        instance has a solved replica."""
         return self._local_search(generator, batch, problem, var_pred,
-                                  iterations, seeds)
+                                  iterations, seeds, replication)
 
     def _local_search(self, generator, batch, problem, var_pred,
-                      iterations=None, seeds=None):
+                      iterations=None, seeds=None, replication=1):
         """eps-greedy WalkSAT on the still-active subgraph, one flip per
         instance per iteration: every whole block of WALKSAT_K iterations
-        in one walksat_walk call (one kernel launch on the card, its block
-        seeds drawn first), the remainder one chained pass per
-        iteration."""
+        in one walksat_walk call (its block seeds drawn first; one kernel
+        launch on the card, or one a block with replication), the
+        remainder one chained pass per iteration. With replication the
+        blocks, then the remaining iterations, stop once every instance
+        has a solved replica (the JAX package's block_done): the walk tests
+        it after each block on the device, the remainder carries it as a
+        device flag that gates the flips, so neither syncs."""
         V, B, dev = batch.num_vars, batch.batch_size, batch.device
         eps = self.cfg.epsilon
         iters = (self.cfg.local_search_iterations if iterations is None
@@ -405,8 +480,11 @@ class PDPSolver:
         assign = av * (2.0 * assign - 1.0)
         em = compute_edge_mask(batch, problem)
 
-        # after every instance is satisfied a block or iteration flips
-        # nothing, so the loops run out without a done test
+        # without replication, a block or iteration flips nothing once every
+        # instance is satisfied, so the loops run out without a done test;
+        # with it, `live` is 0 once every instance has a solved replica
+        R = replication
+        live = torch.ones((), device=dev) if R > 1 else None
         K = WALKSAT_K
         if use_walksat_block(batch) and iters >= K > 1:
             n = iters // K
@@ -417,11 +495,13 @@ class PDPSolver:
                                  f"{n} block seeds, got {len(seeds)}")
             else:
                 blocks = list(seeds[:n])
-            assign, _ = walksat_walk(
+            assign, energy = walksat_walk(
                 assign, batch=batch, active_vars=av,
                 active_clauses=problem.active_clauses, em=em, K=K,
-                seeds=blocks, eps=eps)
+                seeds=blocks, eps=eps, replicas=R)
             iters = iters % K
+            if R > 1:
+                live = 1.0 - replicas_done(batch, energy, R)
 
         arange_v = torch.arange(V, device=dev)
         for _ in range(iters):
@@ -431,6 +511,11 @@ class PDPSolver:
                  problem.active_clauses))
             unsat_b = ((iout[0] > 0).to(torch.float32)
                        * batch.instance_mask)
+            if live is not None:
+                # this iteration still flips; the next one only if some
+                # instance has no solved replica yet
+                unsat_b = unsat_b * live
+                live = live * (1.0 - replicas_done(batch, iout[0], R))
             best_ind = segment_argmax_first(-vd[0], batch.var_batch, B,
                                             valid=batch.var_mask)
             unsat_v = ((vd[1] * av) > 0).to(torch.float32)
@@ -494,6 +579,22 @@ def _group_any(solved, replication):
         return solved
     g = solved.reshape(replication, -1)
     return torch.amax(g, dim=0).repeat(replication)
+
+
+def _deduplicate(rep_batch, problem: ProblemState, var_pred, replication):
+    """Each instance's first replica of least energy (JAX solvers/base.py
+    _deduplicate :917, reference solver.py:401-431): the replicated layout
+    is [R, V0] by construction, so the pick is a reshape and an argmin
+    (torch.argmin returns the first minimum). Returns [V0, 1]."""
+    R = replication
+    B0 = rep_batch.batch_size // R
+    V0 = rep_batch.num_vars // R
+    assign = 2.0 * var_pred[:, 0] - 1.0
+    energy, _ = _compute_energy(rep_batch, problem, assign)
+    best_r = torch.argmin(energy.reshape(R, B0), dim=0)
+    pred_r = var_pred[:, 0].reshape(R, V0)
+    v0 = torch.arange(V0, device=var_pred.device)
+    return pred_r[best_r[rep_batch.var_batch[:V0]], v0][:, None]
 
 
 def _compute_energy(batch, problem: ProblemState, assign):

@@ -10,8 +10,13 @@ bucket they are repacked and the carried state is remapped on the device.
 After the iteration budget all unsolved instances get the WalkSAT budget
 on one compact batch.
 
-Not ported: the TPU fault-recovery mirror (`resilient`, `mirror_every`)
-and in-batch replicas (`replicas`).
+With replicas=R every instance enters each attempt as R slots (its
+owner's), packed side by side, whose random inits differ; an owner is
+solved once any of its slots verifies (the first to verify wins) and its
+sibling slots are dropped at the next harvest; the local-search phase
+runs R slots of each unsolved owner.
+
+Not ported: the TPU fault-recovery mirror (`resilient`, `mirror_every`).
 """
 
 import dataclasses
@@ -140,16 +145,18 @@ def _to_host(problem: ProblemState) -> ProblemState:
 
 def compacting_solve(solver, params, generator, instances, iterations, *,
                      ls_iterations=None, chunk=50, min_edges=32768,
-                     schedule=None, device="cuda"):
+                     schedule=None, replicas=1, device="cuda"):
     """Full solve over `instances` with progressive batch compaction and an
     optional restart schedule.
 
     Returns (solutions, solved, stats): solutions a list of f32[n_i]
     assignments in {0, 1}, solved a bool list (verified against the
-    formula on the device by cnf_evaluate), stats a dict of telemetry.
+    formula on the device by cnf_evaluate), stats a dict of telemetry;
+    one entry an instance whatever `replicas`.
     schedule: optional list of (iterations, ls_iterations) attempts;
     still-unsolved instances re-enter the next attempt with a fresh random
-    message init."""
+    message init. replicas: slots an instance (see the module docstring;
+    the JAX package's compacting_solve(replicas=) :177)."""
     ls_total = (solver.cfg.local_search_iterations
                 if ls_iterations is None else ls_iterations)
     if schedule is None:
@@ -161,11 +168,13 @@ def compacting_solve(solver, params, generator, instances, iterations, *,
     all_stats = {"attempts": [], "compactions": [], "chunks": 0,
                  "ls_wall_s": 0.0, "pdp_wall_s": 0.0}
     t0 = time.time()
+    R = max(replicas, 1)
     for it_k, ls_k in schedule:
-        subset = [instances[i] for i in remaining]
+        subset = [instances[i] for i in remaining for _ in range(R)]
+        owners = [j for j in range(len(remaining)) for _ in range(R)]
         sols_k, solved_k, st_k = _solve_attempt(
             solver, params, generator, subset, it_k, ls_iterations=ls_k,
-            chunk=chunk, min_edges=min_edges, device=device)
+            chunk=chunk, min_edges=min_edges, device=device, owners=owners)
         for j, orig in enumerate(remaining):
             solutions[orig] = sols_k[j]
             solved[orig] = solved_k[j]
@@ -187,16 +196,21 @@ def compacting_solve(solver, params, generator, instances, iterations, *,
 
 
 def _solve_attempt(solver, params, generator, instances, iterations, *,
-                   ls_iterations, chunk, min_edges, device):
-    """One compacting solve pass (see compacting_solve)."""
-    count = len(instances)
+                   ls_iterations, chunk, min_edges, device, owners):
+    """One compacting solve pass (see compacting_solve). owners: the owner
+    of each slot (consecutive, from 0); the lists returned are per
+    owner."""
+    n_slots = len(instances)
+    owner_of = list(owners)
+    count = max(owner_of) + 1 if owner_of else 0
+    ls_replicas = max(n_slots // max(count, 1), 1)
     ls_chunk = max(chunk * 4, 200)
     solutions = [None] * count
     solved = [False] * count
     parked = {}
 
     # --- phase 1: decimation loop with compaction -----------------------
-    live = list(range(count))        # original index per batch slot
+    live = list(range(n_slots))      # slot index per batch slot
     batch = pack_instances(instances, device=device)
     slices = instance_slices(instances)
     state = solver.get_init_state(generator, batch, randomized=True)
@@ -225,23 +239,21 @@ def _solve_attempt(solver, params, generator, instances, iterations, *,
             continue
         n_finished_prev = len(finished)
         problem_host = _to_host(carry[0])
-        for slot, orig in enumerate(live):
-            if solved_b[slot] > 0 and not solved[orig]:
-                v, _, _, nv, _, _ = slices[slot]
-                sol = problem_host.solution[v:v + nv]
-                solutions[orig] = (sol > 0.5).astype(np.float32)
-                solved[orig] = True
+        _harvest(live, solved_b, owner_of, slices, problem_host, solutions,
+                 solved)
         stats["progress"].append(
             (done, int(sum(solved)), int((active_b > 0).sum()),
              round(time.time() - t0, 3)))
+        # live slots of unsolved owners stay; stopped ones are parked
         keep = []
         for slot, orig in enumerate(live):
-            if solved[orig]:
+            ow = owner_of[orig]
+            if solved[ow]:
                 continue
             if active_b[slot] > 0:
                 keep.append(slot)
             else:
-                _park(parked, orig, problem_host, slices, slot)
+                _park(parked, ow, problem_host, slices, slot)
         if not keep:
             live = []
             break
@@ -269,25 +281,27 @@ def _solve_attempt(solver, params, generator, instances, iterations, *,
         problem_host = _to_host(carry[0])
         solved_b = (sv.cpu().numpy()[:len(live)] if sv_aligned
                     else np.zeros(len(live)))
+        _harvest(live, solved_b, owner_of, slices, problem_host, solutions,
+                 solved)
         for slot, orig in enumerate(live):
-            if solved_b[slot] > 0 and not solved[orig]:
-                v, _, _, nv, _, _ = slices[slot]
-                sol = problem_host.solution[v:v + nv]
-                solutions[orig] = (sol > 0.5).astype(np.float32)
-                solved[orig] = True
-        for slot, orig in enumerate(live):
-            if not solved[orig]:
-                _park(parked, orig, problem_host, slices, slot)
+            if not solved[owner_of[orig]]:
+                _park(parked, owner_of[orig], problem_host, slices, slot)
 
     # --- phase 2: local search on the unsolved set -----------------------
     stats["loop_solved"] = int(sum(solved))
     t1 = time.time()
     todo = [i for i in range(count) if not solved[i] and i in parked]
     if ls_iterations > 0 and todo:
-        ls_insts = [instances[o] for o in todo]
+        # R slots of each unsolved owner again: WalkSAT depends on its
+        # start as much as the loop on its init
+        ls_owner = [o for o in todo for _ in range(ls_replicas)]
+        inst_of = {}
+        for slot, ow in enumerate(owner_of):
+            inst_of.setdefault(ow, instances[slot])
+        ls_insts = [inst_of[o] for o in ls_owner]
         ls_batch = pack_instances(ls_insts, device=device)
         ls_slices = instance_slices(ls_insts)
-        problem = _unpark(parked, todo, ls_batch, ls_slices)
+        problem = _unpark(parked, ls_owner, ls_batch, ls_slices)
         noise = (torch.rand((ls_batch.num_vars, 1), generator=generator)
                  > 0.5).to(torch.float32).to(ls_batch.device)
         av = problem.active_vars[:, None]
@@ -300,21 +314,43 @@ def _solve_attempt(solver, params, generator, instances, iterations, *,
             pred = av * new + (1.0 - av) * problem.solution[:, None]
             sv, _ = cnf_evaluate(ls_batch, pred)
             done_ls += n
-            if bool((sv[:len(todo)] > 0).all()):
+            hit = sv[:len(ls_owner)].reshape(len(todo), ls_replicas) > 0
+            if bool(hit.any(dim=1).all()):
                 break
         pred_host = pred[:, 0].cpu().numpy()
         sv_host = sv.cpu().numpy()
-        for slot, o in enumerate(todo):
-            v, _, _, nv, _, _ = ls_slices[slot]
-            solutions[o] = (pred_host[v:v + nv] > 0.5).astype(np.float32)
-            solved[o] = bool(sv_host[slot] > 0)
+        for slot, o in enumerate(ls_owner):
+            hit = bool(sv_host[slot] > 0)
+            if solved[o]:
+                continue        # an earlier slot of the owner verified
+            if hit or solutions[o] is None:
+                v, _, _, nv, _, _ = ls_slices[slot]
+                solutions[o] = (pred_host[v:v + nv] > 0.5).astype(
+                    np.float32)
+                solved[o] = hit
     else:
         for i in todo:
             solutions[i] = (parked[i]["solution"] > 0.5).astype(np.float32)
     stats["ls_wall_s"] = round(time.time() - t1, 3)
     stats["wall_s"] = round(time.time() - t0, 3)
     stats["solved"] = int(sum(solved))
+    n_of = {}
+    for slot, ow in enumerate(owner_of):
+        n_of.setdefault(ow, int(instances[slot][0]))
     for i in range(count):
         if solutions[i] is None:
-            solutions[i] = np.zeros(int(instances[i][0]), np.float32)
+            solutions[i] = np.zeros(n_of[i], np.float32)
     return solutions, solved, stats
+
+
+def _harvest(live, solved_b, owner_of, slices, problem_host, solutions,
+             solved):
+    """Record the solution of every live slot that verified, the first
+    slot of an owner to verify winning."""
+    for slot, orig in enumerate(live):
+        ow = owner_of[orig]
+        if solved_b[slot] > 0 and not solved[ow]:
+            v, _, _, nv, _, _ = slices[slot]
+            solutions[ow] = (problem_host.solution[v:v + nv]
+                             > 0.5).astype(np.float32)
+            solved[ow] = True

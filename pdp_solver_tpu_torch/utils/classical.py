@@ -42,8 +42,9 @@ def reinforce_solver():
         epsilon=CLASSICAL["epsilon"]))
 
 
-def _solve(solver, insts, seed, device):
-    """compacting_solve at CLASSICAL; the wall time is a host clock around
+def _solve(solver, insts, seed, device, replicas=1):
+    """compacting_solve at CLASSICAL (`replicas` slots an instance); the
+    wall time is a host clock around
     synchronised work. Raises if a solution the solver reports disagrees
     with numpy."""
     s = CLASSICAL
@@ -53,7 +54,7 @@ def _solve(solver, insts, seed, device):
     sols, solved, stats = compacting_solve(
         solver, {}, torch.Generator().manual_seed(seed), insts,
         s["iterations"], ls_iterations=s["ls"], chunk=s["chunk"],
-        min_edges=s["min_edges"], device=device)
+        min_edges=s["min_edges"], replicas=replicas, device=device)
     if device != "cpu":
         torch.cuda.synchronize()
     wall = time.time() - t0
@@ -73,11 +74,11 @@ def _solve(solver, insts, seed, device):
             "progress": progress}
 
 
-def solve_walk_sat(insts, seed, device="cuda"):
+def solve_walk_sat(insts, seed, device="cuda", replicas=1):
     """WalkSAT alone from the simplified problem (a random fill)."""
-    return _solve(walk_sat_solver(), insts, seed, device)
+    return _solve(walk_sat_solver(), insts, seed, device, replicas)
 
 
-def solve_reinforce(insts, seed, device="cuda"):
+def solve_reinforce(insts, seed, device="cuda", replicas=1):
     """REINFORCE, then WalkSAT on what it leaves unsolved."""
-    return _solve(reinforce_solver(), insts, seed, device)
+    return _solve(reinforce_solver(), insts, seed, device, replicas)

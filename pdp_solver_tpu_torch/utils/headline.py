@@ -42,10 +42,12 @@ def verify_solution(inst, sol01):
     return bool((sat > 0).all())
 
 
-def solve_headline(insts, seed, device="cuda", settings=HEADLINE):
-    """compacting_solve at `settings` (the headline ones by default); the
-    wall time is a host clock around synchronised work. Raises if a
-    solution the solver reports disagrees with numpy."""
+def solve_headline(insts, seed, device="cuda", settings=HEADLINE,
+                   replicas=1):
+    """compacting_solve at `settings` (the headline ones by default), with
+    `replicas` slots an instance; the wall time is a host clock around
+    synchronised work. Raises if a solution the solver reports disagrees
+    with numpy."""
     h = settings
     schedule = [(int(h["iterations"] * f), int(h["ls"] * f))
                 for f in h["schedule"]]
@@ -55,7 +57,8 @@ def solve_headline(insts, seed, device="cuda", settings=HEADLINE):
     sols, solved, stats = compacting_solve(
         headline_solver(h), {}, torch.Generator().manual_seed(seed), insts,
         h["iterations"], ls_iterations=h["ls"], chunk=h["chunk"],
-        min_edges=h["min_edges"], schedule=schedule, device=device)
+        min_edges=h["min_edges"], schedule=schedule, replicas=replicas,
+        device=device)
     if device != "cpu":
         torch.cuda.synchronize()
     wall = time.time() - t0

@@ -1,17 +1,25 @@
 """The trained neural solves run by the port: np-nd-np with the r3
-checkpoint and p-nd-np with the r4 checkpoint.
+checkpoint, p-nd-np and np-d-np with their r4 checkpoints.
 
 The settings are those of the JAX package's solver table
-(`tools/eval_solvers.py:45-63`): np-nd-np at hidden 150, mem_hidden 100,
+(`tools/eval_solvers.py:45-68`): np-nd-np at hidden 150, mem_hidden 100,
 agg_hidden 100, mem_agg_hidden 50, classifier 50; p-nd-np at hidden 150
-and 50 for the predictor's widths and the classifier; both with 1000
-iterations, 1000 WalkSAT flips, epsilon 0.5, chunk 50, min_edges 131072,
-randomized init, one attempt. (The table's p-nd-np row sets
-has_meta_data, which never reaches the JAX SolverConfig: meta_dim stays
-0, as the checkpoint's shapes show. Dropout acts in training only.)
-chip_smoke.py and utils/profile_solve.py run the solves through
-`solve_np_nd_np` and `solve_p_nd_np`, which verify every reported
-solution with numpy.
+and 50 for the predictor's widths and the classifier; np-d-np at
+np-nd-np's widths with the decimator's tolerance 0.02 and t_max 10 (not
+in the checkpoint); all with 1000 iterations, 1000 WalkSAT flips,
+epsilon 0.5, chunk 50, min_edges 131072, randomized init, one attempt.
+(The table's p-nd-np row sets has_meta_data, which never reaches the JAX
+SolverConfig: meta_dim stays 0, as the checkpoint's shapes show. Dropout
+acts in training only.) chip_smoke.py and utils/profile_solve.py run the
+solves through `solve_np_nd_np`, `solve_p_nd_np` and `solve_np_d_np`,
+which verify every reported solution with numpy.
+
+`np_d_np_3sat_band` is np-d-np at its reference operating point, the
+JAX package's medium 3-SAT band (`tools/eval_npdnp_3sat.py`, the
+protocol of `tools/train_family.py` solved_fraction :68-89): 48 uniform
+3-SAT instances, n = 60, alpha = 3.5 (`make_ksat_set(seed=29, ...)`), one
+forward of 300 iterations with check_termination from a randomized init,
+decimation only (no local search).
 """
 
 import os
@@ -21,8 +29,11 @@ import torch
 
 from pdp_solver_tpu_torch.convert import (
     load_jax_checkpoint, params_from_jax)
+from pdp_solver_tpu_torch.fg.batch import pack_instances
 from pdp_solver_tpu_torch.solvers.base import PDPSolver, SolverConfig
 from pdp_solver_tpu_torch.solvers.compact import compacting_solve
+from pdp_solver_tpu_torch.train.loss import cnf_evaluate
+from pdp_solver_tpu_torch.utils.benchdata import make_ksat_set
 from pdp_solver_tpu_torch.utils.headline import verify_solution
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -31,22 +42,30 @@ CHECKPOINT = os.path.join(ROOT, "trained-models", "np-nd-np-r3", "best",
                           "np-nd-np-r3.npz")
 P_ND_NP_CHECKPOINT = os.path.join(ROOT, "trained-models", "p-nd-np-r4",
                                   "best", "p-nd-np-r4.npz")
+NP_D_NP_CHECKPOINT = os.path.join(ROOT, "trained-models", "np-d-np-r4",
+                                  "best", "np-d-np-r4.npz")
 _RUN = dict(iterations=1000, ls=1000, epsilon=0.5, chunk=50,
             min_edges=131072)
 NP_ND_NP = dict(hidden_dim=150, mem_hidden_dim=100, agg_hidden_dim=100,
                 mem_agg_hidden_dim=50, classifier_dim=50, **_RUN)
 P_ND_NP = dict(hidden_dim=150, mem_hidden_dim=50, agg_hidden_dim=50,
                mem_agg_hidden_dim=50, classifier_dim=50, **_RUN)
+NP_D_NP = dict(NP_ND_NP, tolerance=0.02, t_max=10)
+# the medium 3-SAT band and its protocol
+BAND_3SAT = dict(seed=29, count=48, n=60, alpha=3.5, k=3)
+BAND_ITERATIONS, BAND_SEED = 300, 7
 
 
-def _solver(model_type, s):
+def _solver(model_type, s, ls=None):
+    extra = {k: s[k] for k in ("tolerance", "t_max") if k in s}
     return PDPSolver(SolverConfig(
         model_type=model_type, hidden_dim=s["hidden_dim"],
         mem_hidden_dim=s["mem_hidden_dim"],
         agg_hidden_dim=s["agg_hidden_dim"],
         mem_agg_hidden_dim=s["mem_agg_hidden_dim"],
         classifier_dim=s["classifier_dim"],
-        local_search_iterations=s["ls"], epsilon=s["epsilon"]))
+        local_search_iterations=s["ls"] if ls is None else ls,
+        epsilon=s["epsilon"], **extra))
 
 
 def np_nd_np_solver():
@@ -55,6 +74,12 @@ def np_nd_np_solver():
 
 def p_nd_np_solver():
     return _solver("p-nd-np", P_ND_NP)
+
+
+def np_d_np_solver(ls=None):
+    """np-d-np at the solver table's settings (ls: another WalkSAT
+    budget)."""
+    return _solver("np-d-np", NP_D_NP, ls)
 
 
 def np_nd_np_params(device="cuda"):
@@ -69,31 +94,83 @@ def p_nd_np_params(device="cuda"):
         load_jax_checkpoint(P_ND_NP_CHECKPOINT)["params"], device)
 
 
-def solve_np_nd_np(insts, seed, device="cuda", params=None):
+def np_d_np_params(device="cuda", trained=True, seed=0):
+    """The r4 checkpoint's parameters on `device`, or (trained=False) a
+    fresh init drawn on the CPU from torch's default generator seeded
+    with `seed`; the caller's generator state is left as it was."""
+    if trained:
+        return params_from_jax(
+            load_jax_checkpoint(NP_D_NP_CHECKPOINT)["params"], device)
+    with torch.random.fork_rng(devices=[]):
+        torch.random.default_generator.manual_seed(seed)
+        return np_d_np_solver().init_params(device)
+
+
+def solve_np_nd_np(insts, seed, device="cuda", params=None, replicas=1):
     """compacting_solve with np-nd-np and the r3 weights; see `_solve`."""
     if params is None:
         params = np_nd_np_params(device)
-    return _solve(np_nd_np_solver(), NP_ND_NP, params, insts, seed, device)
+    return _solve(np_nd_np_solver(), NP_ND_NP, params, insts, seed, device,
+                  replicas)
 
 
-def solve_p_nd_np(insts, seed, device="cuda", params=None):
+def solve_p_nd_np(insts, seed, device="cuda", params=None, replicas=1):
     """compacting_solve with p-nd-np and the r4 weights; see `_solve`."""
     if params is None:
         params = p_nd_np_params(device)
-    return _solve(p_nd_np_solver(), P_ND_NP, params, insts, seed, device)
+    return _solve(p_nd_np_solver(), P_ND_NP, params, insts, seed, device,
+                  replicas)
 
 
-def _solve(solver, s, params, insts, seed, device):
-    """One compacting_solve at the settings `s`; the wall time is a host
-    clock around synchronised work (loading the weights excluded). Raises
-    if a solution the solver reports disagrees with numpy."""
+def solve_np_d_np(insts, seed, device="cuda", params=None, replicas=1):
+    """compacting_solve with np-d-np and the r4 weights; see `_solve`."""
+    if params is None:
+        params = np_d_np_params(device)
+    return _solve(np_d_np_solver(), NP_D_NP, params, insts, seed, device,
+                  replicas)
+
+
+def np_d_np_3sat_band(params, device="cuda", seed=BAND_SEED):
+    """np-d-np on the medium 3-SAT band, decimation only (the module
+    docstring): the solved fraction, every solution verified with numpy
+    (raises if the solver's count disagrees), and the wall time, a host
+    clock around synchronised work."""
+    insts = make_ksat_set(**BAND_3SAT)
+    batch = pack_instances(insts, device=device)
+    solver = np_d_np_solver(ls=0)
+    gen = torch.Generator().manual_seed(seed)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.time()
+    state = solver.get_init_state(gen, batch, randomized=True)
+    (pred, _), _ = solver.forward(params, gen, batch, state,
+                                  BAND_ITERATIONS, check_termination=True)
+    sol = (pred[:, 0] > 0.5).cpu().numpy()
+    wall = time.time() - t0
+    ok, off = [], 0
+    for inst in insts:
+        ok.append(verify_solution(inst, sol[off:off + inst[0]]))
+        off += inst[0]
+    solved = cnf_evaluate(batch, pred)[0][:len(insts)].cpu().numpy() > 0
+    if ok != solved.tolist():
+        raise RuntimeError("a solution the solver reports disagrees with "
+                           "numpy")
+    return {"seed": seed, "solved": sum(ok),
+            "solved_fraction": sum(ok) / len(insts), "wall_s": wall}
+
+
+def _solve(solver, s, params, insts, seed, device, replicas=1):
+    """One compacting_solve at the settings `s` with `replicas` slots an
+    instance; the wall time is a host clock around synchronised work
+    (loading the weights excluded). Raises if a solution the solver
+    reports disagrees with numpy."""
     if device != "cpu":
         torch.cuda.synchronize()
     t0 = time.time()
     sols, solved, stats = compacting_solve(
         solver, params, torch.Generator().manual_seed(seed),
         insts, s["iterations"], ls_iterations=s["ls"], chunk=s["chunk"],
-        min_edges=s["min_edges"], device=device)
+        min_edges=s["min_edges"], replicas=replicas, device=device)
     if device != "cpu":
         torch.cuda.synchronize()
     wall = time.time() - t0

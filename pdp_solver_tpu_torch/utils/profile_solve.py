@@ -1,15 +1,15 @@
 """Where the time of the port's solves goes, on one CUDA card.
 
     python -m pdp_solver_tpu_torch.utils.profile_solve [--seeds 0 1 2]
-        [--model p-d-p|np-nd-np|p-nd-np|walk-sat|reinforce]
+        [--model p-d-p|np-d-np|np-nd-np|p-nd-np|walk-sat|reinforce]
         [--settings headline|reference] [--min-edges N] [--sp-sweep]
-        [--verify-masks] [--no-profile]
+        [--verify-masks] [--replicas R] [--no-profile]
 
 On the shared set, with p-d-p at the headline settings (or, with
 --settings reference, at the JAX solver table's reference settings),
-np-nd-np with the r3 checkpoint, p-nd-np with the r4 checkpoint, or
-walk-sat and reinforce at the solver table's settings (the settings of
-chip_smoke.py), it prints one JSON line with:
+np-nd-np with the r3 checkpoint, p-nd-np or np-d-np with its r4
+checkpoint, or walk-sat and reinforce at the solver table's settings (the
+settings of chip_smoke.py), it prints one JSON line with:
   - per seed: the numpy-verified solved fraction and the wall time of
     compacting_solve (split into the iteration loop and WalkSAT);
   - the hot loop at full size: ms per iteration over one 50-iteration
@@ -26,7 +26,10 @@ headline settings use 32768; the JAX package's records 65536).
 --sp-sweep and --verify-masks set PDP_SP_SWEEP=on and PDP_VERIFY_MASKS=on
 for the whole run (the profiled chunk and the seeds' solves): the
 one-launch sweep (kernel 9) and the one-launch verification with masks
-(kernel 10).
+(kernel 10). --replicas R gives every instance R slots: the seeds' solves
+run compacting_solve(replicas=R), and the hot loop and the walk-sat trace
+run on the batch it packs first (R copies of each instance side by
+side).
 Needs a CUDA card; exits 2 without one.
 """
 
@@ -49,8 +52,17 @@ from pdp_solver_tpu_torch.utils.classical import (
 from pdp_solver_tpu_torch.utils.headline import (
     HEADLINE, REFERENCE, headline_solver, solve_headline)
 from pdp_solver_tpu_torch.utils.neural import (
-    NP_ND_NP, P_ND_NP, np_nd_np_params, np_nd_np_solver, p_nd_np_params,
-    p_nd_np_solver, solve_np_nd_np, solve_p_nd_np)
+    NP_D_NP, NP_ND_NP, P_ND_NP, np_d_np_params, np_d_np_solver,
+    np_nd_np_params, np_nd_np_solver, p_nd_np_params, p_nd_np_solver,
+    solve_np_d_np, solve_np_nd_np, solve_p_nd_np)
+
+
+# the neural models: settings, weights, solver, solve
+NEURAL = {
+    "np-d-np": (NP_D_NP, np_d_np_params, np_d_np_solver, solve_np_d_np),
+    "np-nd-np": (NP_ND_NP, np_nd_np_params, np_nd_np_solver, solve_np_nd_np),
+    "p-nd-np": (P_ND_NP, p_nd_np_params, p_nd_np_solver, solve_p_nd_np),
+}
 
 
 def own_kernel_names():
@@ -160,8 +172,8 @@ def main(argv=None):
     ap.add_argument("--seeds", type=int, nargs="*", default=[0, 1, 2],
                     help="the seeds to solve (none: only the hot loop)")
     ap.add_argument("--model", default="p-d-p",
-                    choices=("p-d-p", "np-nd-np", "p-nd-np", "walk-sat",
-                             "reinforce"))
+                    choices=("p-d-p", "np-d-np", "np-nd-np", "p-nd-np",
+                             "walk-sat", "reinforce"))
     ap.add_argument("--settings", choices=("headline", "reference"),
                     default="headline", help="p-d-p's settings")
     ap.add_argument("--sp-sweep", action="store_true",
@@ -172,6 +184,8 @@ def main(argv=None):
     ap.add_argument("--min-edges", type=int,
                     help="p-d-p's compaction floor (compacting_solve's "
                          "min_edges) in place of the settings' own")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="slots an instance (compacting_solve's replicas)")
     ap.add_argument("--no-profile", action="store_true",
                     help="skip the hot-loop timing and trace")
     args = ap.parse_args(argv)
@@ -183,12 +197,16 @@ def main(argv=None):
         print("profile_solve: no CUDA card", file=sys.stderr)
         return 2
     insts = make_ksat_set()
+    R = args.replicas
+    # the batch compacting_solve(replicas=R) packs first
+    slots = [i for i in insts for _ in range(R)]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
     out = {"device": torch.cuda.get_device_name(0),
            "card": smi.stdout.strip().splitlines()[0] if smi.stdout else None,
            "fingerprint": dataset_fingerprint(insts), "model": args.model,
+           "replicas": R,
            "env": {k: os.environ.get(k, "off")
                    for k in ("PDP_SP_SWEEP", "PDP_VERIFY_MASKS")}}
     profile = not args.no_profile
@@ -198,34 +216,30 @@ def main(argv=None):
             h = dict(h, min_edges=args.min_edges)
         out["settings"] = dict(h, name=args.settings)
         if profile:
-            out["hot_loop"] = hot_loop(insts, headline_solver(h), {})
-        out["seeds"] = [solve_headline(insts, s, settings=h)
+            out["hot_loop"] = hot_loop(slots, headline_solver(h), {})
+        out["seeds"] = [solve_headline(insts, s, settings=h, replicas=R)
                         for s in args.seeds]
-    elif args.model == "np-nd-np":
-        params = np_nd_np_params()
-        out["settings"] = NP_ND_NP
+    elif args.model in NEURAL:
+        settings, load, make, solve = NEURAL[args.model]
+        params = load()
+        out["settings"] = settings
         if profile:
-            out["hot_loop"] = hot_loop(insts, np_nd_np_solver(), params)
-        out["seeds"] = [solve_np_nd_np(insts, s, params=params)
-                        for s in args.seeds]
-    elif args.model == "p-nd-np":
-        params = p_nd_np_params()
-        out["settings"] = P_ND_NP
-        if profile:
-            out["hot_loop"] = hot_loop(insts, p_nd_np_solver(), params)
-        out["seeds"] = [solve_p_nd_np(insts, s, params=params)
+            out["hot_loop"] = hot_loop(slots, make(), params)
+        out["seeds"] = [solve(insts, s, params=params, replicas=R)
                         for s in args.seeds]
     elif args.model == "reinforce":
         out["settings"] = dict(CLASSICAL, **REINFORCE)
         if profile:
-            out["hot_loop"] = hot_loop(insts, reinforce_solver(), {})
-        out["seeds"] = [solve_reinforce(insts, s) for s in args.seeds]
+            out["hot_loop"] = hot_loop(slots, reinforce_solver(), {})
+        out["seeds"] = [solve_reinforce(insts, s, replicas=R)
+                        for s in args.seeds]
     else:
         out["settings"] = CLASSICAL
         if profile:
             out["solve_profile"] = solve_profile(
-                lambda: solve_walk_sat(insts, 0))
-        out["seeds"] = [solve_walk_sat(insts, s) for s in args.seeds]
+                lambda: solve_walk_sat(insts, 0, replicas=R))
+        out["seeds"] = [solve_walk_sat(insts, s, replicas=R)
+                        for s in args.seeds]
     print(json.dumps(out), flush=True)
     return 0
 

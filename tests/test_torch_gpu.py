@@ -9,7 +9,13 @@ chip_smoke.py: flags and counts exact, float sums rtol 1e-5 / atol 1e-6
 bit against its plain version for 1, 8 and 25 blocks, greedy and
 eps-greedy, on the shared set, a compacted batch, the hub (its edges in
 global memory) and a large banded instance of 30,000 variables (its
-variables too). The multi-column segment sum (kernels 4, 5 and
+variables too); its replicated form (R = 2, a launch a block and a done
+flag on the card) bit for bit against the plain walk with its replica
+stop, on the shared set and a compacted batch. Kernels 1, 2 and 9 on
+those two batches replicated twice (replica 0's padding inside the
+prefix the kernels treat as real): every output row against the plain
+version, kernel 9 also bit for bit against its two launches. The
+multi-column segment sum (kernels 4, 5 and
 8) is exact on signed integer-valued columns, its sums of non-negative
 floats (as the path's are) and the one-launch SP sweep (kernel 9) to rtol
 1e-5 / atol 1e-6 (the plain versions sum with atomics on the card). The
@@ -19,7 +25,8 @@ with masks (kernel 10) exactly against its plain version and the split
 path, on every edge, on the planted shared-set shape, a compacted batch
 and the hub (one 63,488-edge variable); both run a thread-block cluster an
 instance. The group walk of kernels 4, 5, 8 and of kernel 1's
-var side (`csrc/common.cuh`) also bit for bit against its order emulated
+var side (`csrc/common.cuh`; the smax_scorer, smax and scorer functors
+against their plain versions, in float64 at the hub) also bit for bit against its order emulated
 in PyTorch (`ops/reduce.py walk_order_sum`), with the same bits on two
 calls, on a compacted batch (8 instances), one instance and a variable of
 63,488 edges. The chained pass (kernel 2), whose var phase runs the same
@@ -368,6 +375,48 @@ def test_verify_and_masks_matches_plain_and_split_path():
 
 # --- the group walk (kernels 4, 5, 8 and kernel 1's var side) -------------
 
+@pytest.mark.parametrize("which", ["shared", "compacted"])
+def test_walksat_walk_replicated_matches_plain(walk_shapes, which):
+    """The replicated walk (R = 2, one launch a block, the done flag on
+    the card) bit for bit against the plain walk with its replica stop,
+    on the shared set and on a compacted batch, whose padding rows and
+    variables sit between the replicas; from a problem with most clauses
+    inactive, so that every instance has a solved replica before the last
+    block and the launches after that return at once."""
+    from pdp_solver_tpu_torch.fg.batch import replicate_batch
+    gpu = replicate_batch(walk_shapes[which], 2)
+    assert walksat.use_walksat_block(gpu)
+    g = torch.Generator().manual_seed(4)
+    av = gpu.var_mask
+    ac = gpu.clause_mask * (torch.rand(gpu.num_clauses, generator=g)
+                            > 0.7).float().cuda()
+    assign = av * (torch.randint(0, 2, (gpu.num_vars,), generator=g)
+                   .float().cuda() * 2 - 1)
+    em = gpu.edge_mask * av[gpu.edge_var] * ac[gpu.edge_clause]
+    kw = dict(batch=gpu, active_vars=av, active_clauses=ac, em=em, K=8,
+              eps=0.5)
+    seeds = list(range(1000, 1025))
+    a, stop = assign, None
+    for j, seed in enumerate(seeds):
+        a, e = walksat.walksat_block_plain(a, seed=seed, **kw)
+        if walksat.replicas_done(gpu, e, 2) > 0:
+            stop = j
+            break
+    assert stop is not None and stop < len(seeds) - 1
+    ref_a, ref_e = walksat.walksat_walk_plain(assign, seeds=seeds,
+                                              replicas=2, **kw)
+    assert torch.equal(ref_a, a)
+    launches = walksat.walksat_walk.launches
+    got_a, got_e = walksat.walksat_walk(assign, seeds=seeds, replicas=2,
+                                        **kw)
+    again_a, _ = walksat.walksat_walk(assign, seeds=seeds, replicas=2, **kw)
+    torch.cuda.synchronize()
+    assert walksat.walksat_walk.launches == launches + 2 * len(seeds)
+    np.testing.assert_array_equal(got_a.cpu().numpy().view(np.int32),
+                                  ref_a.cpu().numpy().view(np.int32))
+    assert torch.equal(got_e, ref_e) and torch.equal(again_a, got_a)
+
+
 def _hub_batch(degree=63488, n=300, k=3, seed=5):
     """One instance whose variable 0 sits in every one of its `degree`
     clauses: a var CSR with one node of `degree` edges."""
@@ -484,10 +533,11 @@ def test_sorted_segment_sum_walk(walk_batches, case):
 
 
 @pytest.mark.parametrize("which", ["compacted", "hub", "shared"])
-@pytest.mark.parametrize("fn", [fused.SMAX_SCORER, fused.SCORER],
+@pytest.mark.parametrize("fn", [fused.SMAX_SCORER, fused.SMAX, fused.SCORER],
                          ids=lambda f: f.name)
 def test_var_side_fused_pass_walk(walk_batches, which, fn):
-    """Kernel 1's var side (SmaxScorer, Scorer) through the group walk:
+    """Kernel 1's var side (SmaxScorer, Smax, Scorer) through the group
+    walk:
     against its plain version to rtol 1e-5 / atol 1e-6, and the same bits
     on two calls. For the 63,488-edge variable the plain version sums in
     float64: a float32 index_add_ of that many terms in atomic order is
@@ -609,6 +659,89 @@ def test_sp_sweep_bit_equal_to_two_launches(walk_batches, which, case):
     torch.cuda.synchronize()
     for a, c in zip(got, (eta2,) + tuple(two)):
         assert bool(torch.isfinite(a).all())
+        assert torch.equal(a, c)
+
+
+@pytest.fixture(scope="module")
+def replicated_batches(walk_batches):
+    """The small shared-set batch and the compacted batch, replicated
+    twice: replica 0's padding edges, clauses, variables and rows lie
+    inside the prefix the kernels treat as real."""
+    from pdp_solver_tpu_torch.fg.batch import replicate_batch
+    out = {k: replicate_batch(walk_batches[k], 2)
+           for k in ("shared", "compacted")}
+    assert all(b.inner_padding for b in out.values())
+    return out
+
+
+def _active_mask_inputs(fn, batch, seed):
+    """_typed_inputs with the SP passes' mask drawn as the solver's
+    active-edge flag, which is 1 on padding edges too."""
+    ins = _typed_inputs(fn, batch, seed)
+    if fn.name.startswith("sp_"):
+        g = torch.Generator().manual_seed(seed + 1000)
+        ins[fn.inputs.index("mask")] = (torch.rand(
+            batch.num_edges, generator=g) > 0.2).float().cuda()
+    return ins
+
+
+@pytest.mark.parametrize("which", ["shared", "compacted"])
+@pytest.mark.parametrize("fn", fused.FUSED_FNS + fused.CHAINED_FNS,
+                         ids=lambda f: f.name)
+def test_edge_passes_replicated_match_plain(replicated_batches, which, fn):
+    """Kernels 1 and 2 on a replicated batch against their plain versions
+    on every output row, padding included (exact for the flag and count
+    functors, rtol 1e-5 / atol 1e-6 else), the same bits on two calls,
+    and a chained pass's variable sums the bits of the walk's order."""
+    gpu = replicated_batches[which]
+    chained = fn in fused.CHAINED_FNS
+    call = fused.chained_edge_pass if chained else fused.fused_edge_pass
+    plain = (fused.chained_edge_pass_plain if chained
+             else fused.fused_edge_pass_plain)
+    ins = _active_mask_inputs(fn, gpu, 21)
+    got = call(fn, gpu, ins)
+    again = call(fn, gpu, ins)
+    ref = plain(fn, gpu, ins)
+    torch.cuda.synchronize()
+    assert [o is None for o in got] == [r is None for r in ref]
+    exact = fn.name in INTEGER_CHAINS + ("em_ae", "em", "ae")
+    for g, a, r in zip(_flat(got), _flat(again), _flat(ref)):
+        assert g.shape == r.shape and bool(torch.isfinite(g).all())
+        assert torch.equal(g, a)
+        if exact:
+            assert torch.equal(g, r)
+        else:
+            torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-6)
+    if chained and fn.n_vred:
+        emu = fused.chained_vred_walk_order(fn, gpu, ins)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], emu)
+
+
+@pytest.mark.parametrize("which", ["shared", "compacted"])
+@pytest.mark.parametrize("case", ["pi0", "pi0.01", "login"])
+def test_sp_sweep_replicated(replicated_batches, which, case):
+    """Kernel 9 on a replicated batch: against its plain version on every
+    edge (rtol 1e-5 / atol 1e-6) and bit for bit against its two
+    launches, the mask 1 on padding edges as the solver's is."""
+    gpu = replicated_batches[which]
+    pi, login = {"pi0": (0.0, False), "pi0.01": (0.01, False),
+                 "login": (0.0, True)}[case]
+    kw = _sweep_inputs(gpu, 14, pi)
+    if login:
+        kw["u_like"] = torch.log(kw["u_like"])
+    cols = tuple(kw.values())
+    got = sp_sweep.sp_full_sweep(gpu, pi=pi, login=login, **kw)
+    ref = sp_sweep.sp_full_sweep_plain(gpu, cols, pi, login)
+    chain = fused.SP_CHAIN_LOGIN if login else fused.SP_CHAIN
+    _, pn, (eta2,), _ = fused.chained_edge_pass(chain, gpu, cols[:6])
+    _, two = fused.fused_edge_pass(
+        fused.SP_PASS_C, gpu, (pn[0], pn[1]) + cols[1:4] + cols[5:],
+        scalar=pi)
+    torch.cuda.synchronize()
+    for a, r, c in zip(got, ref, (eta2,) + tuple(two)):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-6)
         assert torch.equal(a, c)
 
 

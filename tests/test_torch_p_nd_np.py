@@ -335,8 +335,9 @@ def test_assembly_builds():
         <= 1.0
     with pytest.raises(ValueError):
         solver.forward({"dec": None}, None, tb, state, 1)
-    with pytest.raises(NotImplementedError):
-        PDPSolver(SolverConfig(model_type="np-d-np"))
+    # np-d-np is ported: its parameters are the propagator and the scorer
+    assert set(PDPSolver(SolverConfig(model_type="np-d-np")).init_params(
+        "cpu")) == {"prop", "scorer"}
 
 
 def test_compacting_solve_with_r4(r4):

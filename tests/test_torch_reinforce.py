@@ -286,8 +286,9 @@ def test_build_solver_and_convert():
     assert solver.prop_cfg.pi == solver.scorer_cfg.pi == 0.01
     assert solver.dec_cfg.decimation_probability == 0.25
     assert build_solver({"model_type": "walk-sat"}).dec_cfg is None
-    with pytest.raises(NotImplementedError):
-        PDPSolver(SolverConfig(model_type="np-d-np"))
+    # np-d-np is ported: the assembly builds, with its tanh scorer
+    assert PDPSolver(SolverConfig(model_type="np-d-np")
+                     ).scorer_cfg.classifier_kind == "tanh"
     # p-nd-np is ported: the assembly builds, with its SP adaptors
     assert PDPSolver(SolverConfig(model_type="p-nd-np")
                      ).prop_cfg.include_adaptors

@@ -202,8 +202,10 @@ def test_convert_and_build():
     # p-nd-np is ported: the assembly builds, with its SP adaptors
     assert PDPSolver(SolverConfig(model_type="p-nd-np")
                      ).prop_cfg.include_adaptors
-    with pytest.raises(NotImplementedError):
-        PDPSolver(SolverConfig(model_type="np-d-np"))
+    # np-d-np is ported: the assembly builds, with the sequential decimator
+    npdnp = PDPSolver(SolverConfig(model_type="np-d-np", t_max=10))
+    assert npdnp.neural_prop and not npdnp.neural_dec
+    assert npdnp.dec_cfg.t_max == 10
     with pytest.raises(ValueError):
         PDPSolver(SolverConfig(model_type="nope"))
     jb = jax_pack(_instances(4, n_inst=2))
