@@ -25,7 +25,11 @@ Phases, one flushed line each with the elapsed seconds:
      and 7) are checked at the np-nd-np shapes (d = 50): the sum to rtol
      1e-5 / atol 1e-5 (the plain index_add_ on the card sums in atomic
      order), the gather and the gather-minus-self bit for bit with i32
-     and i64 ids;
+     and i64 ids; and on bf16 rows (compute_dtype="bfloat16") on the
+     shared set and a compacted batch, in the aggregators' forms: bf16
+     rows into f32 sums over both CSRs to rtol 1e-5 / atol 1e-5, f32 sums
+     minus bf16 rows bit for bit with i32 and i64 ids, timed beside
+     index_add_ and index_select on bf16;
      The multi-column segment sum (kernel 4; C = 1 and 2 over the var CSR,
      C = 1 over the clause CSR), the same kernel on a ragged batch of
      mixed clause widths (kernel 5's function) and over sorted ids
@@ -118,7 +122,27 @@ Phases, one flushed line each with the elapsed seconds:
      after 30 under 1% of the variables' flags or values differ;
  14. seeds 1 and 2 of p-d-p and reinforce, printed with seed 0 beside
      the counts from before kernel 2's var phase took the walk's order;
- 15. the {"kernels": [...]} line, the card's name and power limit, and as
+ 15. np-nd-np in bf16 (compute_dtype="bfloat16"): phase 4's solve, >=
+     0.45 solved (the f32 gate), printed beside phase 4's count; the bf16
+     kernels 6 and 7 launched and their f32 instantiations never. Then
+     the JAX package's own bf16 test (tests/test_bf16.py, hidden 16,
+     fresh parameters, 5 iterations) on the card: f32 against bf16 max
+     |prediction difference| <= 0.05, its tolerance. Then np-nd-np with
+     the r3 weights from one numpy state on 16 4-SAT instances
+     (neural.BF16_CHECK; 4 solved within 10 iterations), after 5 and 10
+     iterations: the card's and the CPU's bf16 active flags equal, and
+     the card's f32-against-bf16 max |prediction difference| and its bf16
+     predictions' difference from the CPU's each <= 1.5 times JAX's own
+     f32-against-bf16 difference from that state (0.0408 and 0.0610,
+     which tests/test_torch_bf16.py recomputes);
+ 16. p-nd-np in bf16: phase 8's solve, >= 28/128, beside phase 8's count;
+ 17. np-d-np in bf16 on phase 11's 3-SAT band: >= 29/48, beside phase
+     11's count;
+ 18. the flagship serving config (config/Predict/PDP-np-nd-np-trained.yaml:
+     np-nd-np with trained-models/np-nd-np-full in bf16, 100 iterations,
+     100 flips, epsilon 0.5) on the shared set, every solution verified
+     with numpy; the solved count and the wall time recorded;
+ 19. the {"kernels": [...]} line, the card's name and power limit, and as
      the last line {"ok": true, "device": {...}}.
 
 Every launch count is set to 0 just before each path and read just after
@@ -189,6 +213,17 @@ REP_ITERATIONS, REP_FLIPS = 300, 200
 # headline decimator's first fixes come after ~20)
 REP_CMP_ITERATIONS = 30
 REDUCE2D_TOL = dict(rtol=1e-5, atol=1e-5)
+# compute_dtype="bfloat16" (phases 15-18). JAX's own test of bf16
+# (tests/test_bf16.py: np-nd-np at these widths with fresh parameters,
+# three random 3-SAT instances of 10 variables and 25 clauses, 5
+# iterations) run on the card, with its tolerance on the f32-against-bf16
+# prediction difference (:34); the check at the r3 weights from one state
+# is neural.BF16_CHECK's
+BF16 = "bfloat16"
+BF16_SMALL = dict(hidden_dim=16, mem_hidden_dim=8, agg_hidden_dim=8,
+                  mem_agg_hidden_dim=8, classifier_dim=8)
+BF16_SMALL_ITERATIONS = 5
+MAX_BF16_PRED_DIFF = 0.05
 HIDDEN_AGG = 50      # np-nd-np's mem_agg_hidden_dim: the width kernels 6/7 see
 FLOAT_TOL = dict(rtol=1e-5, atol=1e-6)
 # functors whose outputs are flags or small integer counts
@@ -758,6 +793,112 @@ def check_reduce2d(batch, torch):
             f"{r['bound_ms']:.5f} ms)")
     log(f"kernel gather_2d without the subtract: "
         f"{timing_note(plain_gather)}, bound {b_plain:.5f} ms")
+    return rows
+
+
+def check_reduce2d_bf16(batch, compacted, torch):
+    """Kernels 6 and 7 on bf16 rows (compute_dtype="bfloat16") at d = 50,
+    on the shared set and a compacted batch, in the only forms either
+    package takes (JAX's f32 edge mask makes its sums f32): bf16 rows into
+    f32 sums over both CSRs to REDUCE2D_TOL of the plain version, and f32
+    sums minus bf16 rows bit for bit with i32 and i64 ids; no f32 launch
+    counted. Timed at the shared set beside the plain versions, the bf16
+    PyTorch calls (index_add_ on bf16, which rounds at every add: a time
+    only) and the bound."""
+    from pdp_solver_tpu_torch.ops import reduce2d
+    from pdp_solver_tpu_torch.utils.bench_kernels import timed
+    d, bf16 = HIDDEN_AGG, torch.bfloat16
+    f32_launches = (reduce2d.segment_sum_2d.launches,
+                    reduce2d.gather_2d.launches)
+    errs = {}
+    for label, b in (("shared", batch), ("compacted", compacted)):
+        g = torch.Generator().manual_seed(19)
+        x = torch.randn(b.num_edges, d, generator=g).cuda().to(bf16)
+        nodes = torch.randn(b.num_vars, d, generator=g).cuda()
+        e = b.num_real_edges
+        for side, ids, n, ptr, perm in (
+                ("var", b.edge_var, b.num_vars, b.var_ptr, b.var_perm),
+                ("clause", b.edge_clause, b.num_clauses, b.clause_ptr,
+                 None)):
+            got = reduce2d.segment_sum_2d(x, ids, n, e, ptr, perm)
+            ref = reduce2d.segment_sum_2d_plain(x, ids, n, e)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            errs[f"{label}_{side}"] = err
+            require(got.dtype == torch.float32
+                    and torch.allclose(got, ref, **REDUCE2D_TOL),
+                    f"segment_sum_2d[bf16] {label} {side}: max abs err "
+                    f"{err}")
+        for ids in (b.edge_var32, b.edge_var):
+            got = reduce2d.gather_2d(nodes, ids, x)
+            ref = reduce2d.gather_2d_plain(nodes, b.edge_var, x)
+            torch.cuda.synchronize()
+            require(got.dtype == torch.float32 and torch.equal(got, ref),
+                    f"gather_2d[bf16] {label} ({ids.dtype}): not bit-exact")
+    require((reduce2d.segment_sum_2d.launches,
+             reduce2d.gather_2d.launches) == f32_launches,
+            "a bf16 call launched an f32 kernel")
+
+    E, V, e = batch.num_edges, batch.num_vars, batch.num_real_edges
+    F = batch.num_clauses
+    g = torch.Generator().manual_seed(19)
+    x = torch.randn(E, d, generator=g).cuda().to(bf16)
+    nodes = torch.randn(V, d, generator=g).cuda()
+    ev, ev32 = batch.edge_var, batch.edge_var32
+    rows = {}
+
+    def seg():
+        return reduce2d.segment_sum_2d(x, ev, V, e, batch.var_ptr,
+                                       batch.var_perm)
+
+    out = torch.zeros(V, d, device="cuda", dtype=bf16)
+    x_real, ev_real = x[:e], ev[:e]
+    lib = timed(lambda: out.index_add_(0, ev_real, x_real))
+    # bf16 rows of the real edges, the permutation and offsets read once,
+    # the f32 sums written once; one add per element read
+    b_ms, b_by = bound_ms(e * d * 2 + (e + V + 1) * 4 + V * d * 4, e * d)
+    b_clause, _ = bound_ms(e * d * 2 + (F + 1) * 4 + F * d * 4, e * d)
+    rows["segment_sum_2d[bf16]"] = dict(
+        timed(seg), name="segment_sum_2d[bf16]", route="cuda",
+        source="pdp_solver_tpu_torch/csrc/reduce2d.cu",
+        replaces=f"{PALLAS_2D}:109", max_abs_err=max(errs.values()),
+        max_abs_err_by_case=errs,
+        plain_ms=cuda_ms(lambda: reduce2d.segment_sum_2d_plain(
+            x, ev, V, e), reps=20),
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib["ms"],
+        library_host_us=lib["host_us"], library_device_us=lib["device_us"],
+        library="index_add_ on bf16 over the real edges (bf16 sums "
+                "rounded at every add: a time, not the same function)",
+        form="bf16 rows, f32 sums, var CSR",
+        clause_csr=dict(timed(lambda: reduce2d.segment_sum_2d(
+            x, batch.edge_clause, F, e, batch.clause_ptr)),
+            bound_ms=b_clause))
+    # f32 sums minus the bf16 rows, f32 out, i32 ids: the subtrahend, the
+    # ids, the node rows read once and the output written once
+    b_ms, b_by = bound_ms(E * d * 2 + E * 4 + V * d * 4 + E * d * 4, E * d)
+    nb = nodes.to(bf16)
+    lib = timed(lambda: nb.index_select(0, ev))
+    rows["gather_2d[bf16]"] = dict(
+        timed(lambda: reduce2d.gather_2d(nodes, ev32, x)),
+        name="gather_2d[bf16]", route="cuda",
+        source="pdp_solver_tpu_torch/csrc/reduce2d.cu",
+        replaces=f"{PALLAS_2D}:120", max_abs_err=0.0,
+        plain_ms=cuda_ms(lambda: reduce2d.gather_2d_plain(nodes, ev, x),
+                         reps=20),
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib["ms"],
+        library_host_us=lib["host_us"], library_device_us=lib["device_us"],
+        library="index_select on bf16 nodes (the gather without the "
+                "subtract, i64 ids)",
+        form="f32 sums minus bf16 rows, f32 out, i32 ids")
+    for r in rows.values():
+        log(f"kernel {r['name']} ({r['form']}): ok, max abs err "
+            f"{r['max_abs_err']:.3g}, {timing_note(r)} (plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"host {r['library_host_us']:.1f} us, device "
+            f"{r['library_device_us']:.2f} us; bound {r['bound_ms']:.5f} ms)")
+    c = rows["segment_sum_2d[bf16]"]["clause_csr"]
+    log(f"kernel segment_sum_2d[bf16] over the clause CSR: "
+        f"{timing_note(c)}, bound {c['bound_ms']:.5f} ms")
     return rows
 
 
@@ -1599,6 +1740,85 @@ def replicated_card_vs_cpu(insts, torch):
             "inactive_vars": fixed, "flag_diffs": flags}
 
 
+def neural_bf16_check(torch):
+    """np-nd-np with the r3 weights on neural.BF16_CHECK's instances from
+    one state drawn with numpy (neural.np_nd_np_state, the state the JAX
+    package's figures were taken from), in f32 and bf16 on the card and
+    in bf16 on the CPU, continued through neural.BF16_CHECK_HORIZONS (5
+    and 10 iterations). At each: the card's and the CPU's active flags
+    equal, and the card's f32-against-bf16 max |prediction difference|
+    and its bf16 predictions' difference from the CPU's each at most
+    neural.BF16_DRIFT_RATIO times JAX's own f32-against-bf16 difference
+    there (neural.BF16_CHECK_JAX_DRIFT; two roundings of one function
+    differ by no more than either differs from f32)."""
+    from pdp_solver_tpu_torch.fg.batch import pack_instances
+    from pdp_solver_tpu_torch.utils import neural
+    from pdp_solver_tpu_torch.utils.benchdata import make_ksat_set
+    insts = make_ksat_set(**neural.BF16_CHECK)
+    runs = {}
+    for dev, dtypes in (("cuda", ("float32", BF16)), ("cpu", (BF16,))):
+        batch = pack_instances(insts, device=dev)
+        state = neural.np_nd_np_state(batch.num_edges)
+        params = neural.np_nd_np_params(dev)
+        for dt in dtypes:
+            runs[(dev, dt)] = neural.bf16_check_forward(params, batch, state,
+                                                        dt)
+    real = batch.var_mask > 0
+    out = {}
+    for i, h in enumerate(neural.BF16_CHECK_HORIZONS):
+        (pf, _), (pb, ab), (pc, ac) = (
+            runs[k][i] for k in (("cuda", "float32"), ("cuda", BF16),
+                                 ("cpu", BF16)))
+        jax_d = neural.BF16_CHECK_JAX_DRIFT[h]
+        limit = neural.BF16_DRIFT_RATIO * jax_d
+        drift = float((pf - pb)[real].abs().max())
+        card_cpu = float((pb - pc)[real].abs().max())
+        require(torch.equal(ab, ac), f"np-nd-np bf16 card vs cpu: active "
+                f"flags differ after {h} iterations ({ab.tolist()} vs "
+                f"{ac.tolist()})")
+        require(drift <= limit, f"np-nd-np f32 against bf16 on the card: "
+                f"max |prediction difference| {drift} > {limit} after {h} "
+                f"iterations (JAX's own {jax_d})")
+        require(card_cpu <= limit, f"np-nd-np bf16 card vs cpu: max "
+                f"|prediction difference| {card_cpu} > {limit} after {h} "
+                f"iterations")
+        out[h] = dict(f32_bf16=drift, card_cpu=card_cpu, jax=jax_d,
+                      limit=limit, solved=int((ab == 0).sum()))
+    return out
+
+
+def bf16_small_check(torch):
+    """The JAX package's tests/test_bf16.py on the card: np-nd-np at
+    BF16_SMALL's widths with fresh parameters (torch's default generator
+    seeded with 0), three random 3-SAT instances of 10 variables and 25
+    clauses, BF16_SMALL_ITERATIONS iterations with check_termination from
+    one state in f32 and in bf16: the predictions finite and within
+    MAX_BF16_PRED_DIFF of each other. Returns the max |difference|."""
+    from pdp_solver_tpu_torch.fg.batch import pack_instances
+    from pdp_solver_tpu_torch.solvers.base import PDPSolver, SolverConfig
+    from pdp_solver_tpu_torch.utils.benchdata import make_ksat_set
+    batch = pack_instances(make_ksat_set(seed=2, count=3, n=10, alpha=2.5,
+                                         k=3), device="cuda")
+    solvers = [PDPSolver(SolverConfig(model_type="np-nd-np",
+                                      compute_dtype=dt, **BF16_SMALL))
+               for dt in ("float32", BF16)]
+    with torch.random.fork_rng(devices=[]):
+        torch.random.default_generator.manual_seed(0)
+        params = solvers[0].init_params("cuda")
+    state = solvers[0].get_init_state(torch.Generator().manual_seed(1),
+                                      batch, randomized=True)
+    pred = [sv.forward(params, torch.Generator().manual_seed(2), batch,
+                       state, BF16_SMALL_ITERATIONS,
+                       check_termination=True)[0][0] for sv in solvers]
+    diff = float((pred[0] - pred[1]).abs().max())
+    require(pred[1].dtype == torch.float32
+            and bool(torch.isfinite(pred[1]).all())
+            and diff <= MAX_BF16_PRED_DIFF, f"tests/test_bf16.py's check on "
+            f"the card: max |f32 - bf16 prediction| {diff} > "
+            f"{MAX_BF16_PRED_DIFF} (or not finite)")
+    return diff
+
+
 def reset_counts():
     from pdp_solver_tpu_torch.ops import (
         fused, reduce, reduce2d, sp_sweep, verify, walksat)
@@ -1608,7 +1828,9 @@ def reset_counts():
     fused.chained_edge_pass.launches_by_fn = {}
     walksat.walksat_walk.launches = 0
     reduce2d.segment_sum_2d.launches = 0
+    reduce2d.segment_sum_2d.launches_bf16 = 0
     reduce2d.gather_2d.launches = 0
+    reduce2d.gather_2d.launches_bf16 = 0
     reduce.segment_sum_cols.launches = 0
     reduce.segment_sum_cols.launches_by_form = {}
     sp_sweep.sp_full_sweep.launches = 0
@@ -1624,6 +1846,8 @@ def read_counts():
     launches["walksat_walk"] = walksat.walksat_walk.launches
     launches["segment_sum_2d"] = reduce2d.segment_sum_2d.launches
     launches["gather_2d"] = reduce2d.gather_2d.launches
+    launches["segment_sum_2d[bf16]"] = reduce2d.segment_sum_2d.launches_bf16
+    launches["gather_2d[bf16]"] = reduce2d.gather_2d.launches_bf16
     launches["segment_sum_cols"] = reduce.segment_sum_cols.launches
     launches["segment_sum_cols_by_form"] = dict(
         reduce.segment_sum_cols.launches_by_form)
@@ -1632,6 +1856,16 @@ def read_counts():
         sp_sweep.sp_full_sweep.launches_by_form.get("login", 0))
     launches["verify_and_masks"] = verify.verify_and_masks.launches
     return launches
+
+
+def require_bf16_path(launches, what, gather):
+    """A bf16 path went through kernels 6 (and 7) on bf16 rows and never
+    through their f32 instantiations."""
+    require(launches["segment_sum_2d[bf16]"] > 0
+            and (launches["gather_2d[bf16]"] > 0 or not gather),
+            f"{what} in bf16 never launched the bf16 kernels 6/7")
+    require(launches["segment_sum_2d"] == 0 and launches["gather_2d"] == 0,
+            f"{what} in bf16 launched an f32 [E, d] kernel")
 
 
 def run_path(solve):
@@ -1683,6 +1917,8 @@ def main():
         for name, errs in check_kernels_replicated(insts, torch).items():
             rows[name]["replicated_max_abs_err"] = errs
         rows.update(check_reduce2d(batch, torch))
+        rows.update(check_reduce2d_bf16(
+            batch, pack_instances(insts[:8], device="cuda"), torch))
         rows.update(check_reduce(batch, torch, np))
         for name, per_case in check_walk(insts, torch, np).items():
             rows[name]["walk_cases"] = per_case
@@ -1894,8 +2130,71 @@ def main():
             f"{pdp} (before kernel 2's walk: {PRIOR_SOLVED['p-d-p']}); "
             f"reinforce {rnf} (before: {PRIOR_SOLVED['reinforce']})")
 
+        from pdp_solver_tpu_torch.utils.neural import (
+            flagship_settings, solve_flagship)
+        hres, hlaunches = run_path(lambda: solve_np_nd_np(
+            insts, seed=0, compute_dtype=BF16))
+        hfrac = hres["solved_fraction"]
+        log(f"phase 15 np-nd-np in bf16: solved {hfrac:.4f} "
+            f"({hres['solved']}/{len(insts)}, verified with numpy; phase 4 "
+            f"in f32 solved {nres['solved']}) in {hres['wall_s']:.2f} s; "
+            f"loop {hres['loop_wall_s']} s, walksat {hres['ls_wall_s']} s, "
+            f"{hres['chunks']} chunks, {hres['compactions']} compactions, "
+            f"progress {hres['progress']}")
+        log(f"launches on the np-nd-np bf16 path: {json.dumps(hlaunches)}")
+        require(hfrac >= MIN_SOLVED_NEURAL, f"np-nd-np in bf16 solved "
+                f"{hfrac} < {MIN_SOLVED_NEURAL}")
+        require_bf16_path(hlaunches, "np-nd-np", gather=True)
+        small = bf16_small_check(torch)
+        log(f"phase 15 tests/test_bf16.py's check on the card (np-nd-np at "
+            f"hidden 16, fresh parameters, 3 instances of 10 variables, "
+            f"{BF16_SMALL_ITERATIONS} iterations): max |f32 - bf16 "
+            f"prediction| {small:.4g} (gate {MAX_BF16_PRED_DIFF})")
+        for h, c in neural_bf16_check(torch).items():
+            log(f"phase 15 np-nd-np r3 from one state after {h} iterations "
+                f"(16 instances, {c['solved']} solved, flags equal card vs "
+                f"cpu): max |f32 - bf16 prediction| on the card "
+                f"{c['f32_bf16']:.4g}, bf16 card vs cpu {c['card_cpu']:.4g}"
+                f" (JAX's own f32 - bf16 {c['jax']}; gate {c['limit']:.4g})")
+
+        p16, p16launches = run_path(lambda: solve_p_nd_np(
+            insts, seed=0, compute_dtype=BF16))
+        log(f"phase 16 p-nd-np in bf16: solved {p16['solved']}/{len(insts)}"
+            f" (verified with numpy; phase 8 in f32 solved {pres['solved']})"
+            f" in {p16['wall_s']:.2f} s; loop {p16['loop_wall_s']} s, "
+            f"progress {p16['progress']}")
+        log(f"launches on the p-nd-np bf16 path: {json.dumps(p16launches)}")
+        require(p16["solved"] >= MIN_SOLVED_P_ND_NP, f"p-nd-np in bf16 "
+                f"solved {p16['solved']} < {MIN_SOLVED_P_ND_NP}")
+        require_bf16_path(p16launches, "p-nd-np", gather=False)
+
+        band16, d16launches = run_path(lambda: np_d_np_3sat_band(
+            np_d_np_params(), compute_dtype=BF16))
+        log(f"phase 17 np-d-np in bf16 on the medium 3-SAT band: "
+            f"{band16['solved']}/48 = {band16['solved_fraction']:.4f} "
+            f"(verified with numpy; phase 11 in f32 {band['solved']}/48) in "
+            f"{band16['wall_s']:.2f} s")
+        log(f"launches on the np-d-np bf16 band: {json.dumps(d16launches)}")
+        require(band16["solved"] >= MIN_BAND_SOLVED, f"np-d-np in bf16 "
+                f"solved {band16['solved']}/48 of the band < "
+                f"{MIN_BAND_SOLVED}")
+        require_bf16_path(d16launches, "np-d-np", gather=True)
+
+        gres, glaunches = run_path(lambda: solve_flagship(insts, seed=0))
+        fs = flagship_settings()
+        log(f"phase 18 the flagship config (PDP-np-nd-np-trained.yaml: "
+            f"np-nd-np-full, bf16, {fs['iterations']} iterations, "
+            f"{fs['ls']} flips, epsilon {fs['epsilon']}): solved "
+            f"{gres['solved']}/{len(insts)} (verified with numpy; recorded "
+            f"only) in {gres['wall_s']:.2f} s; loop {gres['loop_wall_s']} s,"
+            f" walksat {gres['ls_wall_s']} s, progress {gres['progress']}")
+        log(f"launches on the flagship path: {json.dumps(glaunches)}")
+        require_bf16_path(glaunches, "the flagship", gather=True)
+
         # each row carries the launches of the path it serves
         serves = {"segment_sum_2d": nlaunches, "gather_2d": nlaunches,
+                  "segment_sum_2d[bf16]": hlaunches,
+                  "gather_2d[bf16]": hlaunches,
                   "scorer": rlaunches, "segment_sum_cols": rlaunches,
                   "segment_sum_cols[ragged]": rlaunches,
                   "sorted_segment_sum": rlaunches,

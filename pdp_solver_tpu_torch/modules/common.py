@@ -19,6 +19,14 @@ does not). Here there is one route per direction:
     over the clause-major CSR with the same segment-sum kernels. The
     broadcast back is a row index.
 Padding edges take part in no sum.
+
+bf16 [E, d] blocks (the neural aggregators' compute_dtype="bfloat16")
+give f32 sums, in each direction through kernel 6 (on the clause-major
+CSR for clauses), and the aggregate-minus-self an f32 result: the JAX
+package multiplies the rows by the f32 `batch.edge_mask` before it sums,
+and that product is f32 (type promotion), so its sums, its gathers and
+the subtract of the bf16 rows are f32 (`pdp_solver_tpu/modules/common.py`
+:148-150, :213-216, :196).
 """
 
 import torch
@@ -37,10 +45,12 @@ def col(mask_1d):
 
 
 def scatter_to_vars(batch, x_e):
-    """Sum each variable's edge rows: [E] -> [V], [E, d] -> [V, d]."""
+    """Sum each variable's edge rows: [E] -> [V], [E, d] -> [V, d] (f32
+    sums of bf16 rows)."""
     args = (batch.edge_var, batch.num_vars, batch.num_real_edges,
             batch.var_ptr, batch.var_perm)
-    if x_e.dim() == 2 and x_e.shape[1] >= MIN_2D_WIDTH:
+    if x_e.dtype == torch.bfloat16 or (x_e.dim() == 2
+                                       and x_e.shape[1] >= MIN_2D_WIDTH):
         return segment_sum_2d(x_e, *args)
     return reduce.segment_sum(x_e, *args, max_degree=batch.var_max_degree)
 
@@ -68,9 +78,10 @@ def scatter_to_clauses_cols(batch, cols):
 
 
 def scatter_to_clauses(batch, x_e):
-    """Sum each clause's edge rows: [E, d] -> [F, d]."""
+    """Sum each clause's edge rows: [E, d] -> [F, d] (f32 sums of bf16
+    rows, over the clause-major CSR)."""
     k, F = batch.clause_width, batch.num_clauses
-    if k > 0:
+    if k > 0 and x_e.dtype == torch.float32:
         f, d = batch.num_real_clauses, x_e.shape[1]
         out = x_e.new_zeros((F, d))
         out[:f] = x_e[:f * k].reshape(f, k, d).sum(1)
@@ -91,7 +102,8 @@ def gather_from_clauses(batch, x_f):
 def aggregate_minus_self_var(batch, x_e):
     """Each edge's variable sum without its own row (reference
     util.py:60-68, include_self_message=False), the subtract fused into
-    the gather. Padding edges get their variable's sum minus their row."""
+    the gather (f32 for bf16 rows). Padding edges get their variable's sum
+    minus their row."""
     return gather_2d(scatter_to_vars(batch, x_e), batch.edge_var32,
                      minus=x_e)
 

@@ -57,6 +57,7 @@ class NeuralDecimatorConfig:
     hidden_dim: int
     edge_dim: int
     dropout: float = 0.0
+    compute_dtype: str = "float32"   # "bfloat16": the GRU cells in bf16
 
 
 class NeuralDecimator(nn.Module):
@@ -64,7 +65,8 @@ class NeuralDecimator(nn.Module):
     states, frozen on the edges of instances that have stopped. The
     messages are the neural propagator's (var, fn) [E, h] pair (np-nd-np)
     or SPMessages (p-nd-np), whose 1-D columns are stacked into [E, 3] and
-    [E, 2] blocks first (JAX decimate.py:67-71)."""
+    [E, 2] blocks first (JAX decimate.py:67-71). forward's compute_dtype
+    (the solver's) overrides cfg.compute_dtype."""
 
     def __init__(self, cfg: NeuralDecimatorConfig):
         super().__init__()
@@ -76,7 +78,8 @@ class NeuralDecimator(nn.Module):
             cfg.fn_message_dim + cfg.edge_dim + cfg.meta_dim,
             cfg.hidden_dim)
 
-    def forward(self, batch, dec_state, message_state, active_edge):
+    def forward(self, batch, dec_state, message_state, active_edge,
+                compute_dtype=None):
         old_var, old_fn = dec_state
         if isinstance(message_state, SPMessages):
             msg_var = torch.stack(message_state.var, dim=1)
@@ -85,8 +88,10 @@ class NeuralDecimator(nn.Module):
             msg_var, msg_fn = message_state
         feat = col(batch.edge_sign)
         keep = col(active_edge) > 0
-        var_new = self.var_gru(torch.cat([msg_var, feat], dim=1), old_var)
-        fn_new = self.fn_gru(torch.cat([msg_fn, feat], dim=1), old_fn)
+        dtype = mlp.cast_for(self.cfg, compute_dtype)
+        var_new = self.var_gru(torch.cat([msg_var, feat], dim=1), old_var,
+                               dtype)
+        fn_new = self.fn_gru(torch.cat([msg_fn, feat], dim=1), old_fn, dtype)
         var_state = torch.where(keep, var_new, old_var)
         fn_state = torch.where(keep, fn_new, old_fn)
         return var_state, fn_state

@@ -5,6 +5,16 @@ layer `x @ w + b` with `w` stored [in, out] is an `nn.Linear` whose weight
 is `w.T`; the GRU cell keeps torch's nn.GRUCell layout (weight_ih [3h, in],
 weight_hh [3h, h], gate order r, z, n), which is the JAX package's layout
 transposed. `convert.params_from_jax` loads JAX parameters into these.
+
+Mixed precision (the JAX package's compute_dtype="bfloat16",
+`pdp_solver_tpu/modules/mlp.py` aggregator_apply :128-173 and the GRU of
+`modules/decimate.py` :78-85) is written out as explicit casts, as in the
+JAX package, not torch.autocast (which picks per op what runs in f32).
+The parameters stay f32 masters and carry no precision: a module takes
+its compute_dtype at call time (the solver passes its own; a module called
+alone uses its config's), and a layer rounds its weights to bf16 on every
+call, held in f32 where its input is f32, as JAX's cast_tree and its type
+promotion of an f32 input and bf16 weights do.
 """
 
 import dataclasses
@@ -14,6 +24,28 @@ from torch import nn
 from torch.nn import functional as Fn
 
 from pdp_solver_tpu_torch.modules import common
+
+
+# the compute_dtype values the JAX package's SolverConfig takes, and the
+# cast each asks for (None: none)
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+def cast_for(cfg, compute_dtype=None):
+    """The cast a module runs with: compute_dtype's (the caller's), else
+    its config's."""
+    return COMPUTE_DTYPES[compute_dtype or cfg.compute_dtype]
+
+
+def linear(layer, x, dtype=None):
+    """layer(x), with dtype: x @ round_dtype(w) + round_dtype(b) in x's
+    type (JAX's linear_apply after cast_tree)."""
+    if dtype is None:
+        return layer(x)
+
+    def cast(p):
+        return None if p is None else p.to(dtype).to(x.dtype)
+    return Fn.linear(x, cast(layer.weight), cast(layer.bias))
 
 
 class Perceptron(nn.Module):
@@ -67,15 +99,25 @@ class GRUCell(nn.Module):
         for p in self.parameters():
             nn.init.uniform_(p, -k, k)
 
-    def forward(self, x, h):
-        gi = torch.addmm(self.bias_ih, x, self.weight_ih.t())
-        gh = torch.addmm(self.bias_hh, h, self.weight_hh.t())
+    def forward(self, x, h, dtype=None):
+        """The new state, in h's type. With dtype (bf16), the weights, x
+        and h are cast to it, the cell runs in it (the products' sums
+        kept in f32 by the matrix product, each op's result rounded), and
+        the result is cast back (JAX decimate.py:78-85)."""
+        w = (self.weight_ih, self.weight_hh, self.bias_ih, self.bias_hh)
+        out_dtype = h.dtype
+        if dtype is not None:
+            w = [p.to(dtype) for p in w]
+            x, h = x.to(dtype), h.to(dtype)
+        w_ih, w_hh, b_ih, b_hh = w
+        gi = torch.addmm(b_ih, x, w_ih.t())
+        gh = torch.addmm(b_hh, h, w_hh.t())
         i_r, i_z, i_n = gi.chunk(3, dim=1)
         h_r, h_z, h_n = gh.chunk(3, dim=1)
         r = torch.sigmoid(i_r + h_r)
         z = torch.sigmoid(i_z + h_z)
         n = torch.tanh(i_n + r * h_n)
-        return (1.0 - z) * n + z * h
+        return ((1.0 - z) * n + z * h).to(out_dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,13 +160,28 @@ class Aggregator(nn.Module):
             self.w2_a = nn.Linear(cfg.agg_hidden_dim, cfg.output_dim,
                                   bias=False)
 
-    def forward(self, batch, state_e, feature_e, orient, edge_mask_e=None):
+    def forward(self, batch, state_e, feature_e, orient, edge_mask_e=None,
+                dtype=None):
+        """dtype=torch.bfloat16 follows JAX's aggregator_apply(dtype=):
+        state_e, feature_e, the edge mask and the weights are cast to
+        bf16, so the first MLP and the masking run in bf16; the sums are
+        f32 (`common.scatter_to_vars`: JAX's f32 edge mask promotes them),
+        so the subtract of the own row, the features' concatenation and
+        the second MLP (bf16 weights held in f32) are f32, as in JAX; the
+        result has state_e's type."""
         if orient not in ("var", "clause"):
             raise ValueError(f"orient must be 'var' or 'clause', not "
                              f"{orient!r}")
+        out_dtype = state_e.dtype
+        if dtype is not None:
+            state_e = state_e.to(dtype)
+            if feature_e is not None:
+                feature_e = feature_e.to(dtype)
+            if edge_mask_e is not None:
+                edge_mask_e = edge_mask_e.to(dtype)
         if self.has_mem:
-            state_e = Fn.logsigmoid(self.w2_m(Fn.logsigmoid(
-                self.w1_m(state_e))))
+            state_e = Fn.logsigmoid(linear(self.w2_m, Fn.logsigmoid(
+                linear(self.w1_m, state_e, dtype)), dtype))
         if edge_mask_e is not None:
             state_e = state_e * common.col(edge_mask_e)
 
@@ -138,7 +195,8 @@ class Aggregator(nn.Module):
                 agg = common.gather_from_clauses(batch, agg) - state_e
 
         if feature_e is not None:
-            agg = torch.cat([agg, feature_e], dim=1)
+            agg = torch.cat([agg, feature_e.to(agg.dtype)], dim=1)
         if self.has_agg:
-            agg = Fn.logsigmoid(self.w2_a(Fn.logsigmoid(self.w1_a(agg))))
-        return agg
+            agg = Fn.logsigmoid(linear(self.w2_a, Fn.logsigmoid(
+                linear(self.w1_a, agg, dtype)), dtype))
+        return agg.to(out_dtype)

@@ -31,6 +31,7 @@ class NeuralPredictorConfig:
     mem_agg_hidden_dim: int
     classifier_dim: int
     classifier_kind: str = "sigmoid"  # "sigmoid" (Perceptron) | "tanh"
+    compute_dtype: str = "float32"    # "bfloat16": the aggregator in bf16
 
     def aggregator_cfg(self):
         return mlp.AggregatorConfig(
@@ -47,7 +48,10 @@ class NeuralPredictor(nn.Module):
     """Aggregate the decimator's variable states per variable (self
     included), then a per-variable classifier (reference
     pdp_predict.py:49-91; only the variable path exists, as in the JAX
-    package). forward -> (prediction [V, prediction_dim], None)."""
+    package). forward -> (prediction [V, prediction_dim], None). With
+    compute_dtype "bfloat16" (forward's, the solver's, else
+    cfg.compute_dtype) the aggregator takes it and the classifier runs in
+    f32 on its f32 result, as in JAX (predict.py:62-70)."""
 
     def __init__(self, cfg: NeuralPredictorConfig):
         super().__init__()
@@ -58,9 +62,10 @@ class NeuralPredictor(nn.Module):
         self.classifier = head(cfg.decimator_dim, cfg.classifier_dim,
                                cfg.prediction_dim)
 
-    def forward(self, batch, dec_state, edge_mask):
+    def forward(self, batch, dec_state, edge_mask, compute_dtype=None):
         agg_in = torch.cat([dec_state[0], col(batch.edge_sign)], dim=1)
-        agg_v = self.var_agg(batch, agg_in, None, "var", edge_mask)
+        agg_v = self.var_agg(batch, agg_in, None, "var", edge_mask,
+                             mlp.cast_for(self.cfg, compute_dtype))
         return self.classifier(agg_v), None
 
 

@@ -37,6 +37,7 @@ class NeuralPropagatorConfig:
     mem_agg_hidden_dim: int
     agg_hidden_dim: int
     dropout: float = 0.0
+    compute_dtype: str = "float32"   # "bfloat16": the aggregators in bf16
 
     def aggregator_cfg(self):
         return mlp.AggregatorConfig(
@@ -56,7 +57,8 @@ class NeuralPropagator(nn.Module):
     clause's edges and produces the new *variable* state. Edges of
     instances that have stopped (active_edge 0) keep their state. Dropout
     acts only in training, and per-instance meta features only in p-nd-np,
-    neither of which is ported."""
+    neither of which is ported. forward's compute_dtype (the solver's)
+    overrides cfg.compute_dtype."""
 
     def __init__(self, cfg: NeuralPropagatorConfig):
         super().__init__()
@@ -64,16 +66,18 @@ class NeuralPropagator(nn.Module):
         self.var_agg = mlp.Aggregator(cfg.aggregator_cfg())
         self.fn_agg = mlp.Aggregator(cfg.aggregator_cfg())
 
-    def forward(self, batch, prop_state, dec_state, edge_mask, active_edge):
+    def forward(self, batch, prop_state, dec_state, edge_mask, active_edge,
+                compute_dtype=None):
         var_state, fn_state = prop_state
         dec_var, dec_fn = dec_state
         feat = col(batch.edge_sign)
         keep = col(active_edge) > 0
+        dtype = mlp.cast_for(self.cfg, compute_dtype)
         fn_new = self.var_agg(batch, torch.cat([dec_var, feat], dim=1), feat,
-                              "var", edge_mask)
+                              "var", edge_mask, dtype)
         fn_state = torch.where(keep, fn_new, fn_state)
         var_new = self.fn_agg(batch, torch.cat([dec_fn, feat], dim=1), feat,
-                              "clause", edge_mask)
+                              "clause", edge_mask, dtype)
         var_state = torch.where(keep, var_new, var_state)
         return var_state, fn_state
 

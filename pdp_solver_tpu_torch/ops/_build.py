@@ -46,7 +46,7 @@ _SIGNATURES = {
     "pdp_chained_edge_pass": (I, [P]),
     "pdp_walksat_setup": (I, [P]),
     "pdp_walksat_walk": (I, [P]),
-    "pdp_segment_sum_2d": (I, [P, I, P, P, I, P, P]),
+    "pdp_segment_sum_2d": (I, [P, I, I, P, P, I, P, P]),
     "pdp_gather_2d": (I, [P]),
     "pdp_segment_sum_cols": (I, [P]),
     "pdp_sp_sweep": (I, [P]),
@@ -91,7 +91,7 @@ class GatherArgs(ctypes.Structure):
     """csrc/reduce2d.cu GatherArgs, field for field."""
     _fields_ = [("nodes", P), ("d", I), ("ids64", I), ("ids", P),
                 ("minus", P), ("n_rows", ctypes.c_long), ("out", P),
-                ("stream", P)]
+                ("minus_bf16", I), ("stream", P)]
 
 
 class SegSumArgs(ctypes.Structure):

@@ -60,6 +60,7 @@ from torch import nn
 
 from pdp_solver_tpu_torch.fg.batch import replicate_batch
 from pdp_solver_tpu_torch.modules import decimate as D
+from pdp_solver_tpu_torch.modules.mlp import COMPUTE_DTYPES
 from pdp_solver_tpu_torch.modules import predict as P
 from pdp_solver_tpu_torch.modules import propagate as PR
 from pdp_solver_tpu_torch.ops import fused
@@ -109,6 +110,11 @@ class SolverConfig:
     simplify_rounds: int = 0
     local_search_iterations: int = 0
     epsilon: float = 0.05
+    # "bfloat16" runs the neural aggregators and GRU cells in bf16
+    # (modules/mlp.py), whatever parameters are passed; the message and
+    # state storage, the classifiers and all classical math stay f32, as in
+    # the JAX package
+    compute_dtype: str = "float32"
 
 
 @dataclasses.dataclass
@@ -146,6 +152,10 @@ class PDPSolver:
         if t not in ("np-nd-np", "p-nd-np", "np-d-np", "p-d-p", "walk-sat",
                      "reinforce"):
             raise ValueError(f"unknown model_type {t!r}")
+        if config.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of "
+                             f"{sorted(COMPUTE_DTYPES)}, not "
+                             f"{config.compute_dtype!r}")
         c = config
         self.prop_cfg = self.dec_cfg = self.scorer_cfg = None
         # which parts are neural: the propagator (np-nd-np, np-d-np), the
@@ -178,7 +188,8 @@ class PDPSolver:
             meta_dim=c.meta_dim, hidden_dim=c.hidden_dim,
             mem_hidden_dim=c.mem_hidden_dim,
             mem_agg_hidden_dim=c.mem_agg_hidden_dim,
-            agg_hidden_dim=c.agg_hidden_dim, dropout=c.dropout)
+            agg_hidden_dim=c.agg_hidden_dim, dropout=c.dropout,
+            compute_dtype=c.compute_dtype)
         if t == "np-d-np":
             # the sequential decimator's scorer is a neural predictor with
             # a tanh head and one output (reference solver.py:630-634)
@@ -198,7 +209,8 @@ class PDPSolver:
         self.dec_cfg = D.NeuralDecimatorConfig(
             var_message_dim=msg_dims[0], fn_message_dim=msg_dims[1],
             meta_dim=c.meta_dim, hidden_dim=c.hidden_dim,
-            edge_dim=c.edge_dim, dropout=c.dropout)
+            edge_dim=c.edge_dim, dropout=c.dropout,
+            compute_dtype=c.compute_dtype)
         self.pred_cfg = self._predictor_cfg(c.prediction_dim, "sigmoid")
 
     def _predictor_cfg(self, prediction_dim, kind):
@@ -209,7 +221,8 @@ class PDPSolver:
             mem_hidden_dim=c.mem_hidden_dim,
             agg_hidden_dim=c.agg_hidden_dim,
             mem_agg_hidden_dim=c.mem_agg_hidden_dim,
-            classifier_dim=c.classifier_dim, classifier_kind=kind)
+            classifier_dim=c.classifier_dim, classifier_kind=kind,
+            compute_dtype=c.compute_dtype)
 
     def _param_keys(self):
         if self.neural_dec:
@@ -290,7 +303,8 @@ class PDPSolver:
 
     def _propagate(self, params, batch, prop, dec, em, ae):
         if self.neural_prop:
-            return params["prop"](batch, prop, dec, em, ae)
+            return params["prop"](batch, prop, dec, em, ae,
+                                  self.cfg.compute_dtype)
         return PR.survey_propagator_apply(
             self.prop_cfg, batch, prop, dec, em, ae,
             adaptors=params["prop"] if self.neural_dec else None)
@@ -305,14 +319,16 @@ class PDPSolver:
 
         def fn(message_state, problem):
             em = compute_edge_mask(batch, problem)
-            return params["scorer"](batch, message_state, em)[0]
+            return params["scorer"](batch, message_state, em,
+                                    self.cfg.compute_dtype)[0]
         return fn
 
     def _predict(self, params, generator, batch, problem, dec, em,
                  last_call):
         """The variable prediction [V, 1]."""
         if self.neural_dec:
-            return params["predictor"](batch, dec, em)[0]
+            return params["predictor"](batch, dec, em,
+                                       self.cfg.compute_dtype)[0]
         if self.cfg.model_type == "reinforce":
             return P.reinforce_predictor_apply(batch, dec)[0]
         return P.identity_predictor_apply(generator, problem,
@@ -396,7 +412,8 @@ class PDPSolver:
                                    ae)
             if self.neural_dec:
                 # the neural decimator never changes the problem
-                dec = params["dec"](batch, state.dec, prop, ae)
+                dec = params["dec"](batch, state.dec, prop, ae,
+                                    self.cfg.compute_dtype)
                 state = SolverState(prop=prop, dec=dec, aux=())
             elif self.cfg.model_type == "reinforce":
                 # once no instance is active every edge is frozen and the
@@ -532,7 +549,8 @@ class PDPSolver:
 
 def build_solver(config) -> PDPSolver:
     """A PDPSolver from a SolverConfig or a flat dict with the reference's
-    key names (keys that no ported assembly reads are ignored)."""
+    key names (keys that no ported assembly reads are ignored;
+    compute_dtype must be "float32" or "bfloat16")."""
     if isinstance(config, SolverConfig):
         return PDPSolver(config)
     c = dict(config)
@@ -557,6 +575,7 @@ def build_solver(config) -> PDPSolver:
         simplify_rounds=int(c.get("simplify_rounds", 0)),
         local_search_iterations=c.get("local_search_iteration", 0),
         epsilon=c.get("epsilon", 0.05),
+        compute_dtype=c.get("compute_dtype", "float32"),
     ))
 
 

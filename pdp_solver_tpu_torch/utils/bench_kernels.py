@@ -1,8 +1,8 @@
 """Times the CSR segment sum (kernels 4, 5, 8), the fused and chained edge
 passes (kernels 1, 2), WalkSAT (kernel 3), the one-launch SP sweep (kernel
-9), the verification with masks (kernel 10) and the [E, d] gather (kernel
-7) on one CUDA card, beside the PyTorch call for the same function where
-there is one.
+9), the verification with masks (kernel 10) and the [E, d] sum and gather
+(kernels 6 and 7) on one CUDA card, beside the PyTorch call for the same
+function where there is one.
 
     python pdp_solver_tpu_torch/utils/bench_kernels.py [--label NAME]
         [--only STRING ...]
@@ -29,10 +29,14 @@ unsat" (from a random fill, every instance unsat) and "walksat 25 blocks"
 tree has `walksat_walk`, else 25 `walksat_block` calls; on one-instance
 batches 5 calls instead of 50 and 500); "gather_2d" and
 "gather_2d minus" at np-nd-np's width (d = 50) with i64 ids, the same
-with " i32" ids (`edge_var32`), and "index_select", the gather's PyTorch
-call. --only keeps the forms whose names contain one of the strings
-given. It prints one JSON line with the card's name and power limit. It
-uses only the wrappers' public functions, so it times any tree of the
+with " i32" ids (`edge_var32`), "gather_2d minus i32 bf16" (f32 node rows
+minus bf16 rows, the bf16 aggregators' form), and "index_select", the
+gather's PyTorch call; "segment_sum_2d var" (kernel 6 at d = 50, beside
+index_add_), "segment_sum_2d var bf16" and "segment_sum_2d clause bf16"
+(bf16 rows into f32 sums, over the var and the clause CSR). --only
+keeps the forms whose names contain one of the strings given. It
+prints one JSON line with the card's name and power limit. It uses
+only the wrappers' public functions, so it times any tree of the
 package that PYTHONPATH puts first: run it on two trees in one call to
 compare them on one card (a form that a tree refuses, such as i32 ids
 before they were taken, is recorded as its error). Needs a CUDA card;
@@ -254,7 +258,23 @@ def bench_batch(batch, forms, only=None):
                       None)}
     for form in forms:
         reps = None
-        if form.startswith("segment_sum"):
+        if form.startswith("segment_sum_2d"):
+            # "segment_sum_2d var", "segment_sum_2d var bf16" (bf16 rows,
+            # f32 sums), "segment_sum_2d clause bf16"
+            side = form.split()[1]
+            ids, n, ptr, perm = csr[side]
+            x2 = torch.rand(E, HIDDEN_AGG, generator=g).cuda()
+            if form.endswith("bf16"):
+                x2 = x2.to(torch.bfloat16)
+
+            def call():
+                return reduce2d.segment_sum_2d(x2, ids, n, e, ptr, perm)
+            acc = torch.zeros(n, HIDDEN_AGG, device="cuda", dtype=x2.dtype)
+            x_real, ids_real = x2[:e], ids[:e]
+
+            def lib():
+                return acc.index_add_(0, ids_real, x_real)
+        elif form.startswith("segment_sum"):
             # "segment_sum var C=2" ([E, 2] rows), "segment_sum_cols var
             # C=1", "segment_sum_cols clause C=1"
             what, side, cc = form.split()
@@ -345,11 +365,13 @@ def bench_batch(batch, forms, only=None):
             reps = 5 if batch.num_instances == 1 else None
             lib = None
         elif form.startswith(("gather_2d", "index_select")):
-            # "gather_2d[ minus][ i32]", "index_select"
+            # "gather_2d[ minus][ i32][ bf16]", "index_select"
             nodes = torch.rand(batch.num_vars, HIDDEN_AGG, generator=g).cuda()
             minus = (torch.rand(E, HIDDEN_AGG, generator=g).cuda()
                      if "minus" in form else None)
-            ids = batch.edge_var32 if form.endswith("i32") else batch.edge_var
+            if form.endswith("bf16"):
+                minus = minus.to(torch.bfloat16)
+            ids = batch.edge_var32 if " i32" in form else batch.edge_var
             if form == "index_select":
                 def call():
                     return nodes.index_select(0, ids)
@@ -374,8 +396,8 @@ def bench_batch(batch, forms, only=None):
         try:
             row = (timed(call) if reps is None
                    else timed(call, reps=reps, host_reps=reps))
-        except (RuntimeError, ValueError) as e:
-            out[form] = {"error": str(e)[:200]}
+        except (RuntimeError, ValueError) as err:
+            out[form] = {"error": str(err)[:200]}
             continue
         if lib is not None:
             row["library"] = timed(lib)
@@ -390,7 +412,9 @@ SWEEP_FORMS = ("sp_full_sweep[pi 0]", "sp_full_sweep[pi 0.01]",
 VERIFY_FORMS = ("verify_and_masks", "verify split")
 WALK_FORMS = ("walksat_block", "walksat_block unsat", "walksat 25 blocks")
 GATHER_FORMS = ("gather_2d", "gather_2d minus", "gather_2d i32",
-                "gather_2d minus i32", "index_select")
+                "gather_2d minus i32", "gather_2d minus i32 bf16",
+                "index_select", "segment_sum_2d var",
+                "segment_sum_2d var bf16", "segment_sum_2d clause bf16")
 SHARED_FORMS = ("segment_sum var C=2", "segment_sum_cols var C=1",
                 "segment_sum_cols clause C=1", "sorted_segment_sum real",
                 "fused_edge_pass[ae]", "fused_edge_pass[em]",

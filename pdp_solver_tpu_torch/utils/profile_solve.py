@@ -3,7 +3,8 @@
     python -m pdp_solver_tpu_torch.utils.profile_solve [--seeds 0 1 2]
         [--model p-d-p|np-d-np|np-nd-np|p-nd-np|walk-sat|reinforce]
         [--settings headline|reference] [--min-edges N] [--sp-sweep]
-        [--verify-masks] [--replicas R] [--no-profile]
+        [--verify-masks] [--replicas R] [--compute-dtype float32|bfloat16]
+        [--no-profile]
 
 On the shared set, with p-d-p at the headline settings (or, with
 --settings reference, at the JAX solver table's reference settings),
@@ -17,7 +18,9 @@ settings of chip_smoke.py), it prints one JSON line with:
   - a torch.profiler trace of the same chunk run again: device busy time
     by kernel (the top 15, and every kernel of the port's own library
     with its microseconds a call), the kernel launches per iteration, and
-    the device's idle share (1 - busy / the unprofiled wall).
+    the device's idle share (1 - busy / the unprofiled wall), and the
+    shares of the busy time taken by matrix products (cuBLAS), PyTorch's
+    elementwise kernels and kernels 6 and 7 (the [E, d] sum and gather).
 walk-sat has no hot loop: for it the trace covers one whole solve (seed
 0, after a warm-up solve), giving the device busy time of a solve and the
 launches and device ms of each of the port's kernels. --no-profile skips
@@ -29,7 +32,8 @@ one-launch sweep (kernel 9) and the one-launch verification with masks
 (kernel 10). --replicas R gives every instance R slots: the seeds' solves
 run compacting_solve(replicas=R), and the hot loop and the walk-sat trace
 run on the batch it packs first (R copies of each instance side by
-side).
+side). --compute-dtype bfloat16 runs a neural model's aggregators and GRU
+cells in bf16 (SolverConfig.compute_dtype); the other models refuse it.
 Needs a CUDA card; exits 2 without one.
 """
 
@@ -62,6 +66,14 @@ NEURAL = {
     "np-d-np": (NP_D_NP, np_d_np_params, np_d_np_solver, solve_np_d_np),
     "np-nd-np": (NP_ND_NP, np_nd_np_params, np_nd_np_solver, solve_np_nd_np),
     "p-nd-np": (P_ND_NP, p_nd_np_params, p_nd_np_solver, solve_p_nd_np),
+}
+
+
+# kernel names by what they compute, for the shares of the busy time
+SHARES = {
+    "products": re.compile(r"gemm|nvjet|xmma|cutlass|cublas", re.I),
+    "elementwise": re.compile(r"elementwise_kernel"),
+    "kernels_6_7": re.compile(r"\b(segment_sum_2d|gather_2d)_kernel\b"),
 }
 
 
@@ -118,6 +130,9 @@ def hot_loop(insts, solver, params, n=50):
             kernels[evt.key] = (us, evt.count)
             launches += evt.count
     busy_us = sum(us for us, _ in kernels.values())
+    shares = {k: sum(us for name, (us, _) in kernels.items()
+                     if rx.search(name)) / max(busy_us, 1e-9)
+              for k, rx in SHARES.items()}
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
     own_names = own_kernel_names()
     own = sorted((k, v) for k, v in kernels.items()
@@ -131,6 +146,7 @@ def hot_loop(insts, solver, params, n=50):
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
         "kernel_launches_per_iteration": launches / n,
+        "busy_shares": shares,
         "top_kernels": [{"name": k[:80], "device_ms": us / 1e3,
                          "count": c} for k, (us, c) in top],
         "own_kernels": [{"name": k[:120], "device_ms": us / 1e3,
@@ -186,9 +202,15 @@ def main(argv=None):
                          "min_edges) in place of the settings' own")
     ap.add_argument("--replicas", type=int, default=1,
                     help="slots an instance (compacting_solve's replicas)")
+    ap.add_argument("--compute-dtype", default="float32",
+                    choices=("float32", "bfloat16"),
+                    help="a neural model's compute_dtype")
     ap.add_argument("--no-profile", action="store_true",
                     help="skip the hot-loop timing and trace")
     args = ap.parse_args(argv)
+    dt = args.compute_dtype
+    if dt != "float32" and args.model not in NEURAL:
+        ap.error(f"--compute-dtype {dt} takes a neural model")
     for flag, name in ((args.sp_sweep, "PDP_SP_SWEEP"),
                        (args.verify_masks, "PDP_VERIFY_MASKS")):
         if flag:
@@ -206,7 +228,7 @@ def main(argv=None):
     out = {"device": torch.cuda.get_device_name(0),
            "card": smi.stdout.strip().splitlines()[0] if smi.stdout else None,
            "fingerprint": dataset_fingerprint(insts), "model": args.model,
-           "replicas": R,
+           "replicas": R, "compute_dtype": dt,
            "env": {k: os.environ.get(k, "off")
                    for k in ("PDP_SP_SWEEP", "PDP_VERIFY_MASKS")}}
     profile = not args.no_profile
@@ -224,9 +246,10 @@ def main(argv=None):
         params = load()
         out["settings"] = settings
         if profile:
-            out["hot_loop"] = hot_loop(slots, make(), params)
-        out["seeds"] = [solve(insts, s, params=params, replicas=R)
-                        for s in args.seeds]
+            out["hot_loop"] = hot_loop(slots, make(compute_dtype=dt),
+                                       params)
+        out["seeds"] = [solve(insts, s, params=params, replicas=R,
+                              compute_dtype=dt) for s in args.seeds]
     elif args.model == "reinforce":
         out["settings"] = dict(CLASSICAL, **REINFORCE)
         if profile:

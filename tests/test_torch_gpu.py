@@ -35,7 +35,13 @@ cnf_chain and ws_chain), the same bits on two calls and its variable sums
 the bits of the walk's order over the plain f3 terms; kernel 9 bit for bit
 against its two launches for pi 0, pi 0.01 and login. The [E, d] gather
 (kernel 7) bit for bit for d in {1, 3, 8, 50, 64, 150}, with i32 and i64
-ids, an odd row count and a misaligned table.
+ids, an odd row count and a misaligned table. Kernels 6 and 7 on bf16
+rows (compute_dtype="bfloat16"), on the shared set, a compacted batch and
+the hub: f32 sums of bf16 rows to rtol 1e-5 / atol 1e-5 of a float64 sum
+over the var CSR (atol 5e-4 at the hub's 63,488-row node, summed in f32
+one row after another) and of the plain version over the clause CSR, f32
+nodes minus bf16 rows bit for bit, each counted as a bf16 launch and none
+as an f32 one.
 """
 
 import numpy as np
@@ -830,3 +836,43 @@ def test_gather_2d_bit_exact(d, ids_dtype):
             ref = reduce2d.gather_2d_plain(table, ids.long(), m)
             torch.cuda.synchronize()
             assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("d", [50, 37, 64])
+@pytest.mark.parametrize("which", ["shared", "compacted", "hub"])
+def test_reduce2d_bf16_kernels_match_plain(walk_shapes, which, d):
+    """d = 50 (the path's width: bf16 pairs a lane in the sum, pieces of
+    2 in the gather), 37 (an element at a time) and 64 (pieces of 4)."""
+    from pdp_solver_tpu_torch.ops import reduce2d
+    gpu = walk_shapes[which]
+    g = torch.Generator().manual_seed(d)
+    x = torch.randn(gpu.num_edges, d, generator=g).cuda().bfloat16()
+    nodes = torch.randn(gpu.num_vars, d, generator=g).cuda()
+    ev, V, e = gpu.edge_var, gpu.num_vars, gpu.num_real_edges
+    f32_before = (reduce2d.segment_sum_2d.launches,
+                  reduce2d.gather_2d.launches)
+    sums = reduce2d.segment_sum_2d.launches_bf16
+    gathers = reduce2d.gather_2d.launches_bf16
+    ref64 = torch.zeros(V, d, dtype=torch.float64, device="cuda")
+    ref64.index_add_(0, ev[:e], x[:e].double())
+    got = reduce2d.segment_sum_2d(x, ev, V, e, gpu.var_ptr, gpu.var_perm)
+    assert got.dtype == torch.float32
+    # the hub's node sums 63,488 rows one after another in f32 (7.8e-5 off
+    # the float64 sum on an H100 at d = 50)
+    atol = 5e-4 if which == "hub" else 1e-5
+    torch.testing.assert_close(got.double(), ref64, rtol=1e-5, atol=atol)
+    got = reduce2d.segment_sum_2d(x, gpu.edge_clause, gpu.num_clauses, e,
+                                  gpu.clause_ptr)
+    ref = reduce2d.segment_sum_2d_plain(x, gpu.edge_clause,
+                                        gpu.num_clauses, e)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    for ids in (gpu.edge_var32, ev):
+        got = reduce2d.gather_2d(nodes, ids, x)
+        ref = reduce2d.gather_2d_plain(nodes, ev, x)
+        torch.cuda.synchronize()
+        assert got.dtype == ref.dtype == torch.float32
+        assert torch.equal(got, ref)
+    assert reduce2d.segment_sum_2d.launches_bf16 == sums + 2
+    assert reduce2d.gather_2d.launches_bf16 == gathers + 2
+    assert (reduce2d.segment_sum_2d.launches,
+            reduce2d.gather_2d.launches) == f32_before

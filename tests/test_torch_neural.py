@@ -84,8 +84,7 @@ def _masks(jb, seed):
 
 
 def _cfg(cls, jcfg):
-    """The port's config with the JAX config's values (the JAX configs
-    also carry compute_dtype, whose bf16 path is not ported)."""
+    """The port's config with the JAX config's values."""
     return cls(**{f.name: getattr(jcfg, f.name)
                   for f in dataclasses.fields(cls)})
 

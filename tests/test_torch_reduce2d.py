@@ -5,7 +5,11 @@ interpret mode here (PDP_SEGMENT_BACKEND=windowed).
 Tolerances: the sum to rtol 1e-5 / atol 1e-5 (the JAX kernel contracts a
 one-hot window on the matrix unit, the port adds in edge order); the
 gather, with or without the fused subtract, exactly, padding rows
-included.
+included. bf16 rows give f32 sums, to the f32 tolerance of JAX's sums of
+the rows widened to f32 (its aggregators' form) and, rounded to bf16,
+within one bf16 ulp of JAX's kernel on the bf16 rows (the two f32 sums,
+in other orders, can round a near tie differently); f32 nodes minus bf16
+rows exactly.
 """
 
 import jax.numpy as jnp
@@ -142,3 +146,80 @@ def test_wrappers_reject_bad_inputs():
         gather_2d(x, ids, minus=torch.zeros(10, 5))
     with pytest.raises(ValueError):
         gather_2d(x.to("meta"), ids.to("meta"))
+
+
+def _bf16_ulp(ref):
+    """One bf16 ulp at each element of ref (f32 array of bf16 values)."""
+    mag = np.maximum(np.abs(ref), np.float32(2.0 ** -126))
+    return np.ldexp(np.float32(1.0), np.floor(np.log2(mag)).astype(int) - 7)
+
+
+def _as_bf16(a):
+    """a rounded to bf16 in both packages' types."""
+    t = torch.from_numpy(a).bfloat16()
+    return t, jnp.asarray(a).astype(jnp.bfloat16)
+
+
+def test_segment_sum_2d_bf16_matches_windowed_kernel(data):
+    ids, x, nodes, E, N, d = data
+    tx, jx = _as_bf16(x)
+    ref = np.asarray(windowed_segment_sum_2d(jx, jnp.asarray(ids), N,
+                                             True)).astype(np.float32)
+    ptr, perm = _csr(ids, N)
+    tids = torch.from_numpy(ids.astype(np.int64))
+    got = segment_sum_2d(tx, tids, N, E, ptr, perm)
+    assert got.dtype == torch.float32
+    diff = np.abs(got.bfloat16().float().numpy() - ref)
+    assert (diff <= _bf16_ulp(ref)).all(), diff.max()
+    # JAX's aggregators' form: the sum of the rows widened to f32
+    ref32 = np.asarray(windowed_segment_sum_2d(jx.astype(jnp.float32),
+                                               jnp.asarray(ids), N, True))
+    np.testing.assert_allclose(got.numpy(), ref32, **TOL)
+
+
+@pytest.mark.parametrize("ids_dtype", [np.int64, np.int32])
+def test_gather_2d_bf16_matches_windowed_kernel(data, ids_dtype):
+    """The bf16 aggregators' form: f32 sums minus the bf16 rows, f32."""
+    ids, x, nodes, E, N, d = data
+    tm, jm = _as_bf16(x)
+    ref = windowed_gather_2d(jnp.asarray(nodes), jnp.asarray(ids), E,
+                             True) - jm
+    got = gather_2d(torch.from_numpy(nodes),
+                    torch.from_numpy(ids.astype(ids_dtype)), tm)
+    assert got.dtype == torch.float32 and ref.dtype == jnp.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_bf16_rows_on_packed_batch_match_jax(windowed):
+    """The graph-op helpers on bf16 rows: JAX's f32 edge mask widens them,
+    so the variable and clause sums and the aggregate minus self are f32,
+    in the port through kernel 6 (the clause sum over the clause CSR) and
+    kernel 7."""
+    from pdp_solver_tpu.modules import common as jcommon
+    jb, tb = _packed(11)
+    assert tb.clause_width == 4 and tb.num_edges > tb.num_real_edges
+    x = np.random.default_rng(12).standard_normal(
+        (tb.num_edges, 24)).astype(np.float32)
+    tx, jx = _as_bf16(x)
+    for name in ("scatter_to_vars", "scatter_to_clauses",
+                 "aggregate_minus_self_var"):
+        ref = getattr(jcommon, name)(jb, jx)
+        got = getattr(common, name)(tb, tx)
+        assert got.dtype == torch.float32 and ref.dtype == jnp.float32, name
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL,
+                                   err_msg=name)
+
+
+def test_wrappers_reject_bad_bf16_mixes():
+    x = torch.zeros(10, 4)
+    ids = torch.zeros(10, dtype=torch.int64)
+    ptr = torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        segment_sum_2d(x.half(), ids, 2, 10, ptr)
+    # bf16 node rows are a form no caller takes: the sums are f32
+    with pytest.raises(ValueError):
+        gather_2d(x.bfloat16(), ids, minus=x)
+    with pytest.raises(ValueError):
+        gather_2d(x.bfloat16(), ids)
+    with pytest.raises(ValueError):
+        gather_2d(x, ids, minus=x.half())
