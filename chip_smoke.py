@@ -142,7 +142,33 @@ Phases, one flushed line each with the elapsed seconds:
      np-nd-np with trained-models/np-nd-np-full in bf16, 100 iterations,
      100 flips, epsilon 0.5) on the shared set, every solution verified
      with numpy; the solved count and the wall time recorded;
- 19. the {"kernels": [...]} line, the card's name and power limit, and as
+ 19. gradients on the card against the CPU: np-nd-np at the flagship
+     widths with the r3 weights, on one 32,768-edge segment of the
+     flagship training mixture (utils/training.py flagship_segments, seed
+     3), T = 10, dropout 0, one numpy init state, global_step 10: the BPTT
+     loss to rtol 1e-5 and every parameter's gradient to ||g_card -
+     g_cpu|| <= 1e-3 ||g_cpu||; no plain route runs on the card (each
+     plain version raises there), and the counts read during backward()
+     alone show kernel 6 launched as Gather2d's backward and kernel 7 as
+     SegmentSum2d's, over both CSRs;
+ 20. training at the flagship recipe: SatTrainer from a fresh seeded init
+     (utils/training.py FLAGSHIP_RECIPE: T = 10, remat on, dropout 0.2, lr
+     1e-4) for 100 steps at the fixed dims (8192, 32768, 131072, 128) on
+     the mixture stream (its 100 segments generated first, as set-up):
+     every loss finite, and the energy of a held-out segment at
+     global_step 10 from one numpy init state lower after the 100 steps
+     than before; ms per step, instances per second, peak memory, and the
+     launches of kernels 6 and 7 in one step, forward (with remat's
+     recompute) and backward, are recorded; the backward forms of kernels
+     6 and 7 over both CSRs are then held against their plain versions at
+     that shape and timed beside index_add_ / index_select;
+ 21. fine-tune, save, reload, serve: 50 steps from the r3 weights (a
+     params-only checkpoint: Adam starts fresh, as in the JAX package),
+     best and last saved in the JAX package's format, read back through
+     convert.load_jax_checkpoint and params_from_jax bit for bit, then
+     phase 4's solve of the shared set with the fine-tuned weights (1000
+     iterations, 1000 flips): >= 0.45 solved, printed beside phase 4's;
+ 22. the {"kernels": [...]} line, the card's name and power limit, and as
      the last line {"ok": true, "device": {...}}.
 
 Every launch count is set to 0 just before each path and read just after
@@ -228,6 +254,13 @@ HIDDEN_AGG = 50      # np-nd-np's mem_agg_hidden_dim: the width kernels 6/7 see
 FLOAT_TOL = dict(rtol=1e-5, atol=1e-6)
 # functors whose outputs are flags or small integer counts
 EXACT_FNS = {"em_ae", "em", "ae", "sround", "cnf_chain", "ws_chain"}
+# training (phases 19-21): the card-against-CPU gradient check's segment
+# (V, F, E, B), a quarter of the flagship run's fixed dims, and its gates
+TRAIN_GRAD_DIMS = (2048, 8192, 32768, 32)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_REL = 1e-3
+TRAIN_STEPS, FINETUNE_STEPS = 100, 50
+TRAIN_EVAL_STEP = 10.0    # the global_step of the gradient and held-out runs
 PALLAS_FUSED = "pdp_solver_tpu/ops/pallas_fused.py"
 PALLAS_2D = "pdp_solver_tpu/ops/pallas_reduce2d.py"
 REDUCE_CU = "pdp_solver_tpu_torch/csrc/reduce.cu"
@@ -1819,6 +1852,304 @@ def bf16_small_check(torch):
     return diff
 
 
+class plain_route_guard:
+    """While active, every plain version of a launching wrapper raises if
+    it is handed a tensor or a batch on the card: the wrappers look them
+    up by module name at each call, so the patch reaches every route."""
+
+    NAMES = {"reduce2d": ("segment_sum_2d_plain", "gather_2d_plain"),
+             "reduce": ("segment_sum_cols_plain", "segment_sum_plain",
+                        "sorted_segment_sum_plain"),
+             "fused": ("fused_edge_pass_plain", "chained_edge_pass_plain",
+                       "segment_sum_cols_plain"),
+             "walksat": ("walksat_walk_plain",),
+             "sp_sweep": ("sp_full_sweep_plain",),
+             "verify": ("verify_and_masks_plain",)}
+
+    def __enter__(self):
+        import importlib
+        self.saved = []
+        for mod, names in self.NAMES.items():
+            m = importlib.import_module(f"pdp_solver_tpu_torch.ops.{mod}")
+            for name in names:
+                fn = getattr(m, name)
+                self.saved.append((m, name, fn))
+                setattr(m, name, self._guard(f"{mod}.{name}", fn))
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, fn in self.saved:
+            setattr(m, name, fn)
+        return False
+
+    @staticmethod
+    def _guard(label, fn):
+        def on_card(x):
+            dev = getattr(x, "device", None)
+            if isinstance(x, (list, tuple)):
+                return any(on_card(y) for y in x)
+            return dev is not None and getattr(dev, "type", "") == "cuda"
+
+        def guarded(*args, **kwargs):
+            if any(on_card(a) for a in (*args, *kwargs.values())):
+                raise SmokeFailure(f"the plain route {label} ran on the "
+                                   "card")
+            return fn(*args, **kwargs)
+        return guarded
+
+
+def bwd_counts():
+    """The launches of kernels 6 and 7 since the last reset_counts: in
+    all, and as the other's backward rule, by side."""
+    from pdp_solver_tpu_torch.ops import reduce2d
+    s, g = reduce2d.segment_sum_2d, reduce2d.gather_2d
+    return {"segment_sum_2d": s.launches, "gather_2d": g.launches,
+            "segment_sum_2d[bwd]": s.launches_bwd["var"],
+            "segment_sum_2d[clause, bwd]": s.launches_bwd["clause"],
+            "gather_2d[bwd]": g.launches_bwd["var"],
+            "gather_2d[clause, bwd]": g.launches_bwd["clause"]}
+
+
+def train_grad_check(torch, np):
+    """Phase 19: the BPTT loss and every parameter's gradient on the card
+    against the CPU (the plain versions), from the r3 weights and one
+    numpy init state; the launches of kernels 6 and 7 during backward()
+    alone."""
+    from pdp_solver_tpu_torch import convert
+    from pdp_solver_tpu_torch.train.trainer import SatTrainer
+    from pdp_solver_tpu_torch.utils import neural, training
+    cfg = dict(training.FLAGSHIP_RECIPE, dropout=0.0)
+    tree = convert.load_jax_checkpoint(neural.CHECKPOINT)["params"]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        tr = SatTrainer(cfg, device=dev)
+        convert.load_into(tr.params, tree)
+        tr.params.train()
+        batch = next(training.flagship_segments(3, TRAIN_GRAD_DIMS,
+                                                device=dev))[0]
+        state = training.numpy_init_state(batch, cfg["hidden_dim"], 11, dev)
+        step = torch.tensor(TRAIN_EVAL_STEP, device=dev)
+        t0 = time.time()
+        if dev == "cuda":
+            with plain_route_guard():
+                loss = tr.loss(tr.params, batch, step, state)
+                torch.cuda.synchronize()
+                reset_counts()
+                loss.backward()
+                torch.cuda.synchronize()
+            counts = bwd_counts()
+        else:
+            loss = tr.loss(tr.params, batch, step, state)
+            loss.backward()
+        out[dev] = dict(loss=float(loss.detach()), wall_s=time.time() - t0,
+                        grads=convert.grads_to_jax(tr.params),
+                        edges=batch.num_real_edges,
+                        clause_width=batch.clause_width)
+    card, cpu = out["cuda"], out["cpu"]
+    require(card["clause_width"] == 0, "the segment has one clause width")
+    loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    require(np.isfinite(card["loss"]) and loss_rel <= TRAIN_LOSS_RTOL,
+            f"loss card {card['loss']} cpu {cpu['loss']}: rel {loss_rel}")
+    rels, cpu_grads = {}, dict(convert._flatten(cpu["grads"]))
+    for key, g_card in convert._flatten(card["grads"]):
+        g_cpu = cpu_grads[key]
+        rel = float(np.linalg.norm(g_card - g_cpu)
+                    / max(np.linalg.norm(g_cpu), 1e-30))
+        require(np.isfinite(g_card).all() and rel <= TRAIN_GRAD_REL,
+                f"gradient {key}: card against cpu rel {rel}")
+        rels[key] = rel
+    for k in ("segment_sum_2d[bwd]", "gather_2d[bwd]",
+              "segment_sum_2d[clause, bwd]", "gather_2d[clause, bwd]"):
+        require(counts[k] > 0, f"{k} never launched during backward()")
+    return dict(loss_card=card["loss"], loss_cpu=cpu["loss"],
+                loss_rel=loss_rel, grad_rel_max=max(rels.values()),
+                grad_rel_worst=max(rels, key=rels.get), n_grads=len(rels),
+                edges=card["edges"], card_s=card["wall_s"],
+                cpu_s=cpu["wall_s"], backward_counts=counts)
+
+
+def heldout_energy(tr, params, batch, state, torch):
+    """The BPTT energy of a held-out segment at TRAIN_EVAL_STEP, dropout
+    off, no gradient."""
+    params.eval()
+    with torch.no_grad():
+        e = float(tr.loss(params, batch, torch.tensor(
+            TRAIN_EVAL_STEP, device=batch.device), state))
+    params.train()
+    return e
+
+
+def train_flagship(torch, np):
+    """Phase 20: 100 steps at the flagship recipe from a fresh init."""
+    import itertools
+    from pdp_solver_tpu_torch.train.trainer import SatTrainer
+    from pdp_solver_tpu_torch.utils import training
+    cfg = training.FLAGSHIP_RECIPE
+    t0 = time.time()
+    segs = list(itertools.islice(training.flagship_segments(0), TRAIN_STEPS))
+    gen_s = time.time() - t0
+    held = next(training.flagship_segments(12345))[0]
+    held_state = training.numpy_init_state(held, cfg["hidden_dim"], 7,
+                                           "cuda")
+    tr = SatTrainer(cfg, seed=0, device="cuda")
+    ts = tr.init_train_state()
+    e0 = heldout_energy(tr, ts.params, held, held_state, torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with plain_route_guard():
+        t1 = time.time()
+        ts, losses, n0 = tr.train_segments(ts, iter(segs[:1]))
+        torch.cuda.synchronize()
+        first_s = time.time() - t1
+        t2 = time.time()
+        ts, more, n1 = tr.train_segments(ts, iter(segs[1:-1]))
+        torch.cuda.synchronize()
+        steady_s = time.time() - t2
+        reset_counts()
+        ts, last, n2 = tr.train_segments(ts, iter(segs[-1:]))
+        torch.cuda.synchronize()
+        step_counts = bwd_counts()
+        step_counts["segment_sum_cols"] = read_counts()["segment_sum_cols"]
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses + more + last).cpu().numpy()
+    require(np.isfinite(losses).all(), "a training loss is not finite")
+    e1 = heldout_energy(tr, ts.params, held, held_state, torch)
+    require(e1 < e0, f"held-out energy {e1} after {TRAIN_STEPS} steps not "
+            f"below {e0} before")
+    n_steady = len(segs) - 2
+    return dict(segments=segs, steps=len(losses), gen_s=gen_s,
+                gen_ms_per_segment=gen_s / len(segs) * 1e3,
+                first_step_s=first_s,
+                ms_per_step=steady_s / n_steady * 1e3,
+                instances_per_s=n1 / steady_s,
+                instances_per_step=(n0 + n1 + n2) / len(losses),
+                peak_bytes=peak, energy_before=e0, energy_after=e1,
+                loss_first10=float(losses[:10].mean()),
+                loss_last10=float(losses[-10:].mean()),
+                global_step=float(ts.global_step), step_counts=step_counts)
+
+
+def finetune_and_serve(segs, insts, torch, np):
+    """Phase 21: 50 steps from the r3 weights, saved and read back bit for
+    bit, then served on the shared set."""
+    from pdp_solver_tpu_torch import convert
+    from pdp_solver_tpu_torch.train.trainer import SatTrainer
+    from pdp_solver_tpu_torch.utils import neural, training
+    from pdp_solver_tpu_torch.utils.neural import solve_np_nd_np
+    cfg = training.FLAGSHIP_RECIPE
+    tr = SatTrainer(cfg, seed=1, device="cuda")
+    r3 = os.path.dirname(neural.CHECKPOINT)
+    ts = tr._load_train_state(tr.init_train_state(), r3)
+    require(not ts.opt.state, "Adam is not fresh after the params-only r3")
+    with plain_route_guard():
+        ts, losses, _ = tr.train_segments(ts, iter(segs[:FINETUNE_STEPS]))
+        losses = torch.stack(losses).cpu().numpy()
+    require(bool(np.isfinite(losses).all()), "a fine-tune loss is not "
+            "finite")
+    out = os.path.join(ROOT, "pdp_solver_tpu_torch", "_build", "finetune")
+    trained = {k: v.detach().clone()
+               for k, v in ts.params.named_parameters()}
+    for d in ("last", "best"):
+        tr._save_train_state(ts, os.path.join(out, d))
+        tree = convert.load_jax_checkpoint(
+            os.path.join(out, d, cfg["model_name"] + ".npz"))
+        require(int(tree["opt"][2]["count"]) == FINETUNE_STEPS,
+                f"{d}: Adam count {tree['opt'][2]['count']}")
+        params = convert.params_from_jax(tree["params"], "cuda")
+        for k, v in params.named_parameters():
+            require(torch.equal(v, trained[k]), f"{d}: {k} not bit-exact")
+    with plain_route_guard():
+        res = solve_np_nd_np(insts, seed=0, params=params)
+    return dict(res, loss_first10=float(losses[:10].mean()),
+                loss_last10=float(losses[-10:].mean()))
+
+
+def check_backward_kernels(batch, torch):
+    """The backward forms of kernels 6 and 7 at a training segment's
+    shape (d = 50, the aggregators' width): kernel 6 over the var and the
+    clause CSR as Gather2d's backward, kernel 7 with i64 ids as
+    SegmentSum2d's (the padding rows then zeroed), against their plain
+    versions, timed beside index_add_ / index_select and the bound; and
+    kernel 4's rule, a PyTorch index, timed."""
+    from pdp_solver_tpu_torch.ops import reduce, reduce2d
+    from pdp_solver_tpu_torch.utils.bench_kernels import timed
+    E, d, e = batch.num_edges, HIDDEN_AGG, batch.num_real_edges
+    gen = torch.Generator().manual_seed(23)
+    cot = torch.randn(E, d, generator=gen).cuda()
+    cot[e:] = 0.0
+    rows = {}
+    sides = {"": (batch.edge_var32, batch.edge_var, batch.num_vars,
+                  batch.var_ptr, batch.var_perm),
+             "clause, ": (batch.edge_clause32, batch.edge_clause,
+                          batch.num_clauses, batch.clause_ptr, None)}
+    for side, (ids32, ids64, n, ptr, perm) in sides.items():
+        def seg():
+            return reduce2d._segment_sum_2d(cot, ids32, n, e, ptr, perm)
+
+        def seg_plain():
+            return reduce2d.segment_sum_2d_plain(cot, ids64, n, e)
+        got, ref = seg(), seg_plain()
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        require(torch.allclose(got, ref, **REDUCE2D_TOL),
+                f"segment_sum_2d[{side}bwd]: max abs err {err}")
+        out = torch.zeros(n, d, device="cuda")
+        lib = timed(lambda: out.index_add_(0, ids64[:e], cot[:e]))
+        perm_n = 0 if perm is None else e
+        b_ms, b_by = bound_ms((e * d + perm_n + n + 1 + n * d) * 4, e * d)
+        rows[f"segment_sum_2d[{side}bwd]"] = dict(
+            timed(seg), name=f"segment_sum_2d[{side}bwd]", route="cuda",
+            source="pdp_solver_tpu_torch/csrc/reduce2d.cu",
+            replaces=f"{PALLAS_2D}:152", max_abs_err=err,
+            plain_ms=cuda_ms(seg_plain, reps=20), bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib["ms"],
+            library_device_us=lib["device_us"],
+            library="index_add_ over the real edges",
+            shape=dict(E=E, real=e, nodes=n, d=d))
+
+        nodes = torch.randn(n, d, generator=gen).cuda()
+
+        def gat():
+            gx = reduce2d._gather_2d(nodes, ids64)
+            gx[e:] = 0.0
+            return gx
+
+        def gat_plain():
+            gx = reduce2d.gather_2d_plain(nodes, ids64)
+            gx[e:] = 0.0
+            return gx
+        got, ref = gat(), gat_plain()
+        torch.cuda.synchronize()
+        require(torch.equal(got, ref), f"gather_2d[{side}bwd]: not exact")
+        lib = timed(lambda: nodes.index_select(0, ids64))
+        b_ms, b_by = bound_ms(E * 8 + (n * d + E * d) * 4, 0)
+        rows[f"gather_2d[{side}bwd]"] = dict(
+            timed(gat), name=f"gather_2d[{side}bwd]", route="cuda",
+            source="pdp_solver_tpu_torch/csrc/reduce2d.cu",
+            replaces=f"{PALLAS_2D}:142", max_abs_err=0.0,
+            plain_ms=cuda_ms(gat_plain, reps=20), bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib["ms"],
+            library_device_us=lib["device_us"],
+            library="index_select (i64 ids)",
+            shape=dict(E=E, real=e, nodes=n, d=d))
+    for r in rows.values():
+        log(f"kernel {r['name']}: ok, max abs err {r['max_abs_err']:.3g}, "
+            f"{timing_note(r)} (plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms, device "
+            f"{r['library_device_us']:.2f} us; bound {r['bound_ms']:.5f} "
+            f"ms, {r['bound_by']})")
+    # kernel 4's rule is no kernel: a PyTorch index of the loss's two
+    # clause columns' cotangent (JAX's is an XLA gather), timed for the
+    # table
+    g2 = torch.randn(2, batch.num_clauses, generator=gen).cuda()
+    idx = timed(lambda: [reduce._gather_real(c, batch.edge_clause, e)
+                         for c in g2])
+    b_ms, _ = bound_ms(2 * (E * 8 + batch.num_clauses * 4 + E * 4), 0)
+    log(f"kernel 4's backward (2 clause columns, a PyTorch index each): "
+        f"{timing_note(idx)}, bound {b_ms:.5f} ms (bytes)")
+    return rows
+
+
 def reset_counts():
     from pdp_solver_tpu_torch.ops import (
         fused, reduce, reduce2d, sp_sweep, verify, walksat)
@@ -1831,6 +2162,8 @@ def reset_counts():
     reduce2d.segment_sum_2d.launches_bf16 = 0
     reduce2d.gather_2d.launches = 0
     reduce2d.gather_2d.launches_bf16 = 0
+    reduce2d.segment_sum_2d.launches_bwd = {"var": 0, "clause": 0}
+    reduce2d.gather_2d.launches_bwd = {"var": 0, "clause": 0}
     reduce.segment_sum_cols.launches = 0
     reduce.segment_sum_cols.launches_by_form = {}
     sp_sweep.sp_full_sweep.launches = 0
@@ -2191,6 +2524,58 @@ def main():
         log(f"launches on the flagship path: {json.dumps(glaunches)}")
         require_bf16_path(glaunches, "the flagship", gather=True)
 
+        grad = train_grad_check(torch, np)
+        log(f"phase 19 gradients card vs cpu (np-nd-np r3, flagship "
+            f"widths, one {TRAIN_GRAD_DIMS[2]}-edge mixture segment of "
+            f"{grad['edges']} real edges, T = 10, dropout 0): loss card "
+            f"{grad['loss_card']:.7g} cpu {grad['loss_cpu']:.7g} (rel "
+            f"{grad['loss_rel']:.3g}, gate {TRAIN_LOSS_RTOL}); "
+            f"{grad['n_grads']} gradients, worst rel "
+            f"{grad['grad_rel_max']:.3g} ({grad['grad_rel_worst']}; gate "
+            f"{TRAIN_GRAD_REL}); card {grad['card_s']:.2f} s, cpu "
+            f"{grad['cpu_s']:.2f} s; launches during backward() "
+            f"{json.dumps(grad['backward_counts'])}")
+
+        from pdp_solver_tpu_torch.utils import training
+        tres = train_flagship(torch, np)
+        sc = tres["step_counts"]
+        log(f"phase 20 flagship recipe: {tres['steps']} steps from a fresh "
+            f"init at (V, F, E, B) = {training.FIXED_DIMS} (segments "
+            f"generated first: {tres['gen_s']:.1f} s, "
+            f"{tres['gen_ms_per_segment']:.0f} ms a "
+            f"segment), every loss finite (first 10 {tres['loss_first10']:.4f}"
+            f", last 10 {tres['loss_last10']:.4f}); held-out energy at "
+            f"global_step {TRAIN_EVAL_STEP:g}: {tres['energy_before']:.5f} "
+            f"before, {tres['energy_after']:.5f} after; "
+            f"{tres['ms_per_step']:.1f} ms a step (first step "
+            f"{tres['first_step_s']:.2f} s), {tres['instances_per_s']:.1f} "
+            f"instances/s ({tres['instances_per_step']:.1f} a step), peak "
+            f"{tres['peak_bytes'] / 2 ** 30:.2f} GiB, global_step "
+            f"{tres['global_step']:g}")
+        log(f"phase 20 launches in one step: kernel 6 "
+            f"{sc['segment_sum_2d']} ({sc['segment_sum_2d[bwd]']} + "
+            f"{sc['segment_sum_2d[clause, bwd]']} as backward, var + clause)"
+            f", kernel 7 {sc['gather_2d']} ({sc['gather_2d[bwd]']} + "
+            f"{sc['gather_2d[clause, bwd]']} as backward), kernel 4 "
+            f"{sc['segment_sum_cols']}")
+        segs = tres.pop("segments")
+        bwd_rows = check_backward_kernels(segs[0][0], torch)
+        for name, row in bwd_rows.items():
+            row["launches"] = sc[name]
+        rows.update(bwd_rows)
+
+        fres = finetune_and_serve(segs, insts, torch, np)
+        del segs
+        log(f"phase 21 fine-tune from r3 ({FINETUNE_STEPS} steps, fresh "
+            f"Adam; loss first 10 {fres['loss_first10']:.4f}, last 10 "
+            f"{fres['loss_last10']:.4f}), best and last saved and read back "
+            f"bit for bit; served: solved {fres['solved_fraction']:.4f} "
+            f"({fres['solved']}/{len(insts)}, verified with numpy; phase 4 "
+            f"with r3 {nres['solved']}) in {fres['wall_s']:.2f} s")
+        require(fres["solved_fraction"] >= MIN_SOLVED_NEURAL,
+                f"the fine-tuned np-nd-np solved {fres['solved_fraction']} "
+                f"< {MIN_SOLVED_NEURAL}")
+
         # each row carries the launches of the path it serves
         serves = {"segment_sum_2d": nlaunches, "gather_2d": nlaunches,
                   "segment_sum_2d[bf16]": hlaunches,
@@ -2211,7 +2596,7 @@ def main():
                 ("segment_sum_cols", "sorted_segment_sum"))
                 else "walksat_walk" if name.startswith("walksat")
                 else name)
-            n = path.get(key, 0)
+            n = row["launches"] if "launches" in row else path.get(key, 0)
             require(n > 0, f"{row['name']} never launched on its path")
             path_rows.append(dict(row, launches=n))
     except SmokeFailure as e:

@@ -1,8 +1,13 @@
-"""Carry weights and state from the JAX package into the port.
+"""Carry weights and state between the JAX package and the port.
 
 The JAX side hands over numpy arrays (`jax.tree_util.tree_map(np.asarray,
 x)` keeps its NamedTuple structure), or a checkpoint `.npz` written by
-`pdp_solver_tpu/train/checkpoint.py`; nothing here imports JAX.
+`pdp_solver_tpu/train/checkpoint.py`; nothing here imports JAX. Back the
+other way, `params_to_jax` gives a module's parameters as JAX's tree of
+numpy arrays, and `adam_to_jax` / `adam_from_jax` carry optax's
+`ScaleByAdamState` (count, mu, nu; mu and nu laid out like the
+parameters, so a linear or GRU weight's moments are transposed like the
+weight) to and from torch.optim.Adam's step / exp_avg / exp_avg_sq.
 """
 
 import re
@@ -155,6 +160,93 @@ def load_into(module, np_tree):
     if missing:
         raise KeyError(f"parameters not given: {missing}")
     return module
+
+
+_TORCH_LEAVES = {t: (j, tr) for j, (t, tr) in _LEAVES.items()}
+
+
+def _jax_leaves(module):
+    """(JAX key path, parameter, transposed?) of every parameter of
+    `module`, in named_parameters order."""
+    for name, p in module.named_parameters():
+        prefix, _, leaf = name.rpartition(".")
+        jname, transpose = _TORCH_LEAVES[leaf]
+        path = (prefix.split(".") if prefix else []) + [jname]
+        yield path, p, transpose
+
+
+def _set_path(tree, path, value):
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def _get_path(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _to_jax_tree(module, tensor_of):
+    tree = {}
+    for path, p, transpose in _jax_leaves(module):
+        x = tensor_of(p).detach().to("cpu", torch.float32).numpy()
+        _set_path(tree, path, np.ascontiguousarray(x.T if transpose else x))
+    return tree
+
+
+def params_to_jax(module):
+    """The inverse of load_into: `module`'s parameters as a JAX parameter
+    tree of f32 numpy arrays, JAX's leaf names ("w", "b", "w_ih", ...),
+    [in, out] linear and GRU weights transposed back."""
+    return _to_jax_tree(module, lambda p: p)
+
+
+def grads_to_jax(module):
+    """The parameters' gradients (.grad, zeros where None) laid out as
+    params_to_jax lays out the parameters."""
+    return _to_jax_tree(module, lambda p: torch.zeros_like(p)
+                        if p.grad is None else p.grad)
+
+
+def adam_to_jax(optimizer, module):
+    """optax's ScaleByAdamState of a torch.optim.Adam over `module`'s
+    parameters, as numpy: {"count": int32, "mu": tree, "nu": tree} (zeros
+    and count 0 before its first step). torch's step is Adam's count;
+    exp_avg and exp_avg_sq are mu and nu, transposed like the weights."""
+    state = optimizer.state
+
+    def moment(key):
+        return lambda p: (state[p][key] if p in state and key in state[p]
+                          else torch.zeros_like(p))
+    steps = {int(state[p]["step"]) for _, p, _ in _jax_leaves(module)
+             if p in state and "step" in state[p]}
+    if len(steps) > 1:
+        raise ValueError(f"Adam's parameters are at different steps {steps}")
+    return {"count": np.asarray(steps.pop() if steps else 0, np.int32),
+            "mu": _to_jax_tree(module, moment("exp_avg")),
+            "nu": _to_jax_tree(module, moment("exp_avg_sq"))}
+
+
+def adam_from_jax(optimizer, module, np_adam):
+    """Load optax's ScaleByAdamState (numpy: count, mu, nu) into a
+    torch.optim.Adam over `module`'s parameters; count 0 leaves Adam
+    fresh. Returns the optimizer."""
+    count = int(np.asarray(np_adam["count"]))
+    optimizer.state.clear()
+    if count == 0:
+        return optimizer
+    for path, p, transpose in _jax_leaves(module):
+        mu, nu = (np.asarray(_get_path(np_adam[k], path)) for k in
+                  ("mu", "nu"))
+        mu, nu = (x.T if transpose else x for x in (mu, nu))
+        if tuple(mu.shape) != tuple(p.shape):
+            raise ValueError(f"{'.'.join(path)}: Adam moment shape "
+                             f"{mu.shape} does not fit {tuple(p.shape)}")
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": _t(mu, p.device), "exp_avg_sq": _t(nu, p.device)}
+    return optimizer
 
 
 def params_from_jax(np_params, device="cuda"):

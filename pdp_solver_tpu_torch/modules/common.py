@@ -20,6 +20,16 @@ does not). Here there is one route per direction:
     broadcast back is a row index.
 Padding edges take part in no sum.
 
+Under autograd (training) the sums and gathers go through the kernels'
+torch.autograd.Functions (`ops/reduce2d.py`, `ops/reduce.py`); a
+differentiable gather is given the CSR of its ids for its transpose
+(`var_csr`, `clause_csr`). The clause side's aggregate-minus-self gathers
+with kernel 7 wherever its sum ran on kernel 6 (mixed widths, bf16 rows),
+so that its transpose is kernel 6 over the clause CSR; a uniform-width
+f32 batch keeps the reshape and a row index, as the JAX package does.
+`dropout` is the JAX package's (:277-281), with its masks drawn from a
+generator the caller passes.
+
 bf16 [E, d] blocks (the neural aggregators' compute_dtype="bfloat16")
 give f32 sums, in each direction through kernel 6 (on the clause-major
 CSR for clauses), and the aggregate-minus-self an f32 result: the JAX
@@ -42,6 +52,18 @@ MIN_2D_WIDTH = 8
 
 def col(mask_1d):
     return mask_1d[:, None]
+
+
+def var_csr(batch):
+    """(num_real, ptr, perm) of the var-major CSR: the transpose of a
+    gather at edge_var."""
+    return batch.num_real_edges, batch.var_ptr, batch.var_perm
+
+
+def clause_csr(batch):
+    """(num_real, ptr, perm) of the clause-major CSR: the transpose of a
+    gather at edge_clause."""
+    return batch.num_real_edges, batch.clause_ptr, None
 
 
 def scatter_to_vars(batch, x_e):
@@ -81,7 +103,7 @@ def scatter_to_clauses(batch, x_e):
     """Sum each clause's edge rows: [E, d] -> [F, d] (f32 sums of bf16
     rows, over the clause-major CSR)."""
     k, F = batch.clause_width, batch.num_clauses
-    if k > 0 and x_e.dtype == torch.float32:
+    if _uniform_clauses(batch, x_e):
         f, d = batch.num_real_clauses, x_e.shape[1]
         out = x_e.new_zeros((F, d))
         out[:f] = x_e[:f * k].reshape(f, k, d).sum(1)
@@ -90,9 +112,14 @@ def scatter_to_clauses(batch, x_e):
                           batch.clause_ptr)
 
 
+def _uniform_clauses(batch, x_e):
+    """Whether the clause sums of [E, d] rows take the reshape."""
+    return batch.clause_width > 0 and x_e.dtype == torch.float32
+
+
 def gather_from_vars(batch, x_v):
     """Broadcast variable rows to the edges: [V, d] -> [E, d]."""
-    return gather_2d(x_v, batch.edge_var32)
+    return gather_2d(x_v, batch.edge_var32, csr=var_csr(batch))
 
 
 def gather_from_clauses(batch, x_f):
@@ -105,7 +132,19 @@ def aggregate_minus_self_var(batch, x_e):
     the gather (f32 for bf16 rows). Padding edges get their variable's sum
     minus their row."""
     return gather_2d(scatter_to_vars(batch, x_e), batch.edge_var32,
-                     minus=x_e)
+                     minus=x_e, csr=var_csr(batch))
+
+
+def aggregate_minus_self_clause(batch, x_e):
+    """Each edge's clause sum without its own row: the reshape and a row
+    index on a uniform-width f32 batch (JAX's uniform_clause_sum and
+    gather_from_clauses), else kernel 6 over the clause CSR and kernel 7
+    with the subtract fused (f32 for bf16 rows)."""
+    agg = scatter_to_clauses(batch, x_e)
+    if _uniform_clauses(batch, x_e):
+        return gather_from_clauses(batch, agg) - x_e
+    return gather_2d(agg, batch.edge_clause32, minus=x_e,
+                     csr=clause_csr(batch))
 
 
 def var_smooth_max(batch, x_e, alpha=30.0):
@@ -116,6 +155,17 @@ def var_smooth_max(batch, x_e, alpha=30.0):
     coeff = safe_exp(alpha * x_e) * batch.edge_mask
     nd = scatter_to_vars(batch, torch.stack([x_e * coeff, coeff], dim=1))
     return nd[:, 0] / torch.clamp(nd[:, 1], min=1.0)
+
+
+def dropout(generator, x, rate, training):
+    """x / (1 - rate) where a uniform draw from `generator` is below
+    1 - rate, else 0 (JAX common.py dropout :277-281); x itself outside
+    training or at rate 0."""
+    if not training or rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator,
+                      device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def instances_to_edges(batch, x_b):

@@ -189,10 +189,10 @@ class Aggregator(nn.Module):
             agg = common.aggregate_minus_self_var(batch, state_e)
         elif orient == "var":
             agg = common.scatter_to_vars(batch, state_e)
+        elif not self.cfg.include_self:
+            agg = common.aggregate_minus_self_clause(batch, state_e)
         else:
             agg = common.scatter_to_clauses(batch, state_e)
-            if not self.cfg.include_self:
-                agg = common.gather_from_clauses(batch, agg) - state_e
 
         if feature_e is not None:
             agg = torch.cat([agg, feature_e.to(agg.dtype)], dim=1)

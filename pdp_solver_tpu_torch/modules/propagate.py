@@ -21,7 +21,7 @@ from torch import nn
 from torch.nn import functional as Fn
 
 from pdp_solver_tpu_torch.modules import mlp
-from pdp_solver_tpu_torch.modules.common import col
+from pdp_solver_tpu_torch.modules.common import col, dropout
 from pdp_solver_tpu_torch.ops import fused
 from pdp_solver_tpu_torch.ops.fused import q_triplet_stable  # noqa: F401
 from pdp_solver_tpu_torch.ops.sp_sweep import sp_full_sweep, use_sp_sweep
@@ -55,10 +55,13 @@ class NeuralPropagator(nn.Module):
     cross over as in the reference: `var_agg` sums over each variable's
     edges and produces the new *function* state, `fn_agg` sums over each
     clause's edges and produces the new *variable* state. Edges of
-    instances that have stopped (active_edge 0) keep their state. Dropout
-    acts only in training, and per-instance meta features only in p-nd-np,
-    neither of which is ported. forward's compute_dtype (the solver's)
-    overrides cfg.compute_dtype."""
+    instances that have stopped (active_edge 0) keep their state. In
+    training (the module in .train()) each new state goes through dropout
+    at cfg.dropout, at JAX's two sites (propagate.py :84, :91: the
+    function state's masks drawn first), with masks from the `generator`
+    the caller passes. Per-instance meta features (p-nd-np) are not
+    ported. forward's compute_dtype (the solver's) overrides
+    cfg.compute_dtype."""
 
     def __init__(self, cfg: NeuralPropagatorConfig):
         super().__init__()
@@ -67,7 +70,11 @@ class NeuralPropagator(nn.Module):
         self.fn_agg = mlp.Aggregator(cfg.aggregator_cfg())
 
     def forward(self, batch, prop_state, dec_state, edge_mask, active_edge,
-                compute_dtype=None):
+                compute_dtype=None, generator=None):
+        drop = self.training and self.cfg.dropout > 0.0
+        if drop and generator is None:
+            raise ValueError("NeuralPropagator: dropout in training needs a "
+                             "generator")
         var_state, fn_state = prop_state
         dec_var, dec_fn = dec_state
         feat = col(batch.edge_sign)
@@ -76,9 +83,11 @@ class NeuralPropagator(nn.Module):
         fn_new = self.var_agg(batch, torch.cat([dec_var, feat], dim=1), feat,
                               "var", edge_mask, dtype)
         fn_state = torch.where(keep, fn_new, fn_state)
+        fn_state = dropout(generator, fn_state, self.cfg.dropout, drop)
         var_new = self.fn_agg(batch, torch.cat([dec_fn, feat], dim=1), feat,
                               "clause", edge_mask, dtype)
         var_state = torch.where(keep, var_new, var_state)
+        var_state = dropout(generator, var_state, self.cfg.dropout, drop)
         return var_state, fn_state
 
 

@@ -320,6 +320,20 @@ def fn_id(name, meta):
     return got[0]
 
 
+def refuse_grad(name, tensors):
+    """Raise where a launch would cut the autograd graph: the kernel
+    reads raw pointers, so its output carries no grad_fn. Called by the
+    wrappers of kernels that have no backward rule (the JAX package
+    differentiates none of them either), on the route that launches."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but this kernel has no "
+            "backward rule and its output would be cut from the graph; "
+            "detach the input or call it under torch.no_grad()")
+
+
 def check(rc, what):
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")

@@ -24,7 +24,9 @@ chained_edge_pass(fn, batch, ins) -> (cout [n_cout, F] or None,
     summed per instance), f3 per edge summed per variable.
 
 Each wrapper counts the calls that launched its kernel in `.launches`
-(and per functor in `.launches_by_fn`).
+(and per functor in `.launches_by_fn`). Neither kernel has a backward
+rule (nor has either JAX kernel): on the card a wrapper raises when grad
+mode is on and an input requires grad (`_build.refuse_grad`).
 """
 
 import ctypes
@@ -463,6 +465,7 @@ def fused_edge_pass(fn: EdgeFn, batch, ins, scalar=0.0):
     a = plan.args
     if a is None:
         return fused_edge_pass_plain(fn, batch, ins, scalar)
+    _build.refuse_grad(f"fused_edge_pass[{fn.name}]", ins)
     plan.ins[:len(ins)] = [x.data_ptr() for x in ins]
     x0 = ins[0]
     eouts = _edge_outputs(plan, x0)
@@ -534,6 +537,7 @@ def chained_edge_pass(fn: ChainFn, batch, ins):
     a = plan.args
     if a is None:
         return chained_edge_pass_plain(fn, batch, ins)
+    _build.refuse_grad(f"chained_edge_pass[{fn.name}]", ins)
     plan.ins[:len(ins)] = [x.data_ptr() for x in ins]
     x0 = ins[0]
     eouts = _edge_outputs(plan, x0)

@@ -36,6 +36,16 @@ checks its columns against the plan, fills the plan's argument block and
 makes one ctypes call. Every launch of the kernel is counted in
 `segment_sum_cols.launches` and, per wrapper, in
 `segment_sum_cols.launches_by_form`.
+
+Gradients: when grad mode is on and a column requires grad, each wrapper
+goes through a torch.autograd.Function whose backward gathers the
+cotangent at the ids, on the real edges, and gives the padding edges
+zero (they were never summed). That is the JAX kernels' rule
+(`pallas_reduce.py _make_fn` bwd :113-116, `pallas_segment.py` :113-115:
+a plain gather `g[i][segment_ids]`), and kernel 5's is its unmasked
+form, since here every real edge is summed over the CSR (JAX's masks
+the edges its residual scatter owns, :197-203). The gather is a PyTorch
+index, as it is an XLA gather in JAX.
 """
 
 import ctypes
@@ -44,7 +54,7 @@ import math
 import torch
 
 from pdp_solver_tpu_torch.ops import _build
-from pdp_solver_tpu_torch.ops.reduce2d import _device
+from pdp_solver_tpu_torch.ops.reduce2d import _device, _needs_grad
 
 F32 = torch.float32
 MAX_COLS = _build.MAX_COLS
@@ -142,11 +152,74 @@ def segment_sum_cols_plain(cols, ids, num_segments, num_real):
     return out.index_add_(1, ids[:num_real], x)
 
 
+def _gather_real(g, ids, num_real):
+    """The transpose of a sum over the first num_real edges: g at ids,
+    zero on the padding edges."""
+    out = g[ids]
+    out[num_real:] = 0.0
+    return out
+
+
+class _SegmentSumCols(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ids, num_segments, num_real, ptr, perm, max_degree,
+                *cols):
+        ctx.save_for_backward(ids)
+        ctx.num_real = num_real
+        return _segment_sum_cols(cols, ids, num_segments, num_real, ptr,
+                                 perm, max_degree)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        return (None,) * 6 + tuple(
+            _gather_real(g[c], ids, ctx.num_real) if need else None
+            for c, need in enumerate(ctx.needs_input_grad[6:]))
+
+
+class _SegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ids, num_segments, num_real, ptr, perm, max_degree):
+        ctx.save_for_backward(ids)
+        ctx.num_real = num_real
+        return _segment_sum(x, ids, num_segments, num_real, ptr, perm,
+                            max_degree)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        return (_gather_real(g, ids, ctx.num_real),) + (None,) * 6
+
+
+class _SortedSegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ids, num_segments):
+        ctx.save_for_backward(ids)
+        ctx.num_segments = num_segments
+        return _sorted_segment_sum(x, ids, num_segments)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        keep = (ids >= 0) & (ids < ctx.num_segments)
+        out = g[ids.clamp(0, ctx.num_segments - 1)]
+        return torch.where(keep, out, torch.zeros_like(out)), None, None
+
+
 def segment_sum_cols(cols, ids, num_segments, num_real, ptr, perm=None,
                      max_degree=None):
     """C f32[E] columns -> f32[C, num_segments]; see the module docstring.
     max_degree, when given, is the CSR's largest segment (FGBatch's
     var_max_degree / clause_max_degree)."""
+    if _needs_grad(*cols):
+        return _SegmentSumCols.apply(ids, num_segments, num_real, ptr, perm,
+                                     max_degree, *cols)
+    return _segment_sum_cols(cols, ids, num_segments, num_real, ptr, perm,
+                             max_degree)
+
+
+def _segment_sum_cols(cols, ids, num_segments, num_real, ptr, perm,
+                      max_degree):
     name = "segment_sum_cols"
     if not 1 <= len(cols) <= MAX_COLS:
         raise ValueError(f"{name}: {len(cols)} columns, expected 1.."
@@ -181,6 +254,14 @@ def segment_sum(x, ids, num_segments, num_real, ptr, perm=None,
     """f32[E] -> f32[N] or f32[E, C] (C <= 8) -> f32[N, C]; the [E, C]
     array is read in place, column c at stride C. max_degree as for
     segment_sum_cols."""
+    if _needs_grad(x):
+        return _SegmentSum.apply(x, ids, num_segments, num_real, ptr, perm,
+                                 max_degree)
+    return _segment_sum(x, ids, num_segments, num_real, ptr, perm,
+                        max_degree)
+
+
+def _segment_sum(x, ids, num_segments, num_real, ptr, perm, max_degree):
     name = "segment_sum"
     E = ids.shape[0]
     if (x.dtype != F32 or x.dim() not in (1, 2)
@@ -214,6 +295,12 @@ def sorted_segment_sum(x, ids, num_segments):
     """f32[E] with ids sorted ascending -> f32[num_segments]. On the card
     each group of lanes finds its node's run of ids by binary search in
     the same launch (C = 1, no permutation)."""
+    if _needs_grad(x):
+        return _SortedSegmentSum.apply(x, ids, num_segments)
+    return _sorted_segment_sum(x, ids, num_segments)
+
+
+def _sorted_segment_sum(x, ids, num_segments):
     name = "sorted_segment_sum"
     if x.dtype != torch.float32 or x.dim() != 1 or ids.shape != x.shape:
         raise ValueError(f"{name}: x must be f32[E] with ids [E], got "

@@ -31,9 +31,26 @@ order and no atomics. The gather's checks of its ids and their pointers
 are worked out once per ids tensor and kept in a plan, so a call checks
 the rows, fills the plan's argument block and makes one ctypes call. Calls
 that launched a kernel are counted in `.launches` (f32 rows) and
-`.launches_bf16` (bf16 rows: x, or the gather's subtrahend). Forward
-only: each is the other's transpose, and the autograd pair comes with
-training.
+`.launches_bf16` (bf16 rows: x, or the gather's subtrahend).
+
+Gradients (the JAX kernels' custom VJPs, `_sum2d_bwd` :142 and
+`_gather2d_bwd` :152): each is the other's transpose. When grad mode is
+on and an input requires grad, the call goes through `SegmentSum2d` or
+`Gather2d`, torch.autograd.Functions whose backward is the other
+wrapper, so on the card kernel 7 is kernel 6's backward and kernel 6 is
+kernel 7's, and on the CPU the backward runs the plain transposes (the
+same logic, not torch's autograd of index_add_). The sum's transpose
+gathers the cotangent to the real rows and gives the padding rows zero
+(the forward never read them). The gather writes every row, padding
+included, but its transpose sums the real rows of the CSR only: that is
+exact where the padding rows' cotangent is zero, which holds on every
+path of the port (a padding edge's rows reach the loss only through the
+edge masks, which are 0 there), and the CPU route checks it on every
+backward. A differentiable gather therefore needs the CSR of its ids,
+`csr=(num_real, ptr, perm)`. The launches made as a backward rule are
+also counted in `.launches_bwd`, by side ("var": a CSR with perm;
+"clause": the clause-major one). bf16 rows that require grad raise: no
+training configuration uses bf16, and the bf16 rules are not tested.
 """
 
 import ctypes
@@ -72,8 +89,9 @@ def segment_sum_2d_plain(x, ids, num_segments, num_real):
     return out
 
 
-def segment_sum_2d(x, ids, num_segments, num_real, ptr, perm=None):
-    """[E, d] -> f32[num_segments, d]; see the module docstring."""
+def _segment_sum_2d(x, ids, num_segments, num_real, ptr, perm=None):
+    """The sum without autograd: the plain version on the CPU, the
+    kernel on the card."""
     _check_rows("segment_sum_2d", x, "x")
     dev = _device("segment_sum_2d", x, ids, ptr, perm)
     if ids.shape[0] != x.shape[0] or num_real > x.shape[0]:
@@ -105,8 +123,6 @@ def segment_sum_2d(x, ids, num_segments, num_real, ptr, perm=None):
     return out
 
 
-segment_sum_2d.launches = 0
-segment_sum_2d.launches_bf16 = 0
 
 
 def gather_2d_plain(nodes, ids, minus=None):
@@ -141,8 +157,9 @@ class _GatherPlan:
 _PLANS = _build.PlanCache()
 
 
-def gather_2d(nodes, ids, minus=None):
-    """f32[N, d] -> f32[len(ids), d]; see the module docstring."""
+def _gather_2d(nodes, ids, minus=None):
+    """The gather without autograd: the plain version on the CPU, the
+    kernel on the card."""
     plan = _PLANS.get((ids,), None, _GatherPlan, ids)
     _check_rows("gather_2d", nodes, "nodes", (torch.float32,))
     E, d = plan.rows, nodes.shape[1]
@@ -179,5 +196,106 @@ def gather_2d(nodes, ids, minus=None):
     return out
 
 
+
+def _needs_grad(*tensors):
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _refuse_bf16_grad(name, *tensors):
+    for t in tensors:
+        if t is not None and t.requires_grad and t.dtype == torch.bfloat16:
+            raise NotImplementedError(
+                f"{name}: bf16 rows that require grad; no training "
+                "configuration uses bf16, and the bf16 backward rules are "
+                "not tested")
+
+
+def _side(perm):
+    return "clause" if perm is None else "var"
+
+
+class SegmentSum2d(torch.autograd.Function):
+    """segment_sum_2d with its transpose, gather_2d of the cotangent to
+    the real rows (JAX `_sum2d_bwd` :142)."""
+
+    @staticmethod
+    def forward(ctx, x, ids, num_segments, num_real, ptr, perm):
+        ctx.save_for_backward(ids)
+        ctx.num_real, ctx.side = num_real, _side(perm)
+        return _segment_sum_2d(x, ids, num_segments, num_real, ptr, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        gx = _gather_2d(g.contiguous(), ids)
+        gx[ctx.num_real:] = 0.0
+        if gx.is_cuda:
+            gather_2d.launches_bwd[ctx.side] += 1
+        return gx, None, None, None, None, None
+
+
+class Gather2d(torch.autograd.Function):
+    """gather_2d (minus) with its transpose, segment_sum_2d of the
+    cotangent over the CSR of the ids (JAX `_gather2d_bwd` :152), and -g
+    to the subtrahend."""
+
+    @staticmethod
+    def forward(ctx, nodes, minus, ids, num_real, ptr, perm):
+        ctx.save_for_backward(ids, ptr, perm)
+        ctx.num_nodes, ctx.num_real = nodes.shape[0], num_real
+        ctx.minus_dtype = None if minus is None else minus.dtype
+        return _gather_2d(nodes, ids, minus)
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, ptr, perm = ctx.saved_tensors
+        g = g.contiguous()
+        if not g.is_cuda and bool((g[ctx.num_real:] != 0).any()):
+            raise RuntimeError(
+                "gather_2d: the cotangent of a padding row is not zero, "
+                "and the transpose sums the real rows only; mask the "
+                "padding rows before they reach the loss")
+        g_nodes = g_minus = None
+        if ctx.needs_input_grad[0]:
+            g_nodes = _segment_sum_2d(g, ids, ctx.num_nodes, ctx.num_real,
+                                      ptr, perm)
+            if g.is_cuda:
+                segment_sum_2d.launches_bwd[_side(perm)] += 1
+        if ctx.needs_input_grad[1]:
+            g_minus = (-g).to(ctx.minus_dtype)
+        return g_nodes, g_minus, None, None, None, None
+
+
+def segment_sum_2d(x, ids, num_segments, num_real, ptr, perm=None):
+    """[E, d] -> f32[num_segments, d]; see the module docstring. Through
+    SegmentSum2d when grad mode is on and x requires grad."""
+    if _needs_grad(x):
+        _refuse_bf16_grad("segment_sum_2d", x)
+        return SegmentSum2d.apply(x, ids, num_segments, num_real, ptr, perm)
+    return _segment_sum_2d(x, ids, num_segments, num_real, ptr, perm)
+
+
+segment_sum_2d.launches = 0
+segment_sum_2d.launches_bf16 = 0
+segment_sum_2d.launches_bwd = {"var": 0, "clause": 0}
+
+
+def gather_2d(nodes, ids, minus=None, csr=None):
+    """f32[N, d] -> f32[len(ids), d]; see the module docstring. Through
+    Gather2d when grad mode is on and nodes or minus requires grad, which
+    needs csr = (num_real, ptr, perm), the CSR of ids for the
+    transpose."""
+    if _needs_grad(nodes, minus):
+        if csr is None:
+            raise ValueError("gather_2d: a gather that requires grad needs "
+                             "csr=(num_real, ptr, perm) of its ids for its "
+                             "transpose")
+        _refuse_bf16_grad("gather_2d", nodes, minus)
+        return Gather2d.apply(nodes, minus, ids, *csr)
+    return _gather_2d(nodes, ids, minus)
+
+
 gather_2d.launches = 0
 gather_2d.launches_bf16 = 0
+gather_2d.launches_bwd = {"var": 0, "clause": 0}

@@ -150,6 +150,7 @@ def sp_full_sweep(batch, *, u_like, eta_in, em, mask, eta_state, sign,
     a = plan.args
     if a is None:
         return sp_full_sweep_plain(batch, cols, pi, login)
+    _build.refuse_grad("sp_full_sweep", cols)
     a.ins[:len(cols)] = [x.data_ptr() for x in cols]
     # the four outputs are the rows of one allocation
     out = cols[0].new_empty((4, plan.shape[0]))

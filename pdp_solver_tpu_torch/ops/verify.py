@@ -131,6 +131,7 @@ def verify_and_masks(batch, problem, active_b, var_pred):
     if a is None:
         return verify_and_masks_plain(batch, problem.active_vars,
                                       problem.active_clauses, active_b, pred)
+    _build.refuse_grad("verify_and_masks", [x for _, x, _ in ins])
     pred, av, ac, act = (x if x.is_contiguous() else x.contiguous()
                          for _, x, _ in ins)
     a.pred, a.av = pred.data_ptr(), av.data_ptr()

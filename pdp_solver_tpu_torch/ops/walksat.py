@@ -324,6 +324,7 @@ def walksat_walk(assign, *, batch, active_vars, active_clauses, em, K,
             assign, batch=batch, active_vars=av, active_clauses=ac, em=em,
             K=K, seeds=seeds, eps=eps, edge_constants=(w, dm),
             replicas=replicas)
+    _build.refuse_grad("walksat_walk", (assign, av, ac, em, w, dm))
     V = plan.sizes["V"]
     seeds_d = torch.tensor(seeds, dtype=torch.int32).to(plan.device,
                                                         non_blocking=True)

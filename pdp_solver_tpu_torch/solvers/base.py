@@ -44,6 +44,10 @@ so running out the chunk gives what the JAX loop gives. (The neural
 states of a stopped instance are frozen, and its prediction and solution
 are recomputed from them unchanged.)
 
+Training (np-nd-np): `forward(..., is_training=True)` is JAX's
+`_forward` under is_training, differentiable and outside no_grad; the
+trainer is `train/trainer.py`.
+
 The classical draws (message inits, REINFORCE's per-iteration coin, the
 random fills) come from one CPU `torch.Generator` (the same numbers on the
 CPU and on the card for the same seed); what the device needs is copied
@@ -93,7 +97,7 @@ class SolverConfig:
     agg_hidden_dim: int = 100
     mem_agg_hidden_dim: int = 50
     classifier_dim: int = 50
-    # acts in training only, which is not ported
+    # the neural propagator's dropout, in training only
     dropout: float = 0.0
     tolerance: float = 0.02
     t_max: float = 100.0
@@ -235,7 +239,8 @@ class PDPSolver:
         ModuleDict of the propagator ("prop": the neural propagator, or
         p-nd-np's SP adaptors), the decimator ("dec") and the predictor
         ("predictor"); for np-d-np one of the neural propagator ("prop")
-        and the decimator's scorer ("scorer"); in eval mode."""
+        and the decimator's scorer ("scorer"); in eval mode (a trainer
+        puts them in train mode, which turns dropout on)."""
         if not self._param_keys():
             return {}
         prop = (PR.NeuralPropagator(self.prop_cfg) if self.neural_prop
@@ -337,11 +342,14 @@ class PDPSolver:
 
     # -- forward --------------------------------------------------------
 
-    @torch.no_grad()
     def forward(self, params, generator, batch, init_state: SolverState,
-                iteration_num: int, *, check_termination: bool = False,
-                replication: int = 1, carry=None, finalize=True):
-        """One solve (or one chunk of it).
+                iteration_num: int, *, is_training: bool = False,
+                check_termination: bool = False, replication: int = 1,
+                carry=None, finalize=True):
+        """One solve (or one chunk of it), under torch.no_grad(); with
+        is_training=True the differentiable training forward instead
+        (`_forward_train`, np-nd-np only), whose `generator` is the one
+        its dropout masks are drawn from, on the batch's device.
 
         finalize=True returns ((variable_prediction [V, 1], None), state):
         the decimated solution with random fill on still-active variables
@@ -358,6 +366,16 @@ class PDPSolver:
         back in the replicated layout and the prediction, deduplicated, in
         the batch's. With `carry=` the batch must already be replicated
         (as in the JAX package)."""
+        if is_training:
+            return self._forward_train(params, generator, batch, init_state,
+                                       iteration_num)
+        with torch.no_grad():
+            return self._forward(params, generator, batch, init_state,
+                                 iteration_num, check_termination,
+                                 replication, carry, finalize)
+
+    def _forward(self, params, generator, batch, init_state, iteration_num,
+                 check_termination, replication, carry, finalize):
         self._check_params(params)
         if replication > 1 and carry is None:
             batch = replicate_batch(batch, replication)
@@ -387,6 +405,48 @@ class PDPSolver:
         var_pred, problem = _update_solution(problem, var_pred)
         if replication > 1:
             var_pred = _deduplicate(batch, problem, var_pred, replication)
+        return (var_pred, None), state
+
+    def check_trainable(self):
+        """Raise unless the assembly has a training forward (np-nd-np)."""
+        t = self.cfg.model_type
+        if t != "np-nd-np":
+            raise NotImplementedError(
+                f"training {t} is not ported yet: p-nd-np needs meta "
+                "features and a differentiable SP sweep, np-d-np the "
+                "training objective of JAX solvers/base.py:426-439 "
+                "(ROADMAP.md queue 1)")
+
+    def _forward_train(self, params, generator, batch, state,
+                       iteration_num):
+        """JAX `_forward` under is_training (:352-454) for np-nd-np: no
+        simplification, an unrolled loop of iteration_num iterations with
+        no termination check, the final neural prediction merged into the
+        solution; no local search and no replication. The propagator's
+        dropout (modules in .train()) draws from `generator`. Returns
+        ((variable_prediction [V, 1], None), state), differentiable in
+        the parameters and in the init state."""
+        self.check_trainable()
+        self._check_params(params)
+        # the problem is never simplified or decimated in training, so
+        # the masks below are constants: JAX's gradient through them is
+        # zero by construction (its stop_gradient of the problem,
+        # solvers/base.py:534-542), and here they carry no grad at all
+        problem = init_problem_state(batch)
+        active_b = batch.instance_mask
+        em = batch.edge_mask
+        ae = edge_active_instance_mask(batch, active_b)
+        dtype = self.cfg.compute_dtype
+        for _ in range(iteration_num):
+            prop = params["prop"](batch, state.prop, state.dec, em, ae,
+                                  dtype, generator=generator)
+            dec = params["dec"](batch, state.dec, prop, ae, dtype)
+            state = SolverState(prop=prop, dec=dec, aux=())
+            em, ae = edge_masks_pair(batch, problem, active_b)
+        em = compute_edge_mask(batch, problem)
+        var_pred = self._predict(params, None, batch, problem, state.dec, em,
+                                 last_call=True)
+        var_pred, _ = _update_solution(problem, var_pred)
         return (var_pred, None), state
 
     def _forward_core(self, params, generator, batch, problem, state,

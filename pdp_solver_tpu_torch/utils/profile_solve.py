@@ -35,6 +35,18 @@ run on the batch it packs first (R copies of each instance side by
 side). --compute-dtype bfloat16 runs a neural model's aggregators and GRU
 cells in bf16 (SolverConfig.compute_dtype); the other models refuse it.
 Needs a CUDA card; exits 2 without one.
+
+    python -m pdp_solver_tpu_torch.utils.profile_solve --train [--steps N]
+
+profiles training instead: SatTrainer at the flagship recipe
+(utils/training.py FLAGSHIP_RECIPE, a fresh seeded init) on segments of
+the flagship mixture at the fixed dims (8192, 32768, 131072, 128),
+generated first: ms per step over N steps (default 5; host clock around
+synchronised steps, after a warm-up step), then one step under the
+profiler: its device busy time, idle share, top kernels and the port's
+own kernels, the launches of kernels 6 and 7 in the step (forward with
+remat's recompute, and as the other's backward rule), peak memory and
+the host time of generating and packing a segment.
 """
 
 import argparse
@@ -98,6 +110,17 @@ def _device_us(evt):
     return 0.0
 
 
+def device_kernels(prof):
+    """{name: (device us, count)} of a trace's device kernels."""
+    kernels = {}
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us > 0 and getattr(evt, "device_type", None) is not None and \
+                "cuda" in str(evt.device_type).lower():
+            kernels[evt.key] = (us, evt.count)
+    return kernels
+
+
 def hot_loop(insts, solver, params, n=50):
     """ms per iteration of the full-size hot loop, and a profile of it."""
     from torch.profiler import ProfilerActivity, profile
@@ -121,14 +144,8 @@ def hot_loop(insts, solver, params, n=50):
                        carry=carry, finalize=False)
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
-    kernels = {}
-    launches = 0
-    for evt in prof.key_averages():
-        us = _device_us(evt)
-        if us > 0 and getattr(evt, "device_type", None) is not None and \
-                "cuda" in str(evt.device_type).lower():
-            kernels[evt.key] = (us, evt.count)
-            launches += evt.count
+    kernels = device_kernels(prof)
+    launches = sum(c for _, c in kernels.values())
     busy_us = sum(us for us, _ in kernels.values())
     shares = {k: sum(us for name, (us, _) in kernels.items()
                      if rx.search(name)) / max(busy_us, 1e-9)
@@ -166,12 +183,7 @@ def solve_profile(solve):
                              ProfilerActivity.CUDA]) as prof:
         solve()
         torch.cuda.synchronize()
-    kernels = {}
-    for evt in prof.key_averages():
-        us = _device_us(evt)
-        if us > 0 and getattr(evt, "device_type", None) is not None and \
-                "cuda" in str(evt.device_type).lower():
-            kernels[evt.key] = (us, evt.count)
+    kernels = device_kernels(prof)
     own_names = own_kernel_names()
     return {
         "device_busy_ms": sum(us for us, _ in kernels.values()) / 1e3,
@@ -181,6 +193,70 @@ def solve_profile(solve):
                              kernels.items())
                         if any(re.search(rf"\b{n}\b", k)
                                for n in own_names)]}
+
+
+def train_profile(steps=5):
+    """ms per training step at the flagship recipe and fixed dims, and a
+    profile of one step."""
+    import itertools
+    from torch.profiler import ProfilerActivity, profile
+    from pdp_solver_tpu_torch.ops import reduce2d
+    from pdp_solver_tpu_torch.train.trainer import SatTrainer
+    from pdp_solver_tpu_torch.utils import training
+    t0 = time.time()
+    segs = list(itertools.islice(training.flagship_segments(0), steps + 2))
+    gen_ms = (time.time() - t0) / len(segs) * 1e3
+    tr = SatTrainer(training.FLAGSHIP_RECIPE, seed=0, device="cuda")
+    ts = tr.init_train_state()
+    ts, _, _ = tr.train_segments(ts, iter(segs[:1]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    ts, _, n_inst = tr.train_segments(ts, iter(segs[1:-1]))
+    torch.cuda.synchronize()
+    wall_ms = (time.time() - t0) * 1e3 / steps
+    s, g = reduce2d.segment_sum_2d, reduce2d.gather_2d
+    s.launches = g.launches = 0
+    s.launches_bwd = {"var": 0, "clause": 0}
+    g.launches_bwd = {"var": 0, "clause": 0}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        ts, _, _ = tr.train_segments(ts, iter(segs[-1:]))
+        torch.cuda.synchronize()
+        prof_ms = (time.time() - t0) * 1e3
+    kernels = device_kernels(prof)
+    busy_us = sum(us for us, _ in kernels.values())
+    shares = {k: sum(us for name, (us, _) in kernels.items()
+                     if rx.search(name)) / max(busy_us, 1e-9)
+              for k, rx in SHARES.items()}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
+    own_names = own_kernel_names()
+    own = sorted((k, v) for k, v in kernels.items()
+                 if any(re.search(rf"\b{n}\b", k) for n in own_names))
+    return {
+        "dims": list(training.FIXED_DIMS), "steps": steps,
+        "instances_per_step": n_inst / steps,
+        "ms_per_step": wall_ms,
+        "instances_per_s": n_inst / (wall_ms * steps) * 1e3,
+        "profiled_step_ms": prof_ms,
+        "device_busy_ms": busy_us / 1e3,
+        # against the unprofiled step: the profiler slows the host only
+        "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
+        "kernel_launches": sum(c for _, c in kernels.values()),
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "gen_ms_per_segment": gen_ms,
+        "kernels_6_7": {"segment_sum_2d": s.launches,
+                        "segment_sum_2d_bwd": dict(s.launches_bwd),
+                        "gather_2d": g.launches,
+                        "gather_2d_bwd": dict(g.launches_bwd)},
+        "busy_shares": shares,
+        "top_kernels": [{"name": k[:80], "device_ms": us / 1e3,
+                         "count": c} for k, (us, c) in top],
+        "own_kernels": [{"name": k[:120], "device_ms": us / 1e3,
+                         "count": c, "us_per_call": us / c}
+                        for k, (us, c) in own],
+    }
 
 
 def main(argv=None):
@@ -207,6 +283,10 @@ def main(argv=None):
                     help="a neural model's compute_dtype")
     ap.add_argument("--no-profile", action="store_true",
                     help="skip the hot-loop timing and trace")
+    ap.add_argument("--train", action="store_true",
+                    help="profile a training step at the flagship recipe")
+    ap.add_argument("--steps", type=int, default=5,
+                    help="--train: the steps timed")
     args = ap.parse_args(argv)
     dt = args.compute_dtype
     if dt != "float32" and args.model not in NEURAL:
@@ -218,15 +298,20 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("profile_solve: no CUDA card", file=sys.stderr)
         return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout else None
+    if args.train:
+        print(json.dumps({"device": torch.cuda.get_device_name(0),
+                          "card": card, "model": "np-nd-np",
+                          "train": train_profile(args.steps)}), flush=True)
+        return 0
     insts = make_ksat_set()
     R = args.replicas
     # the batch compacting_solve(replicas=R) packs first
     slots = [i for i in insts for _ in range(R)]
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True)
-    out = {"device": torch.cuda.get_device_name(0),
-           "card": smi.stdout.strip().splitlines()[0] if smi.stdout else None,
+    out = {"device": torch.cuda.get_device_name(0), "card": card,
            "fingerprint": dataset_fingerprint(insts), "model": args.model,
            "replicas": R, "compute_dtype": dt,
            "env": {k: os.environ.get(k, "off")

@@ -876,3 +876,99 @@ def test_reduce2d_bf16_kernels_match_plain(walk_shapes, which, d):
     assert reduce2d.gather_2d.launches_bf16 == gathers + 2
     assert (reduce2d.segment_sum_2d.launches,
             reduce2d.gather_2d.launches) == f32_before
+
+
+# ---------------------------------------------------------------------------
+# training: the guard of the wrappers without a backward rule, and the
+# autograd pair of kernels 6 and 7 (each the other's backward) on the card
+# ---------------------------------------------------------------------------
+
+def _grad_input_calls(gpu):
+    """One call of each launching wrapper without a backward rule, with
+    its first input requiring grad."""
+    fn_f, fn_c = fused.EM_AE, fused.CNF_CHAIN
+
+    def ins(fn):
+        xs = [x.cuda() for x in _inputs(fn, gpu, 3)]
+        xs[0] = xs[0].clone().requires_grad_()
+        return xs
+    av = gpu.var_mask
+    assign = (av * 2 - 1).clone().requires_grad_()
+    sweep = _sweep_inputs(gpu, 5, 0.0)
+    sweep["u_like"] = sweep["u_like"].clone().requires_grad_()
+    problem = init_problem_state(gpu)
+    pred = torch.full((gpu.num_vars, 1), 0.7, device="cuda",
+                      requires_grad=True)
+    return {
+        "fused_edge_pass[em_ae]": lambda: fused.fused_edge_pass(
+            fn_f, gpu, ins(fn_f)),
+        "chained_edge_pass[cnf_chain]": lambda: fused.chained_edge_pass(
+            fn_c, gpu, ins(fn_c)),
+        "walksat_walk": lambda: walksat.walksat_walk(
+            assign, batch=gpu, active_vars=av,
+            active_clauses=gpu.clause_mask, em=gpu.edge_mask, K=8,
+            seeds=[1], eps=0.5),
+        "sp_full_sweep": lambda: sp_sweep.sp_full_sweep(gpu, **sweep),
+        "verify_and_masks": lambda: verify.verify_and_masks(
+            gpu, problem, gpu.instance_mask, pred),
+    }
+
+
+@pytest.mark.parametrize("name", ["fused_edge_pass[em_ae]",
+                                  "chained_edge_pass[cnf_chain]",
+                                  "walksat_walk", "sp_full_sweep",
+                                  "verify_and_masks"])
+def test_wrappers_without_a_backward_rule_refuse_grad(batches, name):
+    call = _grad_input_calls(batches[1])[name]
+    with pytest.raises(RuntimeError, match="an input requires grad"):
+        call()
+    with torch.no_grad():
+        call()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("side", ["var", "clause"])
+def test_autograd_pair_on_card_matches_cpu(side):
+    """SegmentSum2d and Gather2d (minus) on the card against the same
+    Functions on the CPU (the plain transposes): values and gradients to
+    rtol 1e-5 / atol 1e-5, the gather's gradient to the subtrahend
+    exactly, and each kernel counted as the other's backward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from pdp_solver_tpu_torch.modules import common
+    from pdp_solver_tpu_torch.ops import reduce2d
+    rng = np.random.default_rng(3)
+    insts = []
+    for _ in range(4):
+        widths = rng.integers(2, 7, size=400)
+        ev = np.concatenate([rng.choice(200, int(k), replace=False)
+                             for k in widths]).astype(np.int32)
+        ec = np.repeat(np.arange(400, dtype=np.int32), widths)
+        signs = rng.choice([-1.0, 1.0], ev.shape[0]).astype(np.float32)
+        insts.append((200, 400, np.stack([ev, ec]), signs, -1.0))
+    out = {}
+    s, g = reduce2d.segment_sum_2d, reduce2d.gather_2d
+    for dev in ("cpu", "cuda"):
+        b = pack_instances(insts, device=dev)
+        assert b.clause_width == 0
+        ids, ids32, n, csr = (
+            (b.edge_var, b.edge_var32, b.num_vars, common.var_csr(b))
+            if side == "var" else
+            (b.edge_clause, b.edge_clause32, b.num_clauses,
+             common.clause_csr(b)))
+        gen = torch.Generator().manual_seed(4)
+        x = torch.randn(b.num_edges, 50, generator=gen).to(dev)
+        x = (x * b.edge_mask[:, None]).requires_grad_()
+        w = torch.randn(b.num_edges, 50, generator=gen).to(dev)
+        w = w * b.edge_mask[:, None]
+        before = (s.launches_bwd[side], g.launches_bwd[side])
+        agg = s(x, ids, n, *csr)
+        y = g(agg, ids32, x, csr=csr)
+        (y * w).sum().backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert (s.launches_bwd[side], g.launches_bwd[side]) == (
+                before[0] + 1, before[1] + 1)
+        out[dev] = (y.detach().cpu(), x.grad.cpu())
+    for a, b in zip(out["cpu"], out["cuda"]):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-5)

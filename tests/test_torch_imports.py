@@ -56,6 +56,30 @@ def test_port_imports_no_jax_yaml_or_jax_package(path):
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {sorted(bad)}"
 
 
+# the training slice's modules, which the scan above must reach: the port
+# keeps its own copies of the JAX package's numpy-only data modules
+TRAINING_MODULES = ("fg/jsonfmt.py", "fg/generators.py", "fg/loader.py",
+                    "train/loss.py", "train/checkpoint.py",
+                    "train/trainer.py", "utils/training.py")
+
+
+def test_scan_covers_the_training_modules():
+    scanned = {os.path.relpath(p, PKG) for p in _port_sources()}
+    assert set(TRAINING_MODULES) <= scanned
+
+
+@pytest.mark.parametrize("module", TRAINING_MODULES)
+def test_training_modules_import_torch_and_numpy_only(module):
+    """Beyond the scan: the new modules import nothing outside the port,
+    the standard library, numpy and torch."""
+    import sys
+    allowed = {"numpy", "torch", "pdp_solver_tpu_torch"}
+    bad = {n for n in _imports(os.path.join(PKG, module))
+           if n.split(".")[0] not in allowed
+           and n.split(".")[0] not in sys.stdlib_module_names}
+    assert not bad, bad
+
+
 def test_yaml_is_imported_lazily():
     """utils/config.py imports yaml inside load_yaml_config only, never at
     module level, so importing the module (or any module that imports it)
