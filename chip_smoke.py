@@ -29,7 +29,13 @@ Phases, one flushed line each with the elapsed seconds:
      shared set and a compacted batch, in the aggregators' forms: bf16
      rows into f32 sums over both CSRs to rtol 1e-5 / atol 1e-5, f32 sums
      minus bf16 rows bit for bit with i32 and i64 ids, timed beside
-     index_add_ and index_select on bf16;
+     index_add_ and index_select on bf16; kernel 6 on f32 and bf16 rows
+     over both CSRs of the shared set, a compacted batch and the hub
+     (its 63,488-edge variable cut into pieces), with the batch's
+     largest degree as the path passes it: bit for bit against its
+     order emulated in PyTorch (ops/reduce2d.py walk_order_sum_2d), the
+     same bits twice and within rtol 1e-5 / atol 1e-5 of the float64
+     index_add_, the hub's forms timed beside index_add_;
      The multi-column segment sum (kernel 4; C = 1 and 2 over the var CSR,
      C = 1 over the clause CSR), the same kernel on a ragged batch of
      mixed clause widths (kernel 5's function) and over sorted ids
@@ -161,7 +167,10 @@ Phases, one flushed line each with the elapsed seconds:
      launches of kernels 6 and 7 in one step, forward (with remat's
      recompute) and backward, are recorded; the backward forms of kernels
      6 and 7 over both CSRs are then held against their plain versions at
-     that shape and timed beside index_add_ / index_select;
+     that shape and timed beside index_add_ / index_select, kernel 6's
+     (with the largest degree Gather2d's backward hands it) also bit for
+     bit against walk_order_sum_2d and within REDUCE2D_TOL of float64,
+     and its forward forms at that shape as in phase 2;
  21. fine-tune, save, reload, serve: 50 steps from the r3 weights (a
      params-only checkpoint: Adam starts fresh, as in the JAX package),
      best and last saved in the JAX package's format, read back through
@@ -760,7 +769,8 @@ def check_reduce2d(batch, torch):
 
     def seg():
         return reduce2d.segment_sum_2d(x, ev, V, e, batch.var_ptr,
-                                       batch.var_perm)
+                                       batch.var_perm,
+                                       max_degree=batch.var_max_degree)
 
     def seg_plain():
         return reduce2d.segment_sum_2d_plain(x, ev, V, e)
@@ -849,11 +859,13 @@ def check_reduce2d_bf16(batch, compacted, torch):
         x = torch.randn(b.num_edges, d, generator=g).cuda().to(bf16)
         nodes = torch.randn(b.num_vars, d, generator=g).cuda()
         e = b.num_real_edges
-        for side, ids, n, ptr, perm in (
-                ("var", b.edge_var, b.num_vars, b.var_ptr, b.var_perm),
+        for side, ids, n, ptr, perm, md in (
+                ("var", b.edge_var, b.num_vars, b.var_ptr, b.var_perm,
+                 b.var_max_degree),
                 ("clause", b.edge_clause, b.num_clauses, b.clause_ptr,
-                 None)):
-            got = reduce2d.segment_sum_2d(x, ids, n, e, ptr, perm)
+                 None, b.clause_max_degree)):
+            got = reduce2d.segment_sum_2d(x, ids, n, e, ptr, perm,
+                                          max_degree=md)
             ref = reduce2d.segment_sum_2d_plain(x, ids, n, e)
             torch.cuda.synchronize()
             err = float((got - ref).abs().max())
@@ -882,7 +894,8 @@ def check_reduce2d_bf16(batch, compacted, torch):
 
     def seg():
         return reduce2d.segment_sum_2d(x, ev, V, e, batch.var_ptr,
-                                       batch.var_perm)
+                                       batch.var_perm,
+                                       max_degree=batch.var_max_degree)
 
     out = torch.zeros(V, d, device="cuda", dtype=bf16)
     x_real, ev_real = x[:e], ev[:e]
@@ -904,8 +917,8 @@ def check_reduce2d_bf16(batch, compacted, torch):
                 "rounded at every add: a time, not the same function)",
         form="bf16 rows, f32 sums, var CSR",
         clause_csr=dict(timed(lambda: reduce2d.segment_sum_2d(
-            x, batch.edge_clause, F, e, batch.clause_ptr)),
-            bound_ms=b_clause))
+            x, batch.edge_clause, F, e, batch.clause_ptr,
+            max_degree=batch.clause_max_degree)), bound_ms=b_clause))
     # f32 sums minus the bf16 rows, f32 out, i32 ids: the subtrahend, the
     # ids, the node rows read once and the output written once
     b_ms, b_by = bound_ms(E * d * 2 + E * 4 + V * d * 4 + E * d * 4, E * d)
@@ -933,6 +946,78 @@ def check_reduce2d_bf16(batch, compacted, torch):
     log(f"kernel segment_sum_2d[bf16] over the clause CSR: "
         f"{timing_note(c)}, bound {c['bound_ms']:.5f} ms")
     return rows
+
+
+def sum2d_bound(e, d, esize, n, perm):
+    """Kernel 6's bound: the real rows (esize bytes an element), the
+    permutation and offsets read once, the f32 sums written once; one add
+    an element read."""
+    return bound_ms(e * d * esize + ((e if perm else 0) + n + 1) * 4
+                    + n * d * 4, e * d)
+
+
+def check_sum2d_walk(shapes, torch):
+    """Kernel 6 (csrc/reduce2d.cu) on f32 and bf16 rows of d = 50 over
+    the var and the clause CSR of each batch in `shapes` ({label:
+    batch}), with the batch's largest degree as the path passes it: the
+    same bits on two calls, the bits of its order emulated in PyTorch
+    (ops/reduce2d.py walk_order_sum_2d), and within REDUCE2D_TOL of the
+    float64 index_add_ of the real rows. The hub's forms (its 63,488-edge
+    variable cut into pieces) are timed beside index_add_ and their bound.
+    Returns {case: numbers}."""
+    from pdp_solver_tpu_torch.ops import reduce2d
+    from pdp_solver_tpu_torch.utils.bench_kernels import timed
+    d, cases = HIDDEN_AGG, {}
+    for label, b in shapes.items():
+        g = torch.Generator().manual_seed(31)
+        x32 = torch.randn(b.num_edges, d, generator=g).cuda()
+        e = b.num_real_edges
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            for side, ids, n, ptr, perm, md in (
+                    ("var", b.edge_var, b.num_vars, b.var_ptr, b.var_perm,
+                     b.var_max_degree),
+                    ("clause", b.edge_clause32, b.num_clauses,
+                     b.clause_ptr, None, b.clause_max_degree)):
+                name = (f"segment_sum_2d[{label} {side} "
+                        f"{str(dtype)[6:]}]")
+
+                def call():
+                    return reduce2d.segment_sum_2d(x, ids, n, e, ptr, perm,
+                                                   max_degree=md)
+                got, again = call(), call()
+                emu = reduce2d.walk_order_sum_2d(x, ptr, perm)
+                ref64 = torch.zeros(n, d, dtype=torch.float64,
+                                    device="cuda").index_add_(
+                    0, ids[:e].long(), x[:e].double())
+                torch.cuda.synchronize()
+                err = float((got.double() - ref64).abs().max())
+                require(torch.equal(got, again), f"{name}: two calls differ")
+                require(torch.equal(got, emu), f"{name}: not the order of "
+                        f"walk_order_sum_2d (max abs diff "
+                        f"{float((got - emu).abs().max()):.3g})")
+                require(torch.allclose(got.double(), ref64, **REDUCE2D_TOL),
+                        f"{name}: max abs err {err} against float64")
+                case = dict(max_abs_err64=err, max_degree=md, edges=e)
+                if label == "hub" and side == "var":
+                    out = torch.zeros(n, d, device="cuda", dtype=dtype)
+                    x_real, ids_real = x[:e], ids[:e]
+                    lib = timed(lambda: out.index_add_(0, ids_real, x_real))
+                    b_ms, b_by = sum2d_bound(e, d, x.element_size(), n,
+                                             True)
+                    case.update(timed(call), bound_ms=b_ms, bound_by=b_by,
+                                library_ms=lib["ms"],
+                                library_device_us=lib["device_us"])
+                    log(f"kernel {name}: {timing_note(case)} (index_add_ "
+                        f"{timing_note(lib)}; bound {b_ms:.5f} ms, {b_by})")
+                case.pop("device_kernels", None)
+                cases[name[len("segment_sum_2d["):-1]] = case
+    log(f"kernel segment_sum_2d: {len(cases)} forms bit-equal to "
+        f"walk_order_sum_2d, twice the same bits, within rtol "
+        f"{REDUCE2D_TOL['rtol']} / atol {REDUCE2D_TOL['atol']} of float64 "
+        f"(max abs err {max(c['max_abs_err64'] for c in cases.values()):.3g})"
+        f" on {', '.join(shapes)}")
+    return cases
 
 
 def ragged_batch(np, seed=5, count=128, n=100, m=900):
@@ -2079,20 +2164,33 @@ def check_backward_kernels(batch, torch):
     cot[e:] = 0.0
     rows = {}
     sides = {"": (batch.edge_var32, batch.edge_var, batch.num_vars,
-                  batch.var_ptr, batch.var_perm),
+                  batch.var_ptr, batch.var_perm, batch.var_max_degree),
              "clause, ": (batch.edge_clause32, batch.edge_clause,
-                          batch.num_clauses, batch.clause_ptr, None)}
-    for side, (ids32, ids64, n, ptr, perm) in sides.items():
+                          batch.num_clauses, batch.clause_ptr, None,
+                          batch.clause_max_degree)}
+    for side, (ids32, ids64, n, ptr, perm, md) in sides.items():
+        # Gather2d's backward: the largest degree from the batch's Csr
         def seg():
-            return reduce2d._segment_sum_2d(cot, ids32, n, e, ptr, perm)
+            return reduce2d._segment_sum_2d(cot, ids32, n, e, ptr, perm, md)
 
         def seg_plain():
             return reduce2d.segment_sum_2d_plain(cot, ids64, n, e)
         got, ref = seg(), seg_plain()
+        again = seg()
+        emu = reduce2d.walk_order_sum_2d(cot, ptr, perm)
+        ref64 = torch.zeros(n, d, dtype=torch.float64,
+                            device="cuda").index_add_(0, ids64[:e],
+                                                      cot[:e].double())
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         require(torch.allclose(got, ref, **REDUCE2D_TOL),
                 f"segment_sum_2d[{side}bwd]: max abs err {err}")
+        require(torch.equal(got, again) and torch.equal(got, emu),
+                f"segment_sum_2d[{side}bwd]: not the bits of "
+                "walk_order_sum_2d, or two calls differ")
+        require(torch.allclose(got.double(), ref64, **REDUCE2D_TOL),
+                f"segment_sum_2d[{side}bwd]: beyond REDUCE2D_TOL of "
+                "float64")
         out = torch.zeros(n, d, device="cuda")
         lib = timed(lambda: out.index_add_(0, ids64[:e], cot[:e]))
         perm_n = 0 if perm is None else e
@@ -2138,6 +2236,9 @@ def check_backward_kernels(batch, torch):
             f"{r['library_ms']:.4f} ms, device "
             f"{r['library_device_us']:.2f} us; bound {r['bound_ms']:.5f} "
             f"ms, {r['bound_by']})")
+    # the forward forms at this shape: f32 and bf16 rows, both CSRs
+    walk = check_sum2d_walk({"training": batch}, torch)
+    rows["segment_sum_2d[bwd]"]["walk_cases"] = walk
     # kernel 4's rule is no kernel: a PyTorch index of the loss's two
     # clause columns' cotangent (JAX's is an XLA gather), timed for the
     # table
@@ -2252,6 +2353,15 @@ def main():
         rows.update(check_reduce2d(batch, torch))
         rows.update(check_reduce2d_bf16(
             batch, pack_instances(insts[:8], device="cuda"), torch))
+        from pdp_solver_tpu_torch.utils.bench_kernels import hub_batch
+        walk2d = check_sum2d_walk(
+            {"shared": batch,
+             "compacted": pack_instances(insts[:8], device="cuda"),
+             "hub": hub_batch()}, torch)
+        rows["segment_sum_2d"]["walk_cases"] = {
+            k: v for k, v in walk2d.items() if "float32" in k}
+        rows["segment_sum_2d[bf16]"]["walk_cases"] = {
+            k: v for k, v in walk2d.items() if "bfloat16" in k}
         rows.update(check_reduce(batch, torch, np))
         for name, per_case in check_walk(insts, torch, np).items():
             rows[name]["walk_cases"] = per_case

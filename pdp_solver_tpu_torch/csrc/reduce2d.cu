@@ -15,19 +15,62 @@
 // bf16 rows by its f32 edge mask before the sum, so its sums, gathers and
 // the subtract are f32 too; no bf16 output is taken.)
 //
-// pdp_segment_sum_2d: out[n, :] = sum of x[e, :] over the edges the CSR
-//   lists for node n: perm[ptr[n] .. ptr[n+1]) (or the edges ptr[n] ..
-//   ptr[n+1] themselves when perm is null, as for clause-major clauses), in
-//   that order. x is f32 or bf16, out f32. One warp per node;
-//   each lane accumulates 64 / 32 columns of a pass in f32 registers: f32
-//   rows a column at a time (two 4-byte loads a lane), bf16 rows of even
-//   width a pair at a time (one 4-byte load a lane, so a warp still reads
-//   128 bytes at once; a bf16 row of 50 is 100 bytes, 4-byte aligned but
-//   not 16-byte aligned). The warp loads 32 edge ids at once and
-//   broadcasts them with shuffles. Each sum is taken in one fixed order
-//   and no float atomics are used: the result does not change from run to
-//   run. Padding edges are not in the CSR and take part in no sum. Nodes
-//   with no edges get 0.
+// pdp_segment_sum_2d: out[n, :] = the f32 sum of x[e, :] over the edges the
+//   CSR lists for node n: perm[ptr[n] .. ptr[n+1]) (or the edges ptr[n] ..
+//   ptr[n+1] themselves when perm is null, as for clause-major clauses).
+//   Padding edges are not in the CSR and are never read; a node with no
+//   edges gets 0. One launch, or two when heavy nodes may exist.
+//
+//   What bounds it: each real row is read once, from a random place on the
+//   var side (the permutation), and nothing is computed but one add an
+//   element, so the kernel is bound by bytes, and on the card by how many
+//   row reads are in flight. The kernel this one replaced gave each node
+//   one warp with its rows about 4 at a time, behind a chain of dependent
+//   loads (offsets, edge ids, rows), and a node of 63,488 edges one warp
+//   through 63,488 rows (19 ms on an H100). This design:
+//   1. Splits heavy nodes. When some node may hold S = PDP_R2D_HEAVY slots
+//      or more (the pack-time largest degree says whether one can), a
+//      first launch runs blocks anchored on the slots a * S. A heavy node
+//      is cut among the blocks anchored inside it, as the group walk of
+//      common.cuh cuts it: the first takes [lo, its anchor + S), each
+//      later one [its anchor, its anchor + S), cut at hi. In a block, warp
+//      w takes the piece's chunks of 32 slots w, w + 8, ...; the warps'
+//      partial rows meet in shared memory and are added in warp order; a
+//      piece's row goes to scratch (f32[d] an anchored block), and the
+//      block that counts itself last in (an integer atomic) adds the
+//      pieces: warp w adds those of the w-th of 8 runs of ceil(pieces / 8)
+//      in anchor order, then the runs' rows are added in order. Its
+//      registers are capped so that six such blocks fit an SM and a hub's
+//      pieces start in one wave. Light warps skip heavy nodes.
+//   2. Keeps rows in flight with few registers. A light warp takes one
+//      node: its two offsets, then its rows. It loads the edge ids of 32
+//      slots at once (a lane each; the next 32 fetched while these are
+//      summed) and PDP_R2D_ROWS = 8 rows before it adds any. The kinds of
+//      block are instantiations of one kernel, so each holds only its own
+//      state (47 registers a thread for f32 rows of 50, 42 for bf16, where
+//      one kernel of all kinds took 61 and 54). Short nodes (a mean under
+//      PDP_R2D_SHORT slots: clauses) take a variant with 4 rows in flight
+//      and registers capped at 32, so that an SM holds 64 warps: for a
+//      node of 4 rows a warp's latency, not its loads in flight, is what
+//      there is to hide.
+//   3. Takes the widest legal load. A lane loads VEC elements at once, VEC
+//      the widest of 4, 2, 1 for f32 (16, 8, 4 bytes) and 8, 4, 2, 1 for
+//      bf16 that divides d and the rows' and output's alignment: an f32
+//      row of 50 moves as 25 loads of 8 bytes, a bf16 row of 50 as 25 of
+//      4, and the output rows go out in the same pieces. A row wider than
+//      32 pieces takes several passes over the node.
+//   4. Makes an empty node (a padding variable or clause) a store of
+//      zeros, with no walk.
+//   Each sum has one fixed order, which follows from the CSR and these
+//   constants alone: a light node's rows one after another in slot order;
+//   a heavy node's as above. No float atomics: the decimators take an
+//   argmax of |score|, and the sums are the same from run to run.
+//   ops/reduce2d.py walk_order_sum_2d repeats the order in PyTorch.
+//   Tried and slower on the card: a ring of rows in flight in shared
+//   memory (cp.async, 4-8 byte copies) in place of registers, on every
+//   shape; a warp streaming a run of 4-16 short nodes as one, their
+//   offsets read at once, against the short-node variant; TMA's
+//   tiled copies do not gather rows by index.
 // pdp_gather_2d: out[e, c] = nodes[ids[e], c] (- minus[e, c]) for every
 //   row e < n_rows (padding edges included), ids i32 or i64; nodes and out
 //   f32, minus f32 or bf16. It streams the output: a
@@ -52,15 +95,33 @@
 // ids (i32 or i64), and writes 105 MB, about 64 us; without the subtract
 // about 33 us. On bf16 rows: the reduce reads 46 MB of rows (about 15
 // us); the gather-minus reads a 52 MB subtrahend and writes 105 MB (about
-// 49 us). All do one add per element: bound by bytes.
+// 49 us). All do one add per element: bound by bytes. A random row of
+// the var side also drags in the rest of its 32-byte sectors: 224 bytes
+// for an f32 row of 200, 128 for a bf16 row of 100.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "common.cuh"
 
-// columns of a row a warp takes in one pass of the reduce
-#define PDP_R2D_COLS 64
+// slots from which a node is heavy, and the anchors' spacing
+#define PDP_R2D_HEAVY 256
+// rows a warp of the reduce loads before it adds any: for a node of many
+// slots, and for short nodes (a mean under PDP_R2D_SHORT slots, as
+// clauses), whose warps take fewer registers so that an SM holds eight
+// blocks of them
+#define PDP_R2D_ROWS 8
+#define PDP_R2D_SHORT_ROWS 4
+#define PDP_R2D_SHORT 8
+// blocks an SM must hold of the anchored kernel (its registers capped to
+// fit): a hub's pieces then start in one wave
+#define PDP_R2D_HEAVY_MIN_BLOCKS 6
+#define PDP_R2D_WARPS (PDP_THREADS / 32)
+// the kernels of the reduce: a warp a node (long or short nodes), the
+// anchored blocks of the heavy nodes
+#define PDP_R2D_LONG 0
+#define PDP_R2D_SHORT_NODES 1
+#define PDP_R2D_ANCHORED 2
 // the gather's tiles shrink until the launch has this many blocks (four a
 // streaming multiprocessor of the H100)
 #define PDP_G2D_MIN_BLOCKS 528
@@ -105,67 +166,306 @@ union Piece {
   typename E::Raw v[VEC];
 };
 
-// P = elements a lane loads at once (1, or 2 for bf16 rows of even width);
-// out is f32
-template <class I, int P>
-__global__ void segment_sum_2d_kernel(const void* __restrict__ x, int d,
-                                      const int* __restrict__ ptr,
-                                      const int* __restrict__ perm,
-                                      int n_seg, void* __restrict__ out) {
-  constexpr int CH = PDP_R2D_COLS / (32 * P);  // pieces a lane holds
-  using IW = typename Piece<I, P>::W;
-  using OW = typename Piece<F32, P>::W;
-  const long warp = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= n_seg) return;
-  const int beg = ptr[warp], end = ptr[warp + 1];
-  const int hd = d / P;  // pieces a row
-  for (int q0 = 0; q0 < hd; q0 += 32 * CH) {
-    float acc[CH][P];
+// VEC f32 values to dst, in words of up to 16 bytes
+template <int VEC>
+__device__ __forceinline__ void store_f32(float* dst, const float (&v)[VEC]) {
+  if constexpr (VEC == 1) {
+    *dst = v[0];
+  } else if constexpr (VEC == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+  } else {
 #pragma unroll
-    for (int k = 0; k < CH; ++k)
-#pragma unroll
-      for (int p = 0; p < P; ++p) acc[k][p] = 0.0f;
-    for (int j0 = beg; j0 < end; j0 += 32) {
-      const int j = j0 + lane;
-      const int mine = j < end ? (perm ? perm[j] : j) : 0;
-      const int n = min(32, end - j0);
-#pragma unroll 4
-      for (int t = 0; t < n; ++t) {
-        const long e = __shfl_sync(0xffffffffu, mine, t);
-        const IW* row = static_cast<const IW*>(x) + e * hd;
-#pragma unroll
-        for (int k = 0; k < CH; ++k) {
-          const int q = q0 + k * 32 + lane;
-          if (q < hd) {
-            Piece<I, P> v;
-            v.w = row[q];
-#pragma unroll
-            for (int p = 0; p < P; ++p) acc[k][p] += I::get(v.v[p]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < CH; ++k) {
-      const int q = q0 + k * 32 + lane;
-      if (q < hd) {
-        Piece<F32, P> o;
-#pragma unroll
-        for (int p = 0; p < P; ++p) o.v[p] = acc[k][p];
-        static_cast<OW*>(out)[warp * hd + q] = o.w;
-      }
-    }
+    for (int k = 0; k < VEC; k += 4)
+      *reinterpret_cast<float4*>(dst + k) =
+          make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]);
   }
 }
 
-template <class I, int P>
-static void launch_sum(const void* x, int d, const int* ptr, const int* perm,
-                       int n_seg, void* out, cudaStream_t st) {
-  const long threads = (long)n_seg * 32;
-  const int blocks = (int)((threads + PDP_THREADS - 1) / PDP_THREADS);
-  segment_sum_2d_kernel<I, P><<<blocks, PDP_THREADS, 0, st>>>(
-      x, d, ptr, perm, n_seg, out);
+// One launch of the reduce (its fields from SegSum2dArgs and the launch's
+// shape).
+struct Sum2dPlan {
+  const void* x;
+  const int* ptr;
+  const int* perm;
+  const void* ids;
+  float* partials;  // f32[anchor_blocks, d]
+  int* counters;    // i32[anchor_blocks], 0 between launches
+  float* out;
+  int d;
+  int hd;  // pieces of VEC elements a row
+  int ids64;
+  int n_seg;
+  int n_slots;
+  int heavy_min;  // PDP_R2D_HEAVY, or above any node without anchors
+};
+
+// The lane's piece of a row, pieces q = q0 + lane of VEC elements (a pass
+// of 32 pieces), summed in f32.
+template <class I, int VEC>
+struct LanePiece {
+  using P = Piece<I, VEC>;
+  using W = typename P::W;
+  float acc[VEC];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) acc[v] = 0.0f;
+  }
+  // the lane's piece of row e (a zero word past the row's end)
+  __device__ __forceinline__ static W load(const Sum2dPlan& p, int e,
+                                           int q) {
+    return q < p.hd ? __ldg(static_cast<const W*>(p.x) + (long)e * p.hd + q)
+                    : W{};
+  }
+  __device__ __forceinline__ void add(W w) {
+    P r;
+    r.w = w;
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) acc[v] += I::get(r.v[v]);
+  }
+  // the lane's piece of out row n (or zeros)
+  __device__ __forceinline__ void store(const Sum2dPlan& p, int n, int q,
+                                        bool zeros) const {
+    if (q < p.hd) {
+      float o[VEC];
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) o[v] = zeros ? 0.0f : acc[v];
+      store_f32<VEC>(p.out + (long)n * p.d + q * VEC, o);
+    }
+  }
+};
+
+// the edge of slot j: lane (j - cb)'s id of the chunk at cb (j itself
+// without perm); every lane of the warp calls it
+__device__ __forceinline__ int slot_edge(const Sum2dPlan& p, int mine, int cb,
+                                         int j) {
+  return p.perm ? __shfl_sync(PDP_FULL_MASK, mine, (j - cb) & 31) : j;
+}
+
+// the edge ids of the chunk of 32 slots at cb (a lane each, below end)
+__device__ __forceinline__ int chunk_ids(const Sum2dPlan& p, int cb, int end) {
+  const int j = cb + (threadIdx.x & 31);
+  return p.perm && j < end ? p.perm[j] : 0;
+}
+
+// Adds the slots [cb, cb + nch) (nch <= 32) of one node to lp, in slot
+// order, U rows (a divisor of 32) loaded before any is added. Every lane
+// of the warp calls it.
+template <class I, int VEC, int U>
+__device__ __forceinline__ void sum_chunk(const Sum2dPlan& p, int mine,
+                                          int cb, int nch, int q,
+                                          LanePiece<I, VEC>& lp) {
+  for (int t0 = 0; t0 < nch; t0 += U) {
+    typename LanePiece<I, VEC>::W r[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = slot_edge(p, mine, cb, cb + t0 + u);
+      if (t0 + u < nch) r[u] = LanePiece<I, VEC>::load(p, e, q);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (t0 + u < nch) lp.add(r[u]);
+  }
+}
+
+// Adds the slots [lo, hi) of one node to lp: chunk by chunk, the next
+// chunk's edge ids fetched while this one is summed.
+template <class I, int VEC, int U>
+__device__ __forceinline__ void sum_slots(const Sum2dPlan& p, int lo, int hi,
+                                          int q, LanePiece<I, VEC>& lp) {
+  int mine = chunk_ids(p, lo, hi);
+  for (int cb = lo; cb < hi; cb += 32) {
+    const int nxt = chunk_ids(p, cb + 32, hi);
+    sum_chunk<I, VEC, U>(p, mine, cb, min(32, hi - cb), q, lp);
+    mine = nxt;
+  }
+}
+
+// A light warp: node n's two offsets, then its slots in order, U rows at
+// a time; an empty node is a store of zeros, a heavy one the anchored
+// blocks' (nothing here).
+template <class I, int VEC, int U>
+__device__ void light_warp(const Sum2dPlan& p, int n) {
+  const int lane = threadIdx.x & 31;
+  const int lo = p.ptr[n], hi = p.ptr[n + 1];
+  if (hi - lo >= p.heavy_min) return;
+  LanePiece<I, VEC> lp;
+  for (int q0 = 0; q0 < p.hd; q0 += 32) {
+    lp.zero();
+    sum_slots<I, VEC, U>(p, lo, hi, q0 + lane, lp);
+    lp.store(p, n, q0 + lane, false);
+  }
+}
+
+// An anchored block: a piece of the heavy node holding slot a * S, if any.
+template <class I, int VEC>
+__device__ void anchored_block(const Sum2dPlan& p, int a) {
+  __shared__ float warp_rows[PDP_R2D_WARPS][32 * VEC];
+  __shared__ int last;
+  constexpr int S = PDP_R2D_HEAVY;
+  const int s = a * S;
+  if (s >= p.n_slots) return;
+  // every thread decides alike, so the block stays together
+  const int es = p.perm ? p.perm[s] : s;
+  const long long id =
+      p.ids64 ? static_cast<const long long*>(p.ids)[es]
+              : (long long)static_cast<const int*>(p.ids)[es];
+  if (id < 0 || id >= p.n_seg) return;
+  const int n = (int)id;
+  const int lo = p.ptr[n], hi = p.ptr[n + 1];
+  if (hi - lo < p.heavy_min) return;
+  const int a0 = (lo + S - 1) / S, a1 = (hi - 1) / S;  // its anchors
+  const int j0 = a == a0 ? lo : s, j1 = min(s + S, hi);
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  LanePiece<I, VEC> lp;
+  for (int q0 = 0; q0 < p.hd; q0 += 32) {
+    const int q = q0 + lane;
+    lp.zero();
+    // warp w: the chunks w, w + 8, ... of 32 slots of the piece, the next
+    // one's edge ids fetched while this one is summed
+    int cb = j0 + 32 * w;
+    int mine = chunk_ids(p, cb, j1);
+    for (; cb < j1; cb += 32 * PDP_R2D_WARPS) {
+      const int nxt = chunk_ids(p, cb + 32 * PDP_R2D_WARPS, j1);
+      sum_chunk<I, VEC, PDP_R2D_ROWS>(p, mine, cb, min(32, j1 - cb), q,
+                                      lp);
+      mine = nxt;
+    }
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) warp_rows[w][lane * VEC + v] = lp.acc[v];
+    __syncthreads();
+    const int ncol = min(p.hd - q0, 32) * VEC;
+    for (int c = threadIdx.x; c < ncol; c += blockDim.x) {
+      float tot = warp_rows[0][c];
+      for (int u = 1; u < PDP_R2D_WARPS; ++u) tot += warp_rows[u][c];
+      const int col = q0 * VEC + c;
+      if (a0 == a1)  // the node is one piece
+        p.out[(long)n * p.d + col] = tot;
+      else
+        p.partials[(long)a * p.d + col] = tot;
+    }
+    __syncthreads();
+  }
+  if (a0 == a1) return;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(&p.counters[a0], 1) == a1 - a0;
+  __syncthreads();
+  if (!last) return;
+  // the last piece in: every other piece's row is in scratch. Warp w adds
+  // the pieces [a0 + w m, a0 + w m + m) in anchor order, m = ceil(pieces /
+  // warps), its lanes on the columns; then the warps' rows in warp order
+  __threadfence();
+  const int m = (a1 - a0 + PDP_R2D_WARPS) / PDP_R2D_WARPS;
+  const int k0 = a0 + w * m, k1 = min(k0 + m, a1 + 1);
+  constexpr int COLS = 32 * VEC;  // columns of warp_rows a warp
+  for (int c0 = 0; c0 < p.d; c0 += COLS) {
+    for (int c = c0 + lane; c < min(p.d, c0 + COLS); c += 32) {
+      const float* col = p.partials + c;
+      float sum = 0.0f;
+      int k = k0;
+      for (; k + 8 <= k1; k += 8) {
+        float v[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v[i] = __ldcg(col + (long)(k + i) * p.d);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) sum += v[i];
+      }
+      for (; k < k1; ++k) sum += __ldcg(col + (long)k * p.d);
+      warp_rows[w][c - c0] = sum;
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < min(p.d - c0, COLS); c += blockDim.x) {
+      float tot = warp_rows[0][c];
+      for (int u = 1; u < PDP_R2D_WARPS; ++u) tot += warp_rows[u][c];
+      p.out[(long)n * p.d + c0 + c] = tot;
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) p.counters[a0] = 0;
+}
+
+template <class I, int VEC, int MODE>
+__global__ void __launch_bounds__(PDP_THREADS,
+                                  MODE == PDP_R2D_ANCHORED
+                                      ? PDP_R2D_HEAVY_MIN_BLOCKS
+                                      : MODE == PDP_R2D_SHORT_NODES ? 8 : 1)
+    segment_sum_2d_kernel(Sum2dPlan p) {
+  if constexpr (MODE == PDP_R2D_ANCHORED) {
+    anchored_block<I, VEC>(p, (int)blockIdx.x);
+  } else {
+    const long warp = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+    if (warp >= p.n_seg) return;
+    light_warp<I, VEC,
+               MODE == PDP_R2D_SHORT_NODES ? PDP_R2D_SHORT_ROWS
+                                           : PDP_R2D_ROWS>(p, (int)warp);
+  }
+}
+
+// One reduce's arguments (the field order matches ops/_build.py
+// SegSum2dArgs): x [*, d], f32 or (x_bf16) bf16; ptr i32[n_seg + 1]; perm
+// i32[n_slots] or null; ids [*] of each edge's node, i64 (ids64) or i32;
+// heavy: some node may
+// hold PDP_R2D_HEAVY slots or more, and then partials f32[anchors * d] and
+// counters i32[anchors] (zeros), anchors = ceil(n_slots /
+// PDP_R2D_HEAVY); out f32[n_seg, d].
+struct SegSum2dArgs {
+  const void* x;
+  int x_bf16;
+  int d;
+  const int* ptr;
+  const int* perm;
+  const void* ids;
+  int ids64;
+  int n_seg;
+  int n_slots;
+  int heavy;
+  float* partials;
+  int* counters;
+  void* out;
+  void* stream;
+};
+
+// the anchored blocks (when heavy nodes may exist), then the light warps
+template <class I, int VEC>
+static void launch_sum(Sum2dPlan p, bool heavy, cudaStream_t st) {
+  p.hd = p.d / VEC;
+  if (heavy) {
+    const int anchors = (p.n_slots + PDP_R2D_HEAVY - 1) / PDP_R2D_HEAVY;
+    if (anchors > 0)
+      segment_sum_2d_kernel<I, VEC, PDP_R2D_ANCHORED>
+          <<<anchors, PDP_THREADS, 0, st>>>(p);
+  }
+  const unsigned blocks =
+      (unsigned)(((long)p.n_seg * 32 + PDP_THREADS - 1) / PDP_THREADS);
+  if ((long)p.n_slots < (long)PDP_R2D_SHORT * p.n_seg)
+    segment_sum_2d_kernel<I, VEC, PDP_R2D_SHORT_NODES>
+        <<<blocks, PDP_THREADS, 0, st>>>(p);
+  else
+    segment_sum_2d_kernel<I, VEC, PDP_R2D_LONG>
+        <<<blocks, PDP_THREADS, 0, st>>>(p);
+}
+
+// the widest VEC that divides d and the alignment of the rows (VEC
+// elements) and of the output (VEC floats, in words of up to 16 bytes)
+template <class I>
+static void launch_type(const Sum2dPlan& p, bool heavy, cudaStream_t st) {
+  const uintptr_t at_x = reinterpret_cast<uintptr_t>(p.x);
+  const uintptr_t at_o = reinterpret_cast<uintptr_t>(p.out);
+  auto fits = [&](int v) {
+    const int out_word = v * 4 < 16 ? v * 4 : 16;
+    return p.d % v == 0 && at_x % (v * sizeof(typename I::Raw)) == 0 &&
+           at_o % out_word == 0;
+  };
+  if constexpr (sizeof(typename I::Raw) == 2) {
+    if (fits(8)) return launch_sum<I, 8>(p, heavy, st);
+  }
+  if (fits(4))
+    launch_sum<I, 4>(p, heavy, st);
+  else if (fits(2))
+    launch_sum<I, 2>(p, heavy, st);
+  else
+    launch_sum<I, 1>(p, heavy, st);
 }
 
 // nodes and out f32, minus of type M
@@ -272,18 +572,31 @@ static void launch_gather(const GatherArgs* g, cudaStream_t st) {
 
 extern "C" {
 
-// x: [*, d] row-major, f32 or (x_bf16) bf16; ptr: i32[n_seg + 1]; perm:
-// i32[ptr[n_seg]] or null; out: f32[n_seg, d]. Returns cudaGetLastError().
-int pdp_segment_sum_2d(const void* x, int x_bf16, int d, const int* ptr,
-                       const int* perm, int n_seg, void* out, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_seg > 0 && d > 0) {
-    if (!x_bf16)
-      launch_sum<F32, 1>(x, d, ptr, perm, n_seg, out, st);
-    else if (d % 2 || reinterpret_cast<uintptr_t>(x) % 4)
-      launch_sum<BF16, 1>(x, d, ptr, perm, n_seg, out, st);
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for heavy nodes
+// without scratch (nothing launched).
+int pdp_segment_sum_2d(const SegSum2dArgs* a) {
+  if (a->n_seg > 0 && a->d > 0) {
+    if (a->heavy && (!a->partials || !a->counters))
+      return (int)cudaErrorInvalidValue;
+    Sum2dPlan p;
+    p.x = a->x;
+    p.ptr = a->ptr;
+    p.perm = a->perm;
+    p.ids = a->ids;
+    p.partials = a->partials;
+    p.counters = a->counters;
+    p.out = static_cast<float*>(a->out);
+    p.d = a->d;
+    p.hd = a->d;
+    p.ids64 = a->ids64;
+    p.n_seg = a->n_seg;
+    p.n_slots = a->n_slots;
+    p.heavy_min = a->heavy ? PDP_R2D_HEAVY : 0x7fffffff;
+    cudaStream_t st = static_cast<cudaStream_t>(a->stream);
+    if (a->x_bf16)
+      launch_type<BF16>(p, a->heavy, st);
     else
-      launch_sum<BF16, 2>(x, d, ptr, perm, n_seg, out, st);
+      launch_type<F32>(p, a->heavy, st);
   }
   return (int)cudaGetLastError();
 }

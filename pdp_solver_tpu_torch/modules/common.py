@@ -42,7 +42,7 @@ the subtract of the bf16 rows are f32 (`pdp_solver_tpu/modules/common.py`
 import torch
 
 from pdp_solver_tpu_torch.ops import reduce
-from pdp_solver_tpu_torch.ops.reduce2d import gather_2d, segment_sum_2d
+from pdp_solver_tpu_torch.ops.reduce2d import Csr, gather_2d, segment_sum_2d
 from pdp_solver_tpu_torch.ops.segment import safe_exp
 
 # [E, d] blocks at least this wide go to the 2-D kernel (the JAX package's
@@ -55,15 +55,17 @@ def col(mask_1d):
 
 
 def var_csr(batch):
-    """(num_real, ptr, perm) of the var-major CSR: the transpose of a
-    gather at edge_var."""
-    return batch.num_real_edges, batch.var_ptr, batch.var_perm
+    """(num_real, ptr, perm) of the var-major CSR, with its largest
+    segment: the transpose of a gather at edge_var."""
+    return Csr(batch.num_real_edges, batch.var_ptr, batch.var_perm,
+               batch.var_max_degree)
 
 
 def clause_csr(batch):
-    """(num_real, ptr, perm) of the clause-major CSR: the transpose of a
-    gather at edge_clause."""
-    return batch.num_real_edges, batch.clause_ptr, None
+    """(num_real, ptr, perm) of the clause-major CSR, with its largest
+    segment: the transpose of a gather at edge_clause."""
+    return Csr(batch.num_real_edges, batch.clause_ptr, None,
+               batch.clause_max_degree)
 
 
 def scatter_to_vars(batch, x_e):
@@ -73,7 +75,7 @@ def scatter_to_vars(batch, x_e):
             batch.var_ptr, batch.var_perm)
     if x_e.dtype == torch.bfloat16 or (x_e.dim() == 2
                                        and x_e.shape[1] >= MIN_2D_WIDTH):
-        return segment_sum_2d(x_e, *args)
+        return segment_sum_2d(x_e, *args, max_degree=batch.var_max_degree)
     return reduce.segment_sum(x_e, *args, max_degree=batch.var_max_degree)
 
 
@@ -109,7 +111,8 @@ def scatter_to_clauses(batch, x_e):
         out[:f] = x_e[:f * k].reshape(f, k, d).sum(1)
         return out
     return segment_sum_2d(x_e, batch.edge_clause, F, batch.num_real_edges,
-                          batch.clause_ptr)
+                          batch.clause_ptr,
+                          max_degree=batch.clause_max_degree)
 
 
 def _uniform_clauses(batch, x_e):

@@ -46,7 +46,7 @@ _SIGNATURES = {
     "pdp_chained_edge_pass": (I, [P]),
     "pdp_walksat_setup": (I, [P]),
     "pdp_walksat_walk": (I, [P]),
-    "pdp_segment_sum_2d": (I, [P, I, I, P, P, I, P, P]),
+    "pdp_segment_sum_2d": (I, [P]),
     "pdp_gather_2d": (I, [P]),
     "pdp_segment_sum_cols": (I, [P]),
     "pdp_sp_sweep": (I, [P]),
@@ -62,6 +62,8 @@ HEAVY_ITERS = 128  # PDP_HEAVY_ITERS, common.cuh
 WALK_MAXR = 8      # PDP_WALK_MAXR
 THREADS = 256      # PDP_THREADS
 CLUSTER_MAX = 16   # PDP_CLUSTER_MAX
+R2D_HEAVY = 256    # PDP_R2D_HEAVY, reduce2d.cu
+R2D_WARPS = THREADS // 32  # PDP_R2D_WARPS
 
 
 class FusedArgs(ctypes.Structure):
@@ -92,6 +94,14 @@ class GatherArgs(ctypes.Structure):
     _fields_ = [("nodes", P), ("d", I), ("ids64", I), ("ids", P),
                 ("minus", P), ("n_rows", ctypes.c_long), ("out", P),
                 ("minus_bf16", I), ("stream", P)]
+
+
+class SegSum2dArgs(ctypes.Structure):
+    """csrc/reduce2d.cu SegSum2dArgs, field for field."""
+    _fields_ = [("x", P), ("x_bf16", I), ("d", I), ("ptr", P), ("perm", P),
+                ("ids", P), ("ids64", I), ("n_seg", I), ("n_slots", I),
+                ("heavy", I), ("partials", P), ("counters", P), ("out", P),
+                ("stream", P)]
 
 
 class SegSumArgs(ctypes.Structure):
@@ -193,6 +203,24 @@ def walk_scratch(args, n_slots, group, max_degree, device):
         return ()
     n = max(-(-n_slots // stride), 1)
     partials = torch.empty(n * WALK_MAXR, dtype=torch.float32, device=device)
+    counters = torch.zeros(n, dtype=torch.int32, device=device)
+    args.partials, args.counters = partials.data_ptr(), counters.data_ptr()
+    return partials, counters
+
+
+def sum2d_scratch(args, n_slots, d, max_degree, device):
+    """Sets kernel 6's heavy flag and scratch in args (SegSum2dArgs) for a
+    CSR of n_slots slots whose largest segment holds max_degree (None: not
+    known) and rows of d columns: none when no segment can reach
+    R2D_HEAVY, else one f32[d] partial row and one i32 counter (zeros; the
+    kernel leaves them 0) per anchored block. Returns the scratch tensors,
+    for the caller to keep alive."""
+    args.heavy = int(max_degree is None or max_degree >= R2D_HEAVY)
+    if not args.heavy:
+        args.partials = args.counters = None
+        return ()
+    n = max(-(-n_slots // R2D_HEAVY), 1)
+    partials = torch.empty(n * d, dtype=torch.float32, device=device)
     counters = torch.zeros(n, dtype=torch.int32, device=device)
     args.partials, args.counters = partials.data_ptr(), counters.data_ptr()
     return partials, counters

@@ -5,9 +5,11 @@ Counterpart of `pdp_solver_tpu/ops/pallas_reduce2d.py`
 neural modules move [E, d] hidden states (d = 50..150) between edges and
 variables every iteration through these two.
 
-segment_sum_2d(x, ids, num_segments, num_real, ptr, perm) -> f32[N, d]:
+segment_sum_2d(x, ids, num_segments, num_real, ptr, perm, max_degree)
+        -> f32[N, d]:
     row e of x goes to node ids[e], for the first num_real rows (the real
     edges); x is f32 or bf16 rows, the sums are taken in f32 and stay f32.
+    max_degree (None: not known) is the CSR's largest segment.
 gather_2d(nodes, ids, minus=None) -> f32[E, d]
     nodes[ids[e]] for every e (padding rows included), minus the matching
     row of `minus` when it is given (the aggregate-minus-self of the
@@ -26,11 +28,16 @@ launches its CUDA kernel (`csrc/reduce2d.cu`) when they lie on the card,
 or raises; there is no fallback between the two. On the card the segment
 sum walks the CSR (ptr, perm) that lists each node's rows in increasing
 order (`FGBatch.var_ptr`/`var_perm`; perm None means rows
-ptr[n]..ptr[n+1], as for clause-major clauses), so its sums have one fixed
-order and no atomics. The gather's checks of its ids and their pointers
-are worked out once per ids tensor and kept in a plan, so a call checks
-the rows, fills the plan's argument block and makes one ctypes call. Calls
-that launched a kernel are counted in `.launches` (f32 rows) and
+ptr[n]..ptr[n+1], as for clause-major clauses): a warp takes a node, and
+a node of R2D_HEAVY rows or more is cut among blocks of a first launch,
+whose pieces are added in a fixed order; so its sums have one fixed
+order (`walk_order_sum_2d` repeats it) and no float atomics. With
+max_degree under R2D_HEAVY there is no launch for heavy nodes; the edge
+ids find the heavy node at each anchor. The checks of each wrapper's
+index tensors and their pointers (and the sum's scratch) are worked out
+once per index tensors and kept in a plan, so a call checks the rows,
+fills the plan's argument block and makes one ctypes call. Calls that
+launched a kernel are counted in `.launches` (f32 rows) and
 `.launches_bf16` (bf16 rows: x, or the gather's subtrahend).
 
 Gradients (the JAX kernels' custom VJPs, `_sum2d_bwd` :142 and
@@ -49,8 +56,10 @@ edge masks, which are 0 there), and the CPU route checks it on every
 backward. A differentiable gather therefore needs the CSR of its ids,
 `csr=(num_real, ptr, perm)`. The launches made as a backward rule are
 also counted in `.launches_bwd`, by side ("var": a CSR with perm;
-"clause": the clause-major one). bf16 rows that require grad raise: no
-training configuration uses bf16, and the bf16 rules are not tested.
+"clause": the clause-major one). A gather's csr given as a `Csr` carries
+the CSR's largest segment too, which its transpose hands to the sum.
+bf16 rows that require grad raise: no training configuration uses bf16,
+and the bf16 rules are not tested.
 """
 
 import ctypes
@@ -89,33 +98,80 @@ def segment_sum_2d_plain(x, ids, num_segments, num_real):
     return out
 
 
-def _segment_sum_2d(x, ids, num_segments, num_real, ptr, perm=None):
+class _SumPlan:
+    """The checked CSR of a segment sum and, on the card, the kernel's
+    argument block and scratch for it and rows of d columns."""
+
+    def __init__(self, ids, num_segments, num_real, ptr, perm, max_degree,
+                 d):
+        name = "segment_sum_2d"
+        self.device = _device(name, ids, ptr, perm)
+        if ids.dim() != 1 or ids.dtype not in (torch.int32, torch.int64):
+            raise ValueError(f"{name}: ids must be i32[E] or i64[E], got "
+                             f"{ids.dtype} {tuple(ids.shape)}")
+        self.rows = ids.shape[0]
+        if num_real > self.rows:
+            raise ValueError(f"{name}: {num_real} real rows of {self.rows}")
+        self.args = None
+        if self.device.type != "cuda":
+            return
+        if ptr.dtype != torch.int32 or ptr.shape != (num_segments + 1,):
+            raise ValueError(f"{name}: ptr must be i32[{num_segments + 1}]"
+                             f", got {ptr.dtype} {tuple(ptr.shape)}")
+        if perm is not None and (perm.dtype != torch.int32
+                                 or perm.shape != (num_real,)):
+            raise ValueError(f"{name}: perm must be i32[{num_real}], "
+                             f"got {perm.dtype} {tuple(perm.shape)}")
+        a = _build.SegSum2dArgs()
+        self.index = (ids.contiguous(), ptr.contiguous(),
+                      None if perm is None else perm.contiguous())
+        a.ids = self.index[0].data_ptr()
+        a.ids64 = int(ids.dtype == torch.int64)
+        a.ptr = self.index[1].data_ptr()
+        a.perm = (self.index[2].data_ptr() if perm is not None and num_real
+                  else None)
+        a.d = d
+        a.n_seg = num_segments
+        a.n_slots = num_real
+        self.scratch = _build.sum2d_scratch(a, num_real, d, max_degree,
+                                            self.device)
+        self.args = a
+        self.ref = ctypes.byref(a)
+        self.call = _build.library().pdp_segment_sum_2d
+        self.stream = _build.stream_fn(self.device)
+
+
+_SUM_PLANS = _build.PlanCache()
+
+
+def _segment_sum_2d(x, ids, num_segments, num_real, ptr, perm=None,
+                    max_degree=None):
     """The sum without autograd: the plain version on the CPU, the
     kernel on the card."""
     _check_rows("segment_sum_2d", x, "x")
-    dev = _device("segment_sum_2d", x, ids, ptr, perm)
-    if ids.shape[0] != x.shape[0] or num_real > x.shape[0]:
-        raise ValueError(f"segment_sum_2d: {x.shape[0]} rows, "
-                         f"{ids.shape[0]} ids, {num_real} real")
-    if dev.type == "cpu":
-        return segment_sum_2d_plain(x, ids, num_segments, num_real)
-    if ptr.dtype != torch.int32 or ptr.shape != (num_segments + 1,):
-        raise ValueError(f"segment_sum_2d: ptr must be i32[{num_segments + 1}]"
-                         f", got {ptr.dtype} {tuple(ptr.shape)}")
-    if perm is not None and (perm.dtype != torch.int32
-                             or perm.shape != (num_real,)):
-        raise ValueError(f"segment_sum_2d: perm must be i32[{num_real}], "
-                         f"got {perm.dtype} {tuple(perm.shape)}")
-    x = x.contiguous()
     d = x.shape[1]
-    out = torch.empty((num_segments, d), dtype=torch.float32, device=dev)
+    plan = _SUM_PLANS.get((ids, ptr, perm),
+                          (num_segments, num_real, max_degree, d), _SumPlan,
+                          ids, num_segments, num_real, ptr, perm, max_degree,
+                          d)
+    if x.shape[0] != plan.rows or x.device != plan.device:
+        raise ValueError(f"segment_sum_2d: x is {tuple(x.shape)} on "
+                         f"{x.device}, ids [{plan.rows}] on {plan.device}")
+    a = plan.args
+    if a is None:
+        return segment_sum_2d_plain(x, ids, num_segments, num_real)
+    if not x.is_contiguous():
+        x = x.contiguous()
+    out = torch.empty((num_segments, d), dtype=torch.float32,
+                      device=plan.device)
     bf16 = x.dtype == torch.bfloat16
-    rc = _build.library().pdp_segment_sum_2d(
-        x.data_ptr(), int(bf16), d, ptr.data_ptr(),
-        perm.data_ptr() if perm is not None and perm.numel() else None,
-        num_segments, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "segment_sum_2d")
+    a.x = x.data_ptr()
+    a.x_bf16 = int(bf16)
+    a.out = out.data_ptr()
+    a.stream = plan.stream()
+    rc = plan.call(plan.ref)
+    if rc:
+        _build.check(rc, "segment_sum_2d")
     if bf16:
         segment_sum_2d.launches_bf16 += 1
     else:
@@ -123,6 +179,80 @@ def _segment_sum_2d(x, ids, num_segments, num_real, ptr, perm=None):
     return out
 
 
+def walk_order_sum_2d(x, ptr, perm=None):
+    """The kernel's sums in the kernel's order (csrc/reduce2d.cu): x
+    [E, d] rows (f32 or bf16, added in f32), node n's rows at the slots
+    [ptr[n], ptr[n+1]), slot j holding row perm[j] (j when perm is None).
+    A node under R2D_HEAVY slots adds its rows one after another in slot
+    order; a longer one is cut into the pieces of the blocks anchored in
+    it, where warp w of a block adds the piece's chunks of 32 slots w,
+    w + 8, ... in turn, the block adds its warps' rows in warp order, and
+    the last block in adds the pieces' rows: warp w those of the w-th of
+    W runs of ceil(pieces / W) in anchor order, then the runs' rows in
+    order. For the tests and the
+    card's checks: on the card the kernel's sums equal these bit for
+    bit."""
+    S, W, C = _build.R2D_HEAVY, _build.R2D_WARPS, 32
+    dev = x.device
+    x = x.float()
+    ptr = ptr.long()
+    lo, hi = ptr[:-1], ptr[1:]
+    deg = hi - lo
+    slot = (torch.arange(int(ptr[-1]), device=dev) if perm is None
+            else perm.long())
+    out = x.new_zeros((lo.shape[0], x.shape[1]))
+    light = torch.nonzero((deg > 0) & (deg < S))[:, 0]
+    if light.numel():
+        acc = x.new_zeros((light.shape[0], x.shape[1]))
+        for k in range(int(deg[light].max())):
+            on = torch.nonzero(deg[light] > k)[:, 0]
+            acc[on] = acc[on] + x[slot[lo[light[on]] + k]]
+        out[light] = acc
+    heavy = torch.nonzero(deg >= S)[:, 0]
+    if not heavy.numel():
+        return out
+    # the pieces [j0, j1) of each heavy node, one per anchor inside it, in
+    # anchor order
+    a0, a1 = -(-lo[heavy] // S), (hi[heavy] - 1) // S
+    count = a1 - a0 + 1
+    node = torch.repeat_interleave(torch.arange(heavy.shape[0], device=dev),
+                                   count)
+    first = torch.cumsum(count, 0) - count
+    k = torch.arange(node.shape[0], device=dev) - first[node]
+    anchor = (a0[node] + k) * S
+    j0 = torch.where(k == 0, lo[heavy][node], anchor)
+    j1 = torch.minimum(anchor + S, hi[heavy][node])
+    # warp w of a piece's block takes its chunks w, w + W, ... of C slots:
+    # slot j0 + t is step (c // W) * C + t % C of warp c % W, c = t // C
+    lens = j1 - j0
+    pid = torch.repeat_interleave(torch.arange(lens.shape[0], device=dev),
+                                  lens)
+    t = torch.arange(pid.shape[0], device=dev) - (torch.cumsum(lens, 0)
+                                                  - lens)[pid]
+    c = t // C
+    step = (c // W) * C + t % C
+    idx = torch.full((lens.shape[0], W, int(step.max()) + 1), -1,
+                     dtype=torch.long, device=dev)
+    idx[pid, c % W, step] = slot[j0[pid] + t]
+    acc = x.new_zeros((lens.shape[0], W, x.shape[1]))
+    for i in range(idx.shape[2]):
+        on = idx[:, :, i] >= 0
+        acc[on] = acc[on] + x[idx[:, :, i][on]]
+    part = acc[:, 0]
+    for w in range(1, W):
+        part = part + acc[:, w]
+    # the last block in: warp w adds the pieces [w m, w m + m) of the node
+    # in anchor order, m = ceil(pieces / W); then the warps' rows in order
+    m = (count + W - 1) // W
+    tot = None
+    for w in range(W):
+        r = x.new_zeros((heavy.shape[0], x.shape[1]))
+        for i in range(int(m.max())):
+            on = torch.nonzero((i < m) & (w * m + i < count))[:, 0]
+            r[on] = r[on] + part[first[on] + w * m[on] + i]
+        tot = r if tot is None else tot + r
+    out[heavy] = tot
+    return out
 
 
 def gather_2d_plain(nodes, ids, minus=None):
@@ -197,6 +327,16 @@ def _gather_2d(nodes, ids, minus=None):
 
 
 
+class Csr(tuple):
+    """(num_real, ptr, perm) of a CSR, with its largest segment as
+    .max_degree (None: not known)."""
+
+    def __new__(cls, num_real, ptr, perm, max_degree=None):
+        csr = super().__new__(cls, (num_real, ptr, perm))
+        csr.max_degree = max_degree
+        return csr
+
+
 def _needs_grad(*tensors):
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors)
@@ -220,10 +360,11 @@ class SegmentSum2d(torch.autograd.Function):
     the real rows (JAX `_sum2d_bwd` :142)."""
 
     @staticmethod
-    def forward(ctx, x, ids, num_segments, num_real, ptr, perm):
+    def forward(ctx, x, ids, num_segments, num_real, ptr, perm, max_degree):
         ctx.save_for_backward(ids)
         ctx.num_real, ctx.side = num_real, _side(perm)
-        return _segment_sum_2d(x, ids, num_segments, num_real, ptr, perm)
+        return _segment_sum_2d(x, ids, num_segments, num_real, ptr, perm,
+                               max_degree)
 
     @staticmethod
     def backward(ctx, g):
@@ -232,7 +373,7 @@ class SegmentSum2d(torch.autograd.Function):
         gx[ctx.num_real:] = 0.0
         if gx.is_cuda:
             gather_2d.launches_bwd[ctx.side] += 1
-        return gx, None, None, None, None, None
+        return gx, None, None, None, None, None, None
 
 
 class Gather2d(torch.autograd.Function):
@@ -241,9 +382,10 @@ class Gather2d(torch.autograd.Function):
     to the subtrahend."""
 
     @staticmethod
-    def forward(ctx, nodes, minus, ids, num_real, ptr, perm):
+    def forward(ctx, nodes, minus, ids, num_real, ptr, perm, max_degree):
         ctx.save_for_backward(ids, ptr, perm)
         ctx.num_nodes, ctx.num_real = nodes.shape[0], num_real
+        ctx.max_degree = max_degree
         ctx.minus_dtype = None if minus is None else minus.dtype
         return _gather_2d(nodes, ids, minus)
 
@@ -259,21 +401,26 @@ class Gather2d(torch.autograd.Function):
         g_nodes = g_minus = None
         if ctx.needs_input_grad[0]:
             g_nodes = _segment_sum_2d(g, ids, ctx.num_nodes, ctx.num_real,
-                                      ptr, perm)
+                                      ptr, perm, ctx.max_degree)
             if g.is_cuda:
                 segment_sum_2d.launches_bwd[_side(perm)] += 1
         if ctx.needs_input_grad[1]:
             g_minus = (-g).to(ctx.minus_dtype)
-        return g_nodes, g_minus, None, None, None, None
+        return g_nodes, g_minus, None, None, None, None, None
 
 
-def segment_sum_2d(x, ids, num_segments, num_real, ptr, perm=None):
-    """[E, d] -> f32[num_segments, d]; see the module docstring. Through
-    SegmentSum2d when grad mode is on and x requires grad."""
+def segment_sum_2d(x, ids, num_segments, num_real, ptr, perm=None,
+                   max_degree=None):
+    """[E, d] -> f32[num_segments, d]; see the module docstring.
+    max_degree, when given, is the CSR's largest segment (FGBatch's
+    var_max_degree / clause_max_degree). Through SegmentSum2d when grad
+    mode is on and x requires grad."""
     if _needs_grad(x):
         _refuse_bf16_grad("segment_sum_2d", x)
-        return SegmentSum2d.apply(x, ids, num_segments, num_real, ptr, perm)
-    return _segment_sum_2d(x, ids, num_segments, num_real, ptr, perm)
+        return SegmentSum2d.apply(x, ids, num_segments, num_real, ptr, perm,
+                                  max_degree)
+    return _segment_sum_2d(x, ids, num_segments, num_real, ptr, perm,
+                           max_degree)
 
 
 segment_sum_2d.launches = 0
@@ -284,15 +431,16 @@ segment_sum_2d.launches_bwd = {"var": 0, "clause": 0}
 def gather_2d(nodes, ids, minus=None, csr=None):
     """f32[N, d] -> f32[len(ids), d]; see the module docstring. Through
     Gather2d when grad mode is on and nodes or minus requires grad, which
-    needs csr = (num_real, ptr, perm), the CSR of ids for the
-    transpose."""
+    needs csr = (num_real, ptr, perm), the CSR of ids for the transpose
+    (a Csr also hands its max_degree to the transpose's sum)."""
     if _needs_grad(nodes, minus):
         if csr is None:
             raise ValueError("gather_2d: a gather that requires grad needs "
                              "csr=(num_real, ptr, perm) of its ids for its "
                              "transpose")
         _refuse_bf16_grad("gather_2d", nodes, minus)
-        return Gather2d.apply(nodes, minus, ids, *csr)
+        return Gather2d.apply(nodes, minus, ids, *csr,
+                              getattr(csr, "max_degree", None))
     return _gather_2d(nodes, ids, minus)
 
 

@@ -11,9 +11,9 @@ On the shared set (128 instances of 4-SAT, n=100, alpha=9: E = 524,288
 padded / 460,800 real edges), on a compacted batch (its first 8
 instances, a 32,768-edge bucket), at high degree (a var CSR with one
 63,488-edge node; the shared set's clause ids over all E edges, whose
-last run holds the 63,488 padding edges) and, for WalkSAT, on one large
-banded instance (`large_instance`: 30,000 variables, 126,000 clauses), it
-gives for each form:
+last run holds the 63,488 padding edges), for WalkSAT on one large
+banded instance (`large_instance`: 30,000 variables, 126,000 clauses)
+and for kernel 6 on a training segment, it gives for each form:
   ms        ms / call, CUDA events over 50 back-to-back calls;
   host_us   host us / call, perf_counter over 500 calls with no
             synchronize, after a warm-up;
@@ -33,7 +33,14 @@ with " i32" ids (`edge_var32`), "gather_2d minus i32 bf16" (f32 node rows
 minus bf16 rows, the bf16 aggregators' form), and "index_select", the
 gather's PyTorch call; "segment_sum_2d var" (kernel 6 at d = 50, beside
 index_add_), "segment_sum_2d var bf16" and "segment_sum_2d clause bf16"
-(bf16 rows into f32 sums, over the var and the clause CSR). --only
+(bf16 rows into f32 sums, over the var and the clause CSR), each with
+the batch's largest degree where the tree's wrapper takes it; at high
+degree "segment_sum_2d var hub" and "segment_sum_2d var hub bf16" (the
+63,488-edge variable, 20 calls where the others take 50 and 500), and
+"segment_sum_2d var compacted" in the compacted group; and, in a
+"training" group, "segment_sum_2d var training" and "segment_sum_2d
+clause training" on the first segment of the flagship training stream
+(utils/training.py: 131,072 edges, f32 rows, Gather2d's backward). --only
 keeps the forms whose names contain one of the strings given. It
 prints one JSON line with the card's name and power limit. It uses
 only the wrappers' public functions, so it times any tree of the
@@ -260,15 +267,26 @@ def bench_batch(batch, forms, only=None):
         reps = None
         if form.startswith("segment_sum_2d"):
             # "segment_sum_2d var", "segment_sum_2d var bf16" (bf16 rows,
-            # f32 sums), "segment_sum_2d clause bf16"
+            # f32 sums), "segment_sum_2d clause bf16"; a batch's name
+            # ("hub", "compacted", "training") in the form names the group
+            # it is timed in. A tree whose kernel walks the hub's node with
+            # one warp takes ms a call there: 20 calls.
             side = form.split()[1]
             ids, n, ptr, perm = csr[side]
             x2 = torch.rand(E, HIDDEN_AGG, generator=g).cuda()
             if form.endswith("bf16"):
                 x2 = x2.to(torch.bfloat16)
+            # the pack-time largest degree, as the path passes it, where
+            # the tree's wrapper takes it
+            kw2 = ({"max_degree": getattr(batch, f"{side}_max_degree")}
+                   if "max_degree" in inspect.signature(
+                       reduce2d.segment_sum_2d).parameters else {})
+            if " hub" in form:
+                reps = 20
 
             def call():
-                return reduce2d.segment_sum_2d(x2, ids, n, e, ptr, perm)
+                return reduce2d.segment_sum_2d(x2, ids, n, e, ptr, perm,
+                                               **kw2)
             acc = torch.zeros(n, HIDDEN_AGG, device="cuda", dtype=x2.dtype)
             x_real, ids_real = x2[:e], ids[:e]
 
@@ -400,7 +418,8 @@ def bench_batch(batch, forms, only=None):
             out[form] = {"error": str(err)[:200]}
             continue
         if lib is not None:
-            row["library"] = timed(lib)
+            row["library"] = (timed(lib) if reps is None
+                              else timed(lib, reps=reps, host_reps=reps))
         out[form] = row
     return out
 
@@ -426,7 +445,13 @@ COMPACTED_FORMS = ("segment_sum var C=2", "segment_sum_cols var C=1",
                    "segment_sum_cols clause C=1", "sorted_segment_sum real",
                    "fused_edge_pass[ae]", "fused_edge_pass[smax_scorer]",
                    "fused_edge_pass[scorer]") + WALK_FORMS + CHAINED_FORMS \
-    + SWEEP_FORMS + VERIFY_FORMS + GATHER_FORMS
+    + SWEEP_FORMS + VERIFY_FORMS + GATHER_FORMS \
+    + ("segment_sum_2d var compacted",)
+HUB_2D_FORMS = ("segment_sum_2d var hub", "segment_sum_2d var hub bf16")
+# kernel 6 at a training segment's shape: Gather2d's backward over either
+# CSR (f32 rows)
+TRAIN_FORMS = ("segment_sum_2d var training",
+               "segment_sum_2d clause training")
 
 
 def main(argv=None):
@@ -459,12 +484,16 @@ def main(argv=None):
                                  "segment_sum_cols var C=1",
                                  "fused_edge_pass[smax_scorer]")
                            + CHAINED_FORMS + SWEEP_FORMS + VERIFY_FORMS
-                           + WALK_FORMS, args.only),
+                           + WALK_FORMS + HUB_2D_FORMS, args.only),
                **bench_batch(shared, ("sorted_segment_sum all",),
                              args.only)),
            "large": bench_batch(pack_instances([large_instance()],
                                                device="cuda"),
                                 WALK_FORMS, args.only)}
+    if not args.only or any(o in f for f in TRAIN_FORMS for o in args.only):
+        from pdp_solver_tpu_torch.utils import training
+        seg = next(training.flagship_segments(0))[0]
+        out["training"] = bench_batch(seg, TRAIN_FORMS, args.only)
     print(json.dumps(out), flush=True)
     return 0
 

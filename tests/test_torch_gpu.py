@@ -38,10 +38,13 @@ against its two launches for pi 0, pi 0.01 and login. The [E, d] gather
 ids, an odd row count and a misaligned table. Kernels 6 and 7 on bf16
 rows (compute_dtype="bfloat16"), on the shared set, a compacted batch and
 the hub: f32 sums of bf16 rows to rtol 1e-5 / atol 1e-5 of a float64 sum
-over the var CSR (atol 5e-4 at the hub's 63,488-row node, summed in f32
-one row after another) and of the plain version over the clause CSR, f32
+over the var CSR (atol 5e-4 at the hub's 63,488-row node, summed in f32)
+and of the plain version over the clause CSR, f32
 nodes minus bf16 rows bit for bit, each counted as a bf16 launch and none
-as an f32 one.
+as an f32 one. Kernel 6 on both CSRs of those three batches, f32 and bf16
+rows of 37, 50, 64 and 150 columns, bit for bit against its order
+emulated in PyTorch (`ops/reduce2d.py walk_order_sum_2d`), with and
+without the largest degree.
 """
 
 import numpy as np
@@ -857,8 +860,8 @@ def test_reduce2d_bf16_kernels_match_plain(walk_shapes, which, d):
     ref64.index_add_(0, ev[:e], x[:e].double())
     got = reduce2d.segment_sum_2d(x, ev, V, e, gpu.var_ptr, gpu.var_perm)
     assert got.dtype == torch.float32
-    # the hub's node sums 63,488 rows one after another in f32 (7.8e-5 off
-    # the float64 sum on an H100 at d = 50)
+    # the hub's node adds 63,488 rows in f32 (7.8e-5 off the float64 sum
+    # on an H100 at d = 50 when they were added one after another)
     atol = 5e-4 if which == "hub" else 1e-5
     torch.testing.assert_close(got.double(), ref64, rtol=1e-5, atol=atol)
     got = reduce2d.segment_sum_2d(x, gpu.edge_clause, gpu.num_clauses, e,
@@ -876,6 +879,39 @@ def test_reduce2d_bf16_kernels_match_plain(walk_shapes, which, d):
     assert reduce2d.gather_2d.launches_bf16 == gathers + 2
     assert (reduce2d.segment_sum_2d.launches,
             reduce2d.gather_2d.launches) == f32_before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [50, 37, 64, 150])
+@pytest.mark.parametrize("which", ["shared", "compacted", "hub"])
+def test_segment_sum_2d_walk_order(walk_shapes, which, d, dtype):
+    """Kernel 6 bit for bit against its order emulated in PyTorch
+    (ops/reduce2d.py walk_order_sum_2d) over the var and the clause CSR:
+    d = 50 (8-byte f32 and 4-byte bf16 pieces), 37 (an element at a time),
+    64 (16 and 8 bytes) and 150 (three passes of 32 pieces); the same bits
+    on two calls and with max_degree unknown (the anchored blocks then
+    look for heavy nodes at every anchor)."""
+    from pdp_solver_tpu_torch.ops import reduce2d
+    gpu = walk_shapes[which]
+    g = torch.Generator().manual_seed(d)
+    x = torch.randn(gpu.num_edges, d, generator=g).cuda().to(dtype)
+    e = gpu.num_real_edges
+    for ids, n, ptr, perm, md in (
+            (gpu.edge_var, gpu.num_vars, gpu.var_ptr, gpu.var_perm,
+             gpu.var_max_degree),
+            (gpu.edge_clause32, gpu.num_clauses, gpu.clause_ptr, None,
+             gpu.clause_max_degree)):
+        got = reduce2d.segment_sum_2d(x, ids, n, e, ptr, perm,
+                                      max_degree=md)
+        again = reduce2d.segment_sum_2d(x, ids, n, e, ptr, perm,
+                                        max_degree=md)
+        unknown = reduce2d.segment_sum_2d(x, ids, n, e, ptr, perm)
+        ref = reduce2d.walk_order_sum_2d(x, ptr, perm)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32
+        assert torch.equal(got, again)
+        assert torch.equal(got, unknown)
+        assert torch.equal(got, ref), float((got - ref).abs().max())
 
 
 # ---------------------------------------------------------------------------
