@@ -177,8 +177,40 @@ Phases, one flushed line each with the elapsed seconds:
      convert.load_jax_checkpoint and params_from_jax bit for bit, then
      phase 4's solve of the shared set with the fine-tuned weights (1000
      iterations, 1000 flips): >= 0.45 solved, printed beside phase 4's;
- 22. the {"kernels": [...]} line, the card's name and power limit, and as
+ 22. gradients on the card against the CPU for p-nd-np: the r4 weights,
+     one 32,768-edge segment of the r4 runs' stream (utils/training.py
+     family_segments, seed 3), T = 10, dropout 0, one numpy init state,
+     global_step 10: the loss to rtol 1e-4 and every gradient to 1e-3
+     relative; no plain route on the card; the SP sweep on its training
+     route (no sp_chain_login, sp_pass_c or kernel 9 launch in the step),
+     kernel 4 forward in the step and its rule during backward() alone
+     (`segment_sum_cols.backward_calls`), kernel 7 as SegmentSum2d's
+     backward;
+ 23. the same for np-d-np, whose decimated problem after each outer step
+     must be equal on the card and on the CPU (where a pick differs: the
+     instance, the CPU's |score| gap, which must be < 1e-5, and the
+     gradients then gated at the steps before it); kernels 1 (smax) and
+     2 (sround) launched in the step on detached inputs, kernels 6 and 7
+     as each other's backward over both CSRs;
+ 24. 100 steps of each recipe (FAMILY_RECIPES) from a fresh seeded init
+     at the fixed dims on one set of 100 segments of the stream,
+     generated first: every loss finite, the held-out energy (global_step
+     10, one numpy init state) lower after than before; ms a step,
+     instances/s, peak memory and each kernel's launches in one step
+     recorded; then 10 steps of config/Train/p-nd-np-cnf-3-10.yaml
+     (through utils/config.py; its dict in utils/training.py where PyYAML
+     is missing) with meta width 1 and zeros injected, every loss finite;
+ 25. resume each r4 train state (params and Adam: p-nd-np-r4/best,
+     np-d-np-r4/last), 20 steps, best and last saved in the JAX package's
+     format and read back bit for bit, then served: p-nd-np with phase
+     8's solve (>= 28/128, beside phase 8's count), np-d-np on phase 11's
+     band (>= 29/48, beside phase 11's);
+ 26. the {"kernels": [...]} line, the card's name and power limit, and as
      the last line {"ok": true, "device": {...}}.
+
+Phases 4, 8, 10, 11, 15 and 16's solved counts are held equal to the
+counts the card gave before the clamp-tie rule of ops/segment.py, which
+changes no forward value.
 
 Every launch count is set to 0 just before each path and read just after
 it; a kernel's row carries the count of the path it serves.
@@ -270,6 +302,23 @@ TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_REL = 1e-3
 TRAIN_STEPS, FINETUNE_STEPS = 100, 50
 TRAIN_EVAL_STEP = 10.0    # the global_step of the gradient and held-out runs
+# p-nd-np and np-d-np training (phases 22-25): the card-against-CPU gates
+# (T = 10 outer steps at hidden 150), the score gap under which a
+# decimation pick may differ, the steps of each phase, and the r4 train
+# states resumed
+FAMILY = ("p-nd-np", "np-d-np")
+FAMILY_LOSS_RTOL = 1e-4
+PICK_TIE_GAP = 1e-5
+FAMILY_STEPS, RESUME_STEPS, META_STEPS = 100, 20, 10
+R4_STATE = {"p-nd-np": "trained-models/p-nd-np-r4/best",
+            "np-d-np": "trained-models/np-d-np-r4/last"}
+# the kernels a p-nd-np training step must not launch: the serving
+# sweep's (kernel 2's login functor, kernel 1's pass C, kernel 9)
+SERVING_SWEEP = ("sp_chain_login", "sp_pass_c", "sp_full_sweep")
+# the solved counts of phases 4, 15, 8, 16, 10 and 11 on an H100 before
+# the clamp-tie rule (ops/segment.py clamp_min / clamp_max)
+SERVING_SOLVED = {"np-nd-np": 71, "np-nd-np bf16": 74, "p-nd-np": 48,
+               "p-nd-np bf16": 45, "np-d-np": 4, "np-d-np band": 38}
 PALLAS_FUSED = "pdp_solver_tpu/ops/pallas_fused.py"
 PALLAS_2D = "pdp_solver_tpu/ops/pallas_reduce2d.py"
 REDUCE_CU = "pdp_solver_tpu_torch/csrc/reduce.cu"
@@ -2149,6 +2198,289 @@ def finetune_and_serve(segs, insts, torch, np):
                 loss_last10=float(losses[-10:].mean()))
 
 
+def step_counts():
+    """Every launch count since the last reset_counts, kernels 6 and 7 by
+    side as each other's backward, and the calls of kernel 4's rule."""
+    from pdp_solver_tpu_torch.ops import reduce
+    counts = read_counts()
+    counts.update(bwd_counts())
+    counts["segment_sum_cols[rule]"] = reduce.segment_sum_cols.backward_calls
+    return counts
+
+
+def r4_params(model):
+    from pdp_solver_tpu_torch import convert
+    d = os.path.join(ROOT, R4_STATE[model])
+    return convert.load_jax_checkpoint(
+        os.path.join(d, f"{model}-r4.npz"))["params"]
+
+
+def np_d_np_problems(tr, batch, state, steps, torch):
+    """np-d-np's training forward outer step by outer step under no_grad:
+    the problem each step leaves and the state entering each step."""
+    problems, states = [], [state]
+    t_inner = int(tr._config.get("train_inner_recurrence_num", 1))
+    with torch.no_grad():
+        for _ in range(steps):
+            problem, state, _ = tr.solver._train_core(
+                tr.params, None, batch, state, t_inner)
+            problems.append(problem)
+            states.append(state)
+    return problems, states
+
+
+def pick_gap(tr, batch, state, inst, torch):
+    """The CPU's gap between the two largest |score| of instance `inst`'s
+    variables, from the state entering the step (a fresh problem)."""
+    from pdp_solver_tpu_torch.problem.state import (
+        edge_active_instance_mask, init_problem_state)
+    s = tr.solver
+    with torch.no_grad():
+        ae = edge_active_instance_mask(batch, batch.instance_mask)
+        prop = s._propagate(tr.params, batch, state.prop, state.dec,
+                            batch.edge_mask, ae)
+        score = s._scorer_fn(tr.params, batch)(prop,
+                                               init_problem_state(batch))
+    mine = torch.abs(score[:, 0])[(batch.var_batch == inst)
+                                  & (batch.var_mask > 0)]
+    top = torch.topk(mine, 2).values
+    return float(top[0] - top[1])
+
+
+def compare_problems(sides, steps, torch, np):
+    """Phase 23's gate: the card's and the CPU's decimated problems after
+    each outer step. Returns (the steps that agree, the first differing
+    pick or None); fails where a pick differs by more than a tie."""
+    runs = {dev: np_d_np_problems(tr, batch, state, steps, torch)
+            for dev, (tr, batch, state) in sides.items()}
+    for t in range(steps):
+        card = runs["cuda"][0][t]
+        cpu = runs["cpu"][0][t]
+        diff = [f for f in ("active_vars", "active_clauses", "solution",
+                            "is_sat")
+                if not torch.equal(getattr(card, f).cpu(), getattr(cpu, f))]
+        if not diff:
+            continue
+        tr, batch, _ = sides["cpu"]
+        av = (card.active_vars.cpu() != cpu.active_vars).nonzero()
+        v = int(av[0]) if len(av) else 0
+        inst = int(batch.var_batch[v])
+        gap = pick_gap(tr, batch, runs["cpu"][1][t], inst, torch)
+        log(f"phase 23 np-d-np: the problems differ after outer step "
+            f"{t + 1} ({diff}; variable {v}, instance {inst}): the CPU's "
+            f"|score| gap there {gap:.3g}")
+        require(gap < PICK_TIE_GAP and t >= 1,
+                f"np-d-np's decimation differs card against cpu at step "
+                f"{t + 1} with a |score| gap {gap} >= {PICK_TIE_GAP}")
+        return t, dict(step=t + 1, variable=v, instance=inst, gap=gap)
+    return steps, None
+
+
+def family_grad_check(model, torch, np):
+    """Phases 22-23: the BPTT loss and every parameter's gradient on the
+    card against the CPU, from the r4 weights and one numpy init state;
+    the launches in the forward (with remat's recompute) and during
+    backward() alone."""
+    from pdp_solver_tpu_torch import convert
+    from pdp_solver_tpu_torch.train.trainer import SatTrainer
+    from pdp_solver_tpu_torch.utils import training
+    cfg = dict(training.FAMILY_RECIPES[model], dropout=0.0)
+    tree = r4_params(model)
+    sides = {}
+    for dev in ("cuda", "cpu"):
+        tr = SatTrainer(cfg, device=dev)
+        convert.load_into(tr.params, tree)
+        tr.params.train()
+        batch = next(training.family_segments(3, model, TRAIN_GRAD_DIMS,
+                                              device=dev))[0]
+        state = training.numpy_init_state(batch, cfg["hidden_dim"], 11, dev,
+                                          model)
+        sides[dev] = (tr, batch, state)
+    steps, tie = cfg["train_outer_recurrence_num"], None
+    if model == "np-d-np":
+        with plain_route_guard():
+            steps, tie = compare_problems(sides, steps, torch, np)
+    out = {}
+    for dev, (tr, batch, state) in sides.items():
+        tr._config["train_outer_recurrence_num"] = steps
+        step = torch.tensor(TRAIN_EVAL_STEP, device=dev)
+        t0 = time.time()
+        if dev == "cuda":
+            with plain_route_guard():
+                reset_counts()
+                loss = tr.loss(tr.params, batch, step, state)
+                torch.cuda.synchronize()
+                fwd = step_counts()
+                reset_counts()
+                loss.backward()
+                torch.cuda.synchronize()
+                bwd = step_counts()
+        else:
+            loss = tr.loss(tr.params, batch, step, state)
+            loss.backward()
+        out[dev] = dict(loss=float(loss.detach()), wall_s=time.time() - t0,
+                        grads=convert.grads_to_jax(tr.params),
+                        edges=batch.num_real_edges,
+                        clause_width=batch.clause_width)
+    card, cpu = out["cuda"], out["cpu"]
+    require(card["clause_width"] == 0, "the segment has one clause width")
+    loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    require(np.isfinite(card["loss"]) and loss_rel <= FAMILY_LOSS_RTOL,
+            f"{model} loss card {card['loss']} cpu {cpu['loss']}: rel "
+            f"{loss_rel}")
+    rels, cpu_grads = {}, dict(convert._flatten(cpu["grads"]))
+    for key, g_card in convert._flatten(card["grads"]):
+        g_cpu = cpu_grads[key]
+        rel = float(np.linalg.norm(g_card - g_cpu)
+                    / max(np.linalg.norm(g_cpu), 1e-30))
+        require(np.isfinite(g_card).all() and rel <= TRAIN_GRAD_REL,
+                f"{model} gradient {key}: card against cpu rel {rel}")
+        rels[key] = rel
+    require(fwd["segment_sum_cols"] > 0 and bwd["segment_sum_cols[rule]"] > 0,
+            f"{model}: kernel 4 forward {fwd['segment_sum_cols']}, its rule "
+            f"{bwd['segment_sum_cols[rule]']} during backward()")
+    require(bwd["gather_2d[bwd]"] > 0, f"{model}: kernel 7 never launched "
+            "as SegmentSum2d's backward")
+    if model == "p-nd-np":
+        for k in SERVING_SWEEP:
+            require(fwd.get(k, 0) == 0 and bwd.get(k, 0) == 0,
+                    f"p-nd-np's training step launched {k}")
+    else:
+        for k in ("smax", "sround"):
+            require(fwd.get(k, 0) > 0, f"np-d-np's training step never "
+                    f"launched {k}")
+        for k in ("segment_sum_2d[bwd]", "segment_sum_2d[clause, bwd]",
+                  "gather_2d[clause, bwd]"):
+            require(bwd[k] > 0, f"np-d-np: {k} never launched during "
+                    "backward()")
+    keep = ("segment_sum_cols", "segment_sum_cols[rule]", "segment_sum_2d",
+            "gather_2d", "segment_sum_2d[bwd]", "segment_sum_2d[clause, bwd]",
+            "gather_2d[bwd]", "gather_2d[clause, bwd]", "smax", "sround",
+            "em_ae", "em", "ae", "cnf_chain") + SERVING_SWEEP
+    return dict(loss_card=card["loss"], loss_cpu=cpu["loss"],
+                loss_rel=loss_rel, grad_rel_max=max(rels.values()),
+                grad_rel_worst=max(rels, key=rels.get), n_grads=len(rels),
+                edges=card["edges"], steps=steps, tie=tie,
+                card_s=card["wall_s"], cpu_s=cpu["wall_s"],
+                forward_counts={k: fwd.get(k, 0) for k in keep},
+                backward_counts={k: bwd.get(k, 0) for k in keep})
+
+
+def train_family(model, segs, torch, np):
+    """Phase 24: 100 steps at an r4 recipe from a fresh init."""
+    from pdp_solver_tpu_torch.train.trainer import SatTrainer
+    from pdp_solver_tpu_torch.utils import training
+    cfg = training.FAMILY_RECIPES[model]
+    held = next(training.family_segments(12345, model))[0]
+    held_state = training.numpy_init_state(held, cfg["hidden_dim"], 7,
+                                           "cuda", model)
+    tr = SatTrainer(cfg, seed=0, device="cuda")
+    ts = tr.init_train_state()
+    e0 = heldout_energy(tr, ts.params, held, held_state, torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with plain_route_guard():
+        t1 = time.time()
+        ts, losses, n0 = tr.train_segments(ts, iter(segs[:1]))
+        torch.cuda.synchronize()
+        first_s = time.time() - t1
+        t2 = time.time()
+        ts, more, n1 = tr.train_segments(ts, iter(segs[1:-1]))
+        torch.cuda.synchronize()
+        steady_s = time.time() - t2
+        reset_counts()
+        ts, last, n2 = tr.train_segments(ts, iter(segs[-1:]))
+        torch.cuda.synchronize()
+        counts = step_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses + more + last).cpu().numpy()
+    require(np.isfinite(losses).all(), f"a {model} training loss is not "
+            "finite")
+    e1 = heldout_energy(tr, ts.params, held, held_state, torch)
+    require(e1 < e0, f"{model}: held-out energy {e1} after {len(losses)} "
+            f"steps not below {e0} before")
+    for k in SERVING_SWEEP if model == "p-nd-np" else ():
+        require(counts.get(k, 0) == 0, f"p-nd-np's training step launched "
+                f"{k}")
+    n_steady = len(segs) - 2
+    return dict(steps=len(losses), first_step_s=first_s,
+                ms_per_step=steady_s / n_steady * 1e3,
+                instances_per_s=n1 / steady_s,
+                instances_per_step=(n0 + n1 + n2) / len(losses),
+                peak_bytes=peak, energy_before=e0, energy_after=e1,
+                loss_first10=float(losses[:10].mean()),
+                loss_last10=float(losses[-10:].mean()),
+                step_counts={k: v for k, v in counts.items()
+                             if isinstance(v, int) and v})
+
+
+def train_meta_config(segs, torch, np):
+    """Phase 24: 10 steps of config/Train/p-nd-np-cnf-3-10.yaml (meta
+    width 1) on segments without meta features: zeros injected."""
+    from pdp_solver_tpu_torch.train.trainer import SatTrainer
+    from pdp_solver_tpu_torch.utils import config, training
+    try:
+        cfg = config.load_yaml_config(training.P_ND_NP_CNF_3_10_YAML)
+        source = "the YAML"
+    except ImportError:
+        cfg = training.P_ND_NP_CNF_3_10
+        source = ("utils/training.py P_ND_NP_CNF_3_10 (no PyYAML here; "
+                  "tests/test_torch_meta.py holds it equal to the YAML)")
+    cfg = config.validate(config.merge_config(cfg, {}))
+    tr = SatTrainer(cfg, seed=0, device="cuda")
+    require(tr.solver.cfg.meta_dim == 1, "the config's meta width is not 1")
+    require(all(b.graph_feat.shape[1] == 0 for b, _, _ in segs[:META_STEPS]),
+            "the segments carry meta features")
+    ts = tr.init_train_state()
+    with plain_route_guard():
+        ts, losses, _ = tr.train_segments(ts, iter(segs[:META_STEPS]))
+    losses = torch.stack(losses).cpu().numpy()
+    require(np.isfinite(losses).all(), "a p-nd-np-cnf-3-10 loss is not "
+            "finite")
+    return dict(source=source, steps=len(losses),
+                loss_first=float(losses[0]), loss_last=float(losses[-1]))
+
+
+def resume_and_serve(model, segs, insts, torch, np):
+    """Phase 25: an r4 train state (params and Adam) resumed for 20
+    steps, saved and read back bit for bit, then served."""
+    from pdp_solver_tpu_torch import convert
+    from pdp_solver_tpu_torch.train.trainer import SatTrainer
+    from pdp_solver_tpu_torch.utils import training
+    from pdp_solver_tpu_torch.utils.neural import (
+        np_d_np_3sat_band, solve_p_nd_np)
+    cfg = training.FAMILY_RECIPES[model]
+    tr = SatTrainer(cfg, seed=1, device="cuda")
+    ts = tr._load_train_state(tr.init_train_state(),
+                              os.path.join(ROOT, R4_STATE[model]))
+    count0 = int(convert.adam_to_jax(ts.opt, ts.params)["count"])
+    require(count0 > 0, f"{model}-r4: Adam's state did not load")
+    with plain_route_guard():
+        ts, losses, _ = tr.train_segments(ts, iter(segs[:RESUME_STEPS]))
+    losses = torch.stack(losses).cpu().numpy()
+    require(bool(np.isfinite(losses).all()), f"a resumed {model} loss is "
+            "not finite")
+    out = os.path.join(ROOT, "pdp_solver_tpu_torch", "_build", "resume",
+                       model)
+    trained = {k: v.detach().clone()
+               for k, v in ts.params.named_parameters()}
+    for d in ("last", "best"):
+        tr._save_train_state(ts, os.path.join(out, d))
+        tree = convert.load_jax_checkpoint(
+            os.path.join(out, d, cfg["model_name"] + ".npz"))
+        require(int(tree["opt"][2]["count"]) == count0 + RESUME_STEPS,
+                f"{model} {d}: Adam count {tree['opt'][2]['count']}")
+        params = convert.params_from_jax(tree["params"], "cuda")
+        for k, v in params.named_parameters():
+            require(torch.equal(v, trained[k]),
+                    f"{model} {d}: {k} not bit-exact")
+    with plain_route_guard():
+        res = (solve_p_nd_np(insts, seed=0, params=params)
+               if model == "p-nd-np" else np_d_np_3sat_band(params))
+    return dict(res, adam_count=count0, loss_first=float(losses[0]),
+                loss_last=float(losses[-1]))
+
+
 def check_backward_kernels(batch, torch):
     """The backward forms of kernels 6 and 7 at a training segment's
     shape (d = 50, the aggregators' width): kernel 6 over the var and the
@@ -2252,24 +2584,8 @@ def check_backward_kernels(batch, torch):
 
 
 def reset_counts():
-    from pdp_solver_tpu_torch.ops import (
-        fused, reduce, reduce2d, sp_sweep, verify, walksat)
-    fused.fused_edge_pass.launches = 0
-    fused.fused_edge_pass.launches_by_fn = {}
-    fused.chained_edge_pass.launches = 0
-    fused.chained_edge_pass.launches_by_fn = {}
-    walksat.walksat_walk.launches = 0
-    reduce2d.segment_sum_2d.launches = 0
-    reduce2d.segment_sum_2d.launches_bf16 = 0
-    reduce2d.gather_2d.launches = 0
-    reduce2d.gather_2d.launches_bf16 = 0
-    reduce2d.segment_sum_2d.launches_bwd = {"var": 0, "clause": 0}
-    reduce2d.gather_2d.launches_bwd = {"var": 0, "clause": 0}
-    reduce.segment_sum_cols.launches = 0
-    reduce.segment_sum_cols.launches_by_form = {}
-    sp_sweep.sp_full_sweep.launches = 0
-    sp_sweep.sp_full_sweep.launches_by_form = {}
-    verify.verify_and_masks.launches = 0
+    from pdp_solver_tpu_torch.utils.profile_solve import reset_launches
+    reset_launches()
 
 
 def read_counts():
@@ -2685,6 +3001,99 @@ def main():
         require(fres["solved_fraction"] >= MIN_SOLVED_NEURAL,
                 f"the fine-tuned np-nd-np solved {fres['solved_fraction']} "
                 f"< {MIN_SOLVED_NEURAL}")
+
+        solved = {"np-nd-np": nres["solved"], "np-nd-np bf16": hres["solved"],
+                  "p-nd-np": pres["solved"], "p-nd-np bf16": p16["solved"],
+                  "np-d-np": dres["solved"],
+                  "np-d-np band": band["solved"]}
+        log(f"phases 4, 15, 8, 16, 10, 11 solved {json.dumps(solved)}; "
+            f"before the clamp-tie rule {json.dumps(SERVING_SOLVED)}: "
+            f"{'unchanged' if solved == SERVING_SOLVED else 'CHANGED'}")
+        require(solved == SERVING_SOLVED, "a serving path's solved count "
+                "moved from the counts before the clamp-tie rule")
+
+        fam_grad = {}
+        for model, ph in zip(FAMILY, (22, 23)):
+            g = family_grad_check(model, torch, np)
+            fam_grad[model] = g
+            tie = ("the decimated problems equal card against cpu after "
+                   "every outer step; " if model == "np-d-np"
+                   and g["tie"] is None else
+                   f"picks differ from step {g['tie']['step']} (|score| gap"
+                   f" {g['tie']['gap']:.3g}), gated at T = {g['steps']}; "
+                   if g["tie"] else "")
+            log(f"phase {ph} gradients card vs cpu ({model} r4, one "
+                f"{TRAIN_GRAD_DIMS[2]}-edge segment of the r4 stream, "
+                f"{g['edges']} real edges, T = {g['steps']}, dropout 0): "
+                f"{tie}loss card {g['loss_card']:.7g} cpu "
+                f"{g['loss_cpu']:.7g} (rel {g['loss_rel']:.3g}, gate "
+                f"{FAMILY_LOSS_RTOL}); {g['n_grads']} gradients, worst rel "
+                f"{g['grad_rel_max']:.3g} ({g['grad_rel_worst']}; gate "
+                f"{TRAIN_GRAD_REL}); card {g['card_s']:.2f} s, cpu "
+                f"{g['cpu_s']:.2f} s; launches in the forward "
+                f"{json.dumps(g['forward_counts'])}, during backward() "
+                f"{json.dumps(g['backward_counts'])}")
+
+        import itertools
+        t0 = time.time()
+        fsegs = list(itertools.islice(training.family_segments(0, FAMILY[0]),
+                                      FAMILY_STEPS))
+        fgen_s = time.time() - t0
+        fam = {}
+        for model in FAMILY:
+            r = train_family(model, fsegs, torch, np)
+            fam[model] = r
+            log(f"phase 24 {model} recipe: {r['steps']} steps from a fresh "
+                f"init at (V, F, E, B) = {training.FIXED_DIMS} (one set of "
+                f"segments for both recipes, generated first: {fgen_s:.1f} "
+                f"s), every loss finite (first 10 {r['loss_first10']:.4f}, "
+                f"last 10 {r['loss_last10']:.4f}); held-out energy at "
+                f"global_step {TRAIN_EVAL_STEP:g}: {r['energy_before']:.5f} "
+                f"before, {r['energy_after']:.5f} after; "
+                f"{r['ms_per_step']:.1f} ms a step (first step "
+                f"{r['first_step_s']:.2f} s), {r['instances_per_s']:.1f} "
+                f"instances/s ({r['instances_per_step']:.1f} a step), peak "
+                f"{r['peak_bytes'] / 2 ** 30:.2f} GiB; launches in one step "
+                f"{json.dumps(r['step_counts'])}")
+        mres = train_meta_config(fsegs, torch, np)
+        log(f"phase 24 config/Train/p-nd-np-cnf-3-10.yaml (from "
+            f"{mres['source']}): {mres['steps']} steps with meta width 1, "
+            f"zeros injected, every loss finite (first "
+            f"{mres['loss_first']:.4f}, last {mres['loss_last']:.4f})")
+
+        for model in FAMILY:
+            r = resume_and_serve(model, fsegs, insts, torch, np)
+            if model == "p-nd-np":
+                log(f"phase 25 p-nd-np-r4/best resumed (Adam count "
+                    f"{r['adam_count']}), {RESUME_STEPS} steps (loss "
+                    f"{r['loss_first']:.4f} -> {r['loss_last']:.4f}), best "
+                    f"and last saved and read back bit for bit; served: "
+                    f"solved {r['solved']}/{len(insts)} (verified with "
+                    f"numpy; phase 8 with r4 {pres['solved']}) in "
+                    f"{r['wall_s']:.2f} s")
+                require(r["solved"] >= MIN_SOLVED_P_ND_NP,
+                        f"the resumed p-nd-np solved {r['solved']} < "
+                        f"{MIN_SOLVED_P_ND_NP}")
+            else:
+                log(f"phase 25 np-d-np-r4/last resumed (Adam count "
+                    f"{r['adam_count']}), {RESUME_STEPS} steps (loss "
+                    f"{r['loss_first']:.4f} -> {r['loss_last']:.4f}), best "
+                    f"and last saved and read back bit for bit; served on "
+                    f"the band: {r['solved']}/48 (verified with numpy; "
+                    f"phase 11 with r4 {band['solved']}/48) in "
+                    f"{r['wall_s']:.2f} s")
+                require(r["solved"] >= MIN_BAND_SOLVED,
+                        f"the resumed np-d-np solved {r['solved']}/48 of "
+                        f"the band < {MIN_BAND_SOLVED}")
+        del fsegs
+
+        # the launches of one training step of each r4 recipe (phase 24)
+        for name in ("smax", "sround", "segment_sum_cols", "segment_sum_2d",
+                     "gather_2d", "segment_sum_2d[bwd]",
+                     "segment_sum_2d[clause, bwd]", "gather_2d[bwd]",
+                     "gather_2d[clause, bwd]"):
+            rows[name]["training_step_launches"] = {
+                m: fam[m]["step_counts"].get(name, 0) for m in FAMILY}
 
         # each row carries the launches of the path it serves
         serves = {"segment_sum_2d": nlaunches, "gather_2d": nlaunches,

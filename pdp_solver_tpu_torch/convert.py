@@ -64,16 +64,20 @@ def _flatten(tree, prefix=""):
 
 
 def _np_nd_np_config(tree):
-    """The np-nd-np widths, read off the parameter shapes."""
+    """The np-nd-np widths, read off the parameter shapes: the
+    aggregators' w1_a takes the mem_agg columns and the edge features,
+    their w1_m the decimator state, the edge features and the meta
+    features."""
     try:
         gru = tree["dec"]["var_gru"]
         agg = tree["prop"]["var_agg"]
         cls = tree["predictor"]["classifier"]
         hidden = np.shape(gru["w_hh"])[0]
         mem_agg = np.shape(agg["w2_m"]["w"])[1]
+        edge = np.shape(agg["w1_a"]["w"])[0] - mem_agg
         return SolverConfig(
-            model_type="np-nd-np", hidden_dim=hidden,
-            edge_dim=np.shape(agg["w1_a"]["w"])[0] - mem_agg,
+            model_type="np-nd-np", hidden_dim=hidden, edge_dim=edge,
+            meta_dim=np.shape(agg["w1_m"]["w"])[0] - hidden - edge,
             mem_hidden_dim=np.shape(agg["w1_m"]["w"])[1],
             mem_agg_hidden_dim=mem_agg,
             agg_hidden_dim=np.shape(agg["w1_a"]["w"])[1],
@@ -93,9 +97,11 @@ def _np_d_np_config(tree):
         agg = tree["prop"]["var_agg"]
         cls = tree["scorer"]["classifier"]
         mem_agg = np.shape(agg["w2_m"]["w"])[1]
+        hidden = np.shape(agg["w2_a"]["w"])[1]
+        edge = np.shape(agg["w1_a"]["w"])[0] - mem_agg
         return SolverConfig(
-            model_type="np-d-np", hidden_dim=np.shape(agg["w2_a"]["w"])[1],
-            edge_dim=np.shape(agg["w1_a"]["w"])[0] - mem_agg,
+            model_type="np-d-np", hidden_dim=hidden, edge_dim=edge,
+            meta_dim=np.shape(agg["w1_m"]["w"])[0] - hidden - edge,
             mem_hidden_dim=np.shape(agg["w1_m"]["w"])[1],
             mem_agg_hidden_dim=mem_agg,
             agg_hidden_dim=np.shape(agg["w1_a"]["w"])[1],
@@ -106,16 +112,17 @@ def _np_d_np_config(tree):
 
 def _p_nd_np_config(tree):
     """The p-nd-np widths, read off the parameter shapes: the decimator's
-    GRU takes the 3 stacked SP columns and the sign (edge_dim = w_ih rows
-    - 3); the predictor's aggregator has no feature input, so its widths
-    come from its own layers."""
+    GRU takes the 3 stacked SP columns, the sign (edge_dim 1: the only
+    edge feature a module is fed) and the meta features (meta_dim = w_ih
+    rows - 4); the predictor's aggregator has no feature input, so its
+    widths come from its own layers."""
     try:
         gru = tree["dec"]["var_gru"]
         agg = tree["predictor"]["var_agg"]
         cls = tree["predictor"]["classifier"]
         return SolverConfig(
             model_type="p-nd-np", hidden_dim=np.shape(gru["w_hh"])[0],
-            edge_dim=np.shape(gru["w_ih"])[0] - 3,
+            edge_dim=1, meta_dim=np.shape(gru["w_ih"])[0] - 4,
             mem_hidden_dim=np.shape(agg["w1_m"]["w"])[1],
             mem_agg_hidden_dim=np.shape(agg["w2_m"]["w"])[1],
             agg_hidden_dim=np.shape(agg["w1_a"]["w"])[1],

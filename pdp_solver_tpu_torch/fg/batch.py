@@ -68,6 +68,12 @@ the plain versions do (`FGBatch.inner_padding`).
 clause_width, fast_var, fast_clause and var_window are the JAX package's
 pack-time metadata, kept so the port takes the same paths (the WalkSAT
 block rule reads them); the CUDA kernels themselves need none of them.
+
+graph_feat f32[B, meta_dim] holds per-instance meta features: an
+instance tuple's 7th element (the JSON row's 6th, `fg/jsonfmt.py`), zero
+on padding instances, and zero-width when any instance has none (JAX
+fg/batch.py :337-346). `replicate_batch` tiles it and `unpack_instances`
+gives it back.
 """
 
 import dataclasses
@@ -127,6 +133,7 @@ class FGBatch:
     max_instance_clauses: int
     num_instances: int           # rows [0, n) of B the kernels launch
     real: RealRows
+    graph_feat: torch.Tensor     # f32[B, meta_dim]
     var_max_degree: int = None
     clause_max_degree: int = None
     clause_width: int = 0
@@ -302,6 +309,13 @@ def pack_instances(instances: Sequence[tuple], device="cuda",
     var_ptr = _ptr(real_var, pad_v)
     clause_ptr = _ptr(edge_clause[:e_off], pad_f)
 
+    metas = [np.asarray(inst[6], np.float32).reshape(-1)
+             for inst in instances if len(inst) > 6 and inst[6] is not None]
+    graph_feat = np.zeros((pad_b, metas[0].shape[0] if metas
+                           and len(metas) == n_inst else 0), np.float32)
+    if graph_feat.shape[1]:
+        graph_feat[:n_inst] = np.stack(metas)
+
     def t(x, dtype):
         return torch.from_numpy(np.ascontiguousarray(x)).to(
             device=device, dtype=dtype)
@@ -337,6 +351,7 @@ def pack_instances(instances: Sequence[tuple], device="cuda",
         fast_var=fast_var,
         fast_clause=fast_clause,
         var_window=var_window,
+        graph_feat=t(graph_feat, torch.float32),
         num_instances=n_inst,
         real=RealRows(
             var_end=inst_var_ptr[1:], clause_end=inst_clause_ptr[1:],
@@ -447,6 +462,7 @@ def replicate_batch(batch: FGBatch, replication: int) -> FGBatch:
         fast_var=batch.fast_var and tile_aligned,
         fast_clause=batch.fast_clause and tile_aligned,
         var_window=batch.var_window if tile_aligned else 0,
+        graph_feat=batch.graph_feat.repeat(R, 1),
         num_instances=n_pre,
         real=RealRows(
             var_end=t(var_end, torch.int32),
@@ -456,3 +472,37 @@ def replicate_batch(batch: FGBatch, replication: int) -> FGBatch:
             num_clauses=R * f_real, num_edges=R * e_real,
             max_vars=batch.real.max_vars,
             max_clauses=batch.real.max_clauses))
+
+
+def unpack_instances(batch: FGBatch):
+    """The inverse of pack_instances (JAX fg/batch.py :504-537): the
+    per-instance tuples (n, m, graph_map[2, Ei], edge_sign[Ei], label) of
+    the real instances, with (None, meta) appended when the batch carries
+    meta features, read on the host."""
+    def host(x):
+        return x.cpu().numpy()
+    ev, ec, es = host(batch.edge_var), host(batch.edge_clause), host(
+        batch.edge_sign)
+    vb, cb = host(batch.var_batch), host(batch.clause_batch)
+    vm, cm = host(batch.var_mask) > 0, host(batch.clause_mask) > 0
+    em = host(batch.edge_mask) > 0
+    labels, metas = host(batch.label), host(batch.graph_feat)
+    n_real = int(host(batch.instance_mask).sum())
+
+    def offsets(ids):
+        counts = np.bincount(ids, minlength=n_real)[:n_real]
+        return counts, np.concatenate([[0], np.cumsum(counts)])
+    n_by_b, v_off = offsets(vb[vm])
+    m_by_b, f_off = offsets(cb[cm])
+    _, e_off = offsets(vb[ev[em]])
+    out = []
+    for b in range(n_real):
+        sl = slice(int(e_off[b]), int(e_off[b + 1]))
+        gmap = np.stack([ev[sl] - v_off[b], ec[sl] - f_off[b]]).astype(
+            np.int32)
+        inst = [int(n_by_b[b]), int(m_by_b[b]), gmap,
+                es[sl].astype(np.float32), float(labels[b])]
+        if metas.shape[1] > 0:
+            inst += [None, metas[b]]
+        out.append(tuple(inst))
+    return out

@@ -175,3 +175,9 @@ def instances_to_edges(batch, x_b):
     """Instance rows -> edges through the edge's variable (reference
     pdp_propagate.py:52-54)."""
     return x_b[batch.var_batch[batch.edge_var]]
+
+
+def with_meta(x, meta_e):
+    """x [E, a] with the per-edge meta features [E, m] appended (JAX's
+    `with_meta` of the neural modules); x itself when there are none."""
+    return x if meta_e is None else torch.cat([x, meta_e], dim=1)

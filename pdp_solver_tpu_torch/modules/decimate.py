@@ -38,7 +38,8 @@ import torch
 from torch import nn
 
 from pdp_solver_tpu_torch.modules import mlp
-from pdp_solver_tpu_torch.modules.common import col, var_smooth_max
+from pdp_solver_tpu_torch.modules.common import (
+    col, var_smooth_max, with_meta)
 from pdp_solver_tpu_torch.modules.predict import (
     survey_scorer_apply, survey_scorer_tail)
 from pdp_solver_tpu_torch.modules.propagate import SPMessages
@@ -65,8 +66,10 @@ class NeuralDecimator(nn.Module):
     states, frozen on the edges of instances that have stopped. The
     messages are the neural propagator's (var, fn) [E, h] pair (np-nd-np)
     or SPMessages (p-nd-np), whose 1-D columns are stacked into [E, 3] and
-    [E, 2] blocks first (JAX decimate.py:67-71). forward's compute_dtype
-    (the solver's) overrides cfg.compute_dtype."""
+    [E, 2] blocks first (JAX decimate.py:67-71). Per-instance meta
+    features (`meta_e` [E, meta_dim]) follow the messages and the sign at
+    both cells' inputs (:75-91). forward's compute_dtype (the solver's)
+    overrides cfg.compute_dtype."""
 
     def __init__(self, cfg: NeuralDecimatorConfig):
         super().__init__()
@@ -79,7 +82,7 @@ class NeuralDecimator(nn.Module):
             cfg.hidden_dim)
 
     def forward(self, batch, dec_state, message_state, active_edge,
-                compute_dtype=None):
+                compute_dtype=None, meta_e=None):
         old_var, old_fn = dec_state
         if isinstance(message_state, SPMessages):
             msg_var = torch.stack(message_state.var, dim=1)
@@ -89,9 +92,12 @@ class NeuralDecimator(nn.Module):
         feat = col(batch.edge_sign)
         keep = col(active_edge) > 0
         dtype = mlp.cast_for(self.cfg, compute_dtype)
-        var_new = self.var_gru(torch.cat([msg_var, feat], dim=1), old_var,
-                               dtype)
-        fn_new = self.fn_gru(torch.cat([msg_fn, feat], dim=1), old_fn, dtype)
+        var_new = self.var_gru(
+            with_meta(torch.cat([msg_var, feat], dim=1), meta_e), old_var,
+            dtype)
+        fn_new = self.fn_gru(
+            with_meta(torch.cat([msg_fn, feat], dim=1), meta_e), old_fn,
+            dtype)
         var_state = torch.where(keep, var_new, old_var)
         fn_state = torch.where(keep, fn_new, old_fn)
         return var_state, fn_state

@@ -13,7 +13,8 @@ import torch
 from torch import nn
 
 from pdp_solver_tpu_torch.modules import mlp
-from pdp_solver_tpu_torch.modules.common import col, scatter_to_vars_cols
+from pdp_solver_tpu_torch.modules.common import (
+    col, scatter_to_vars_cols, with_meta)
 from pdp_solver_tpu_torch.modules.propagate import SPMessages
 from pdp_solver_tpu_torch.ops import fused
 from pdp_solver_tpu_torch.ops.segment import (
@@ -51,7 +52,9 @@ class NeuralPredictor(nn.Module):
     package). forward -> (prediction [V, prediction_dim], None). With
     compute_dtype "bfloat16" (forward's, the solver's, else
     cfg.compute_dtype) the aggregator takes it and the classifier runs in
-    f32 on its f32 result, as in JAX (predict.py:62-70)."""
+    f32 on its f32 result, as in JAX (predict.py:62-70). Per-instance meta
+    features (`meta_e` [E, meta_dim]) follow the state and the sign at the
+    aggregator's input (:53-61)."""
 
     def __init__(self, cfg: NeuralPredictorConfig):
         super().__init__()
@@ -62,8 +65,10 @@ class NeuralPredictor(nn.Module):
         self.classifier = head(cfg.decimator_dim, cfg.classifier_dim,
                                cfg.prediction_dim)
 
-    def forward(self, batch, dec_state, edge_mask, compute_dtype=None):
-        agg_in = torch.cat([dec_state[0], col(batch.edge_sign)], dim=1)
+    def forward(self, batch, dec_state, edge_mask, compute_dtype=None,
+                meta_e=None):
+        agg_in = with_meta(torch.cat([dec_state[0], col(batch.edge_sign)],
+                                     dim=1), meta_e)
         agg_v = self.var_agg(batch, agg_in, None, "var", edge_mask,
                              mlp.cast_for(self.cfg, compute_dtype))
         return self.classifier(agg_v), None

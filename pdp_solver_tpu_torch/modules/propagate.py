@@ -21,9 +21,11 @@ from torch import nn
 from torch.nn import functional as Fn
 
 from pdp_solver_tpu_torch.modules import mlp
-from pdp_solver_tpu_torch.modules.common import col, dropout
+from pdp_solver_tpu_torch.modules.common import (
+    col, dropout, scatter_to_clauses_cols, scatter_to_vars_cols, with_meta)
 from pdp_solver_tpu_torch.ops import fused
-from pdp_solver_tpu_torch.ops.fused import q_triplet_stable  # noqa: F401
+from pdp_solver_tpu_torch.ops.fused import q_triplet_stable
+from pdp_solver_tpu_torch.ops.segment import LOG_EPS_PROP, safe_exp, safe_log
 from pdp_solver_tpu_torch.ops.sp_sweep import sp_full_sweep, use_sp_sweep
 
 
@@ -59,9 +61,10 @@ class NeuralPropagator(nn.Module):
     training (the module in .train()) each new state goes through dropout
     at cfg.dropout, at JAX's two sites (propagate.py :84, :91: the
     function state's masks drawn first), with masks from the `generator`
-    the caller passes. Per-instance meta features (p-nd-np) are not
-    ported. forward's compute_dtype (the solver's) overrides
-    cfg.compute_dtype."""
+    the caller passes. Per-instance meta features, broadcast to the edges
+    (`meta_e` [E, meta_dim]), follow the decimator state and the sign at
+    both aggregators' inputs (JAX propagate.py :74-87). forward's
+    compute_dtype (the solver's) overrides cfg.compute_dtype."""
 
     def __init__(self, cfg: NeuralPropagatorConfig):
         super().__init__()
@@ -70,7 +73,7 @@ class NeuralPropagator(nn.Module):
         self.fn_agg = mlp.Aggregator(cfg.aggregator_cfg())
 
     def forward(self, batch, prop_state, dec_state, edge_mask, active_edge,
-                compute_dtype=None, generator=None):
+                compute_dtype=None, generator=None, meta_e=None):
         drop = self.training and self.cfg.dropout > 0.0
         if drop and generator is None:
             raise ValueError("NeuralPropagator: dropout in training needs a "
@@ -80,12 +83,14 @@ class NeuralPropagator(nn.Module):
         feat = col(batch.edge_sign)
         keep = col(active_edge) > 0
         dtype = mlp.cast_for(self.cfg, compute_dtype)
-        fn_new = self.var_agg(batch, torch.cat([dec_var, feat], dim=1), feat,
-                              "var", edge_mask, dtype)
+        fn_new = self.var_agg(batch, with_meta(torch.cat([dec_var, feat],
+                                                         dim=1), meta_e),
+                              feat, "var", edge_mask, dtype)
         fn_state = torch.where(keep, fn_new, fn_state)
         fn_state = dropout(generator, fn_state, self.cfg.dropout, drop)
-        var_new = self.fn_agg(batch, torch.cat([dec_fn, feat], dim=1), feat,
-                              "clause", edge_mask, dtype)
+        var_new = self.fn_agg(batch, with_meta(torch.cat([dec_fn, feat],
+                                                         dim=1), meta_e),
+                              feat, "clause", edge_mask, dtype)
         var_state = torch.where(keep, var_new, var_state)
         var_state = dropout(generator, var_state, self.cfg.dropout, drop)
         return var_state, fn_state
@@ -152,12 +157,15 @@ def survey_propagator_apply(cfg: SurveyPropagatorConfig, batch, prop_state,
     log(1 - eta)) then pass C (the q-triplet per edge). With
     PDP_SP_SWEEP=on (read at each call, default off, as in the JAX
     package) and a batch `use_sp_sweep` accepts, the whole sweep is one
-    launch of `ops/sp_sweep.py` instead.
+    launch of `ops/sp_sweep.py` instead. Under autograd (grad mode on and
+    an input that requires grad: p-nd-np's adaptors in training) the
+    sweep takes its differentiable route, `sp_sweep_train`, as the JAX
+    package's training_mode takes its XLA fallback.
 
     dec_state: SPMessages (u = var[0], eta_in and force = fn), or with
     cfg.include_adaptors the neural decimator's (var, fn) [E, h] pair,
     read through `adaptors` (a SurveyAdaptors); u then arrives as log u
-    and both routes take their log-input form (`sp_chain_login`,
+    and every route takes its log-input form (`sp_chain_login`,
     `sp_full_sweep(login=True)`)."""
     v0, v1, v2 = prop_state.var
     eta_state = prop_state.fn[0]
@@ -171,6 +179,13 @@ def survey_propagator_apply(cfg: SurveyPropagatorConfig, batch, prop_state,
         u_like = dec_state.var[0]
         eta_in, force = dec_state.fn
     sign = batch.edge_sign
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (u_like, eta_in, force, eta_state, v0,
+                                      v1, v2)):
+        new_eta, nv0, nv1, nv2 = sp_sweep_train(
+            batch, u_like, eta_in, edge_mask, active_edge, eta_state, force,
+            (v0, v1, v2), float(cfg.pi), login)
+        return SPMessages(var=(nv0, nv1, nv2), fn=(new_eta, force))
     if (use_sp_sweep(batch)
             and os.environ.get("PDP_SP_SWEEP", "off") == "on"):
         new_eta, nv0, nv1, nv2 = sp_full_sweep(
@@ -186,6 +201,37 @@ def survey_propagator_apply(cfg: SurveyPropagatorConfig, batch, prop_state,
         (pn[0], pn[1], eta_in, edge_mask, active_edge, sign, force, v0, v1,
          v2), scalar=float(cfg.pi))
     return SPMessages(var=(nv0, nv1, nv2), fn=(new_eta, force))
+
+
+def sp_sweep_train(batch, u_like, eta_in, em, mask, eta_state, force, v,
+                   pi, login):
+    """The sweep's differentiable route: the JAX package's XLA fallback
+    (propagate.py :623-651), the same math as the chained pass and pass C.
+    Its two segment sums are kernel 4 with its backward rule on the card
+    (`common.scatter_to_clauses_cols` / `scatter_to_vars_cols`; a uniform
+    clause width sums by a reshape, as in JAX); the gathers back to the
+    edges are PyTorch indexing. Returns (new eta, q_u, q_s, q_dc)."""
+    sign = batch.edge_sign
+    log_u = (u_like if login else safe_log(u_like, LOG_EPS_PROP)) * em
+    agg = scatter_to_clauses_cols(batch, (log_u,))[0]
+    eta = safe_exp(agg[batch.edge_clause] - log_u)
+    new_eta = mask * eta + (1.0 - mask) * eta_state
+    lm = safe_log(1.0 - eta_in, LOG_EPS_PROP) * em
+    pos_w = (sign == 1).to(torch.float32)
+    neg_w = (sign == -1).to(torch.float32)
+    pn = scatter_to_vars_cols(batch, (lm * pos_w, lm * neg_w))
+    pos = pn[0][batch.edge_var]
+    neg = pn[1][batch.edge_var]
+    same = 0.5 * (1 + sign) * pos + 0.5 * (1 - sign) * neg - lm
+    same = same + safe_log(
+        1.0 - pi * (force == sign).to(torch.float32), LOG_EPS_PROP)
+    # the opposite polarity's sum never holds the edge itself
+    opp = 0.5 * (1 - sign) * pos + 0.5 * (1 + sign) * neg
+    opp = opp + safe_log(
+        1.0 - pi * (force == -sign).to(torch.float32), LOG_EPS_PROP)
+    q_u, q_s, d, total = q_triplet_stable(same, opp)
+    return (new_eta,) + tuple(mask * (q / total) + (1.0 - mask) * x
+                              for q, x in zip((q_u, q_s, d), v))
 
 
 def survey_propagator_init_state(generator, num_edges, randomized,

@@ -39,7 +39,7 @@ from pdp_solver_tpu_torch.ops import _build
 from pdp_solver_tpu_torch.ops.reduce import (
     csr_bounds, segment_sum_cols_plain, walk_order_sum)
 from pdp_solver_tpu_torch.ops.segment import (
-    LOG_EPS_PROP, LOG_EPS_SCORE, safe_exp, safe_log)
+    LOG_EPS_PROP, LOG_EPS_SCORE, clamp_min, safe_exp, safe_log)
 
 
 F32 = torch.float32
@@ -105,14 +105,17 @@ class ChainFn:
 def q_triplet_stable(same, opp):
     """(q_u, q_s, q_dc, total) from the log-domain same/opp aggregations,
     shifted by max(same, opp) so the normalisation never divides 0/0
-    (propagate.py q_triplet_stable :168)."""
+    (propagate.py q_triplet_stable :168). Its clamps split the gradient
+    at a tie as JAX's jnp.maximum does (`segment.clamp_min`): where opp
+    is 0 (a pure literal, or surveys of exactly 0 on the other polarity)
+    s == d, and q_u sits at its tie."""
     b = torch.maximum(same, opp)
     s = safe_exp(same - b)
     o = safe_exp(opp - b)
     d = safe_exp(same + opp - b)
-    q_u = torch.clamp(s - d, min=0.0)
-    q_s = torch.clamp(o - d, min=0.0)
-    total = torch.clamp(q_u + q_s + d, min=1e-20)
+    q_u = clamp_min(s - d, 0.0)
+    q_s = clamp_min(o - d, 0.0)
+    total = clamp_min(q_u + q_s + d, 1e-20)
     return q_u, q_s, d, total
 
 

@@ -40,7 +40,9 @@ makes one ctypes call. Every launch of the kernel is counted in
 Gradients: when grad mode is on and a column requires grad, each wrapper
 goes through a torch.autograd.Function whose backward gathers the
 cotangent at the ids, on the real edges, and gives the padding edges
-zero (they were never summed). That is the JAX kernels' rule
+zero (they were never summed); each call of such a backward adds one to
+`segment_sum_cols.backward_calls` (a count of the rule's calls: it
+launches no kernel of the port). That is the JAX kernels' rule
 (`pallas_reduce.py _make_fn` bwd :113-116, `pallas_segment.py` :113-115:
 a plain gather `g[i][segment_ids]`), and kernel 5's is its unmasked
 form, since here every real edge is summed over the CSR (JAX's masks
@@ -172,6 +174,7 @@ class _SegmentSumCols(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
+        segment_sum_cols.backward_calls += 1
         return (None,) * 6 + tuple(
             _gather_real(g[c], ids, ctx.num_real) if need else None
             for c, need in enumerate(ctx.needs_input_grad[6:]))
@@ -188,6 +191,7 @@ class _SegmentSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
+        segment_sum_cols.backward_calls += 1
         return (_gather_real(g, ids, ctx.num_real),) + (None,) * 6
 
 
@@ -201,6 +205,7 @@ class _SortedSegmentSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
+        segment_sum_cols.backward_calls += 1
         keep = (ids >= 0) & (ids < ctx.num_segments)
         out = g[ids.clamp(0, ctx.num_segments - 1)]
         return torch.where(keep, out, torch.zeros_like(out)), None, None
@@ -240,6 +245,7 @@ def _segment_sum_cols(cols, ids, num_segments, num_real, ptr, perm,
 
 segment_sum_cols.launches = 0
 segment_sum_cols.launches_by_form = {}
+segment_sum_cols.backward_calls = 0
 
 
 def segment_sum_plain(x, ids, num_segments, num_real):

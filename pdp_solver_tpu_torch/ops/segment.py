@@ -4,6 +4,12 @@ Counterpart of `pdp_solver_tpu/ops/segment.py`, with the same clamps.
 All inputs are [N] or [N, d] tensors with int64 segment ids; padding rows
 must be pre-masked by the caller (0 for sums, excluded via `valid` for
 maxes).
+
+The clamps are `torch.maximum` / `torch.minimum` against a bound held as
+a 0-dim tensor (`bound`), not `torch.clamp`: at a tie (x equal to the
+bound) the JAX package's jnp.maximum / jnp.minimum, and torch.maximum
+between two tensors, send half the gradient to each side, while
+torch.clamp sends all of it to x. The values are the same either way.
 """
 
 import torch
@@ -16,12 +22,35 @@ LOG_EPS_PROP = 1.1754944e-38
 LOG_EPS_SCORE = 1e-10
 
 
+_BOUNDS = {}
+
+
+def bound(value, dtype=torch.float32):
+    """`value` as a 0-dim CPU tensor of `dtype`, made once: the other side
+    of a tie-splitting clamp (a CPU scalar tensor meets a tensor on any
+    device)."""
+    t = _BOUNDS.get((value, dtype))
+    if t is None:
+        t = _BOUNDS[value, dtype] = torch.tensor(value, dtype=dtype)
+    return t
+
+
+def clamp_min(x, lo):
+    """max(x, lo), half the gradient to x at a tie (jnp.maximum's rule)."""
+    return torch.maximum(x, bound(lo, x.dtype))
+
+
+def clamp_max(x, hi):
+    """min(x, hi), half the gradient to x at a tie (jnp.minimum's rule)."""
+    return torch.minimum(x, bound(hi, x.dtype))
+
+
 def safe_log(x, eps=LOG_EPS_PROP):
-    return torch.log(torch.clamp(x, min=eps))
+    return torch.log(clamp_min(x, eps))
 
 
 def safe_exp(x, max_logit=MAX_LOGIT):
-    return torch.exp(torch.clamp(x, max=max_logit))
+    return torch.exp(clamp_max(x, max_logit))
 
 
 def segment_sum(x, segment_ids, num_segments):

@@ -44,9 +44,21 @@ so running out the chunk gives what the JAX loop gives. (The neural
 states of a stopped instance are frozen, and its prediction and solution
 are recomputed from them unchanged.)
 
-Training (np-nd-np): `forward(..., is_training=True)` is JAX's
-`_forward` under is_training, differentiable and outside no_grad; the
-trainer is `train/trainer.py`.
+Training (np-nd-np, p-nd-np, np-d-np): `forward(..., is_training=True)`
+is JAX's `_forward` under is_training, differentiable and outside
+no_grad; the trainer is `train/trainer.py`. p-nd-np's SP sweep then takes
+its differentiable route (`propagate.sp_sweep_train`, kernel 4 and its
+backward rule on the card), and np-d-np's sequential decimator runs on
+detached messages under no_grad, its kernels 1 and 2 included: its picks
+are an argmax and a sign, through which JAX's gradient is zero (its
+stop_gradient of the problem, solvers/base.py:534-542).
+
+Per-instance meta features (`FGBatch.graph_feat`, f32[B, meta_dim]) are
+injected as JAX's `_forward` does (:377-399): the dataset's when the
+config declares meta_dim > 0 (a width mismatch raises ValueError), zeros
+when the dataset has none, and none at meta_dim 0. They reach the edges
+once (`common.instances_to_edges`) and every neural module's inputs
+(np-d-np's scorer takes none, as in JAX).
 
 The classical draws (message inits, REINFORCE's per-iteration coin, the
 random fills) come from one CPU `torch.Generator` (the same numbers on the
@@ -64,6 +76,7 @@ from torch import nn
 
 from pdp_solver_tpu_torch.fg.batch import replicate_batch
 from pdp_solver_tpu_torch.modules import decimate as D
+from pdp_solver_tpu_torch.modules.common import instances_to_edges
 from pdp_solver_tpu_torch.modules.mlp import COMPUTE_DTYPES
 from pdp_solver_tpu_torch.modules import predict as P
 from pdp_solver_tpu_torch.modules import propagate as PR
@@ -184,9 +197,6 @@ class PDPSolver:
                 decimation_probability=c.decimation_probability)
             self.scorer_cfg = P.SurveyScorerConfig(pi=c.pi)
             return
-        if c.meta_dim:
-            raise NotImplementedError("per-instance meta features are not "
-                                      "ported yet")
         neural_prop_cfg = PR.NeuralPropagatorConfig(
             edge_dim=c.edge_dim, decimator_dim=c.hidden_dim,
             meta_dim=c.meta_dim, hidden_dim=c.hidden_dim,
@@ -306,10 +316,28 @@ class PDPSolver:
             raise ValueError(f"{self.cfg.model_type} parameters lack "
                              f"{sorted(missing)}")
 
-    def _propagate(self, params, batch, prop, dec, em, ae):
+    def _meta_edges(self, batch):
+        """The per-edge meta features [E, meta_dim], or None (JAX _forward
+        :377-399)."""
+        md = self.cfg.meta_dim
+        if md <= 0:
+            return None
+        have = batch.graph_feat.shape[1]
+        if have > 0:
+            if have != md:
+                raise ValueError(f"dataset meta feature width {have} != "
+                                 f"configured meta_feature_dim {md}")
+            feat = batch.graph_feat
+        else:
+            feat = torch.zeros((batch.batch_size, md), device=batch.device)
+        return instances_to_edges(batch, feat)
+
+    def _propagate(self, params, batch, prop, dec, em, ae, meta_e=None,
+                   generator=None):
         if self.neural_prop:
             return params["prop"](batch, prop, dec, em, ae,
-                                  self.cfg.compute_dtype)
+                                  self.cfg.compute_dtype,
+                                  generator=generator, meta_e=meta_e)
         return PR.survey_propagator_apply(
             self.prop_cfg, batch, prop, dec, em, ae,
             adaptors=params["prop"] if self.neural_dec else None)
@@ -329,11 +357,12 @@ class PDPSolver:
         return fn
 
     def _predict(self, params, generator, batch, problem, dec, em,
-                 last_call):
+                 last_call, meta_e=None):
         """The variable prediction [V, 1]."""
         if self.neural_dec:
             return params["predictor"](batch, dec, em,
-                                       self.cfg.compute_dtype)[0]
+                                       self.cfg.compute_dtype,
+                                       meta_e=meta_e)[0]
         if self.cfg.model_type == "reinforce":
             return P.reinforce_predictor_apply(batch, dec)[0]
         return P.identity_predictor_apply(generator, problem,
@@ -348,8 +377,8 @@ class PDPSolver:
                 carry=None, finalize=True):
         """One solve (or one chunk of it), under torch.no_grad(); with
         is_training=True the differentiable training forward instead
-        (`_forward_train`, np-nd-np only), whose `generator` is the one
-        its dropout masks are drawn from, on the batch's device.
+        (`_forward_train`, the neural assemblies), whose `generator` is the
+        one its dropout masks are drawn from, on the batch's device.
 
         finalize=True returns ((variable_prediction [V, 1], None), state):
         the decimated solution with random fill on still-active variables
@@ -386,19 +415,22 @@ class PDPSolver:
             problem, active_b0, em0 = carry
             resume = (active_b0, em0)
 
+        meta_e = self._meta_edges(batch)
         if self.cfg.model_type == "walk-sat":
             state, active_b = init_state, batch.instance_mask.clone()
         else:
             problem, state, active_b = self._forward_core(
                 params, generator, batch, problem, init_state,
-                iteration_num, check_termination, resume, replication)
+                iteration_num, check_termination, resume, replication,
+                meta_e)
 
         em = compute_edge_mask(batch, problem)
         if not finalize:
             return (None, None), state, (problem, active_b, em)
 
         var_pred = self._predict(params, generator, batch, problem,
-                                 state.dec, em, last_call=True)
+                                 state.dec, em, last_call=True,
+                                 meta_e=meta_e)
         if self.cfg.local_search_iterations > 0:
             var_pred = self._local_search(generator, batch, problem,
                                           var_pred, replication=replication)
@@ -408,50 +440,76 @@ class PDPSolver:
         return (var_pred, None), state
 
     def check_trainable(self):
-        """Raise unless the assembly has a training forward (np-nd-np)."""
+        """Raise unless the assembly has a training forward (the neural
+        ones: np-nd-np, p-nd-np, np-d-np)."""
         t = self.cfg.model_type
-        if t != "np-nd-np":
+        if not (self.neural_prop or self.neural_dec):
             raise NotImplementedError(
-                f"training {t} is not ported yet: p-nd-np needs meta "
-                "features and a differentiable SP sweep, np-d-np the "
-                "training objective of JAX solvers/base.py:426-439 "
-                "(ROADMAP.md queue 1)")
+                f"{t} has no parameters to train: the neural assemblies "
+                "(np-nd-np, p-nd-np, np-d-np) train")
 
     def _forward_train(self, params, generator, batch, state,
                        iteration_num):
-        """JAX `_forward` under is_training (:352-454) for np-nd-np: no
-        simplification, an unrolled loop of iteration_num iterations with
-        no termination check, the final neural prediction merged into the
-        solution; no local search and no replication. The propagator's
+        """JAX `_forward` under is_training (:352-454): no simplification
+        first, an unrolled loop of iteration_num iterations with no
+        termination check, then the prediction merged into the solution;
+        no local search and no replication. np-nd-np and p-nd-np predict
+        with the neural predictor; np-d-np with its scorer's soft
+        assignment (tanh score + 1) / 2 (JAX :426-439). The propagator's
         dropout (modules in .train()) draws from `generator`. Returns
         ((variable_prediction [V, 1], None), state), differentiable in
-        the parameters and in the init state."""
+        the parameters and in the init state's neural tensors; np-d-np's
+        `aux` carries no grad."""
+        problem, state, meta_e = self._train_core(
+            params, generator, batch, state, iteration_num)
+        if self.neural_dec:
+            em = compute_edge_mask(batch, problem)
+            var_pred = self._predict(params, None, batch, problem, state.dec,
+                                     em, last_call=True, meta_e=meta_e)
+        else:
+            score = self._scorer_fn(params, batch)(state.dec, problem)
+            var_pred = (score + 1.0) * 0.5
+        var_pred, _ = _update_solution(problem, var_pred)
+        return (var_pred, None), state
+
+    def _train_core(self, params, generator, batch, state, iteration_num):
+        """The training forward's loop (JAX `_forward_core` under
+        is_training): returns (problem, state, meta_e). The problem starts
+        fresh; only np-d-np's decimator changes it. Its decimation runs on
+        detached messages under no_grad, so kernels 1 (`smax`) and 2
+        (`sround`) launch on the card, and its scorer call there is
+        detached too; the differentiable scorer call is the prediction's."""
         self.check_trainable()
         self._check_params(params)
-        # the problem is never simplified or decimated in training, so
-        # the masks below are constants: JAX's gradient through them is
-        # zero by construction (its stop_gradient of the problem,
-        # solvers/base.py:534-542), and here they carry no grad at all
+        meta_e = self._meta_edges(batch)
         problem = init_problem_state(batch)
         active_b = batch.instance_mask
         em = batch.edge_mask
         ae = edge_active_instance_mask(batch, active_b)
         dtype = self.cfg.compute_dtype
+        scorer_fn = self._scorer_fn(params, batch)
         for _ in range(iteration_num):
-            prop = params["prop"](batch, state.prop, state.dec, em, ae,
-                                  dtype, generator=generator)
-            dec = params["dec"](batch, state.dec, prop, ae, dtype)
-            state = SolverState(prop=prop, dec=dec, aux=())
+            prop = self._propagate(params, batch, state.prop, state.dec, em,
+                                   ae, meta_e, generator)
+            if self.neural_dec:
+                dec = params["dec"](batch, state.dec, prop, ae, dtype,
+                                    meta_e=meta_e)
+                state = SolverState(prop=prop, dec=dec, aux=())
+            else:
+                with torch.no_grad():
+                    aux, problem, _ = D.sequential_decimator_apply(
+                        self.dec_cfg, self.scorer_cfg, batch, state.aux,
+                        tuple(x.detach() for x in prop), problem, em, None,
+                        scorer_fn=scorer_fn)
+                state = SolverState(prop=prop, dec=prop, aux=aux)
+            # the masks carry no grad: the problem is a constant here, or
+            # moved by the decimator's picks alone
             em, ae = edge_masks_pair(batch, problem, active_b)
-        em = compute_edge_mask(batch, problem)
-        var_pred = self._predict(params, None, batch, problem, state.dec, em,
-                                 last_call=True)
-        var_pred, _ = _update_solution(problem, var_pred)
-        return (var_pred, None), state
+        return problem, state, meta_e
 
     def _forward_core(self, params, generator, batch, problem, state,
                       iteration_num, check_termination, resume=None,
-                      replication=1):
+                      replication=1, meta_e=None):
         """The hot loop (solvers/base.py :456-603, unfolded path).
         REINFORCE draws its coin from `generator` once per iteration. With
         replication an instance is solved once any of its replicas is,
@@ -469,11 +527,11 @@ class PDPSolver:
 
         for _ in range(iteration_num):
             prop = self._propagate(params, batch, state.prop, state.dec, em,
-                                   ae)
+                                   ae, meta_e)
             if self.neural_dec:
                 # the neural decimator never changes the problem
                 dec = params["dec"](batch, state.dec, prop, ae,
-                                    self.cfg.compute_dtype)
+                                    self.cfg.compute_dtype, meta_e=meta_e)
                 state = SolverState(prop=prop, dec=dec, aux=())
             elif self.cfg.model_type == "reinforce":
                 # once no instance is active every edge is frozen and the
@@ -508,7 +566,7 @@ class PDPSolver:
 
             if check_termination:
                 pred = self._predict(params, None, batch, problem, state.dec,
-                                     em, last_call=False)
+                                     em, last_call=False, meta_e=meta_e)
                 var_pred, problem = _update_solution(problem, pred)
                 if use_vm:
                     # verification, the freeze of the instances it solved

@@ -5,14 +5,17 @@ Counterpart of `literal_values` (:20), `energy_loss` (:27-60) and
 differentiable: its two clause sums run in one call of
 `common.scatter_to_clauses_cols` (the reshape on a uniform width, else
 kernel 4 over the clause CSR through its autograd Function, as the JAX
-loss reaches kernel 4 and its VJP). cnf_evaluate's chained pass has no
-backward rule: call it on a prediction that needs no grad.
+loss reaches kernel 4 and its VJP), and its clamps split the gradient at
+a tie as JAX's jnp.maximum / jnp.minimum do (`ops/segment.py`).
+cnf_evaluate's chained pass has no backward rule: call it on a
+prediction that needs no grad.
 """
 
 import torch
 
 from pdp_solver_tpu_torch.modules.common import scatter_to_clauses_cols
 from pdp_solver_tpu_torch.ops import fused
+from pdp_solver_tpu_torch.ops.segment import clamp_max, clamp_min
 
 LOSS_EPS = 1e-8          # reference trainer.py:42
 MAX_COEFF = 10.0         # reference trainer.py:46
@@ -38,16 +41,15 @@ def energy_loss(batch, variable_prediction, global_step, exploration_alpha,
     clauses. global_step is an f32 scalar tensor (or a float)."""
     step = torch.as_tensor(global_step, dtype=torch.float32,
                            device=variable_prediction.device)
-    coeff = torch.clamp(torch.pow(step, exploration_alpha), max=max_coeff)
+    coeff = clamp_max(torch.pow(step, exploration_alpha), max_coeff)
     ev = literal_values(batch, variable_prediction) * batch.edge_mask
     weights = torch.exp(coeff * ev) * batch.edge_mask
     nom, den = scatter_to_clauses_cols(batch, (weights * ev, weights))
-    clause_value = den / torch.clamp(nom, min=eps)
-    clause_value = torch.clamp(clause_value, max=MAX_CLAUSE_VALUE)
+    clause_value = den / clamp_min(nom, eps)
+    clause_value = clamp_max(clause_value, MAX_CLAUSE_VALUE)
     clause_value = 1.0 + torch.pow(clause_value - 1.0, loss_sharpness)
-    log_v = torch.log(torch.clamp(clause_value, min=eps)) * batch.clause_mask
-    return torch.sum(log_v) / torch.clamp(torch.sum(batch.clause_mask),
-                                          min=1.0)
+    log_v = torch.log(clamp_min(clause_value, eps)) * batch.clause_mask
+    return torch.sum(log_v) / clamp_min(torch.sum(batch.clause_mask), 1.0)
 
 
 def cnf_evaluate(batch, variable_prediction):

@@ -1,16 +1,21 @@
 """Training: the T-step BPTT energy loss, the optimizer and the train loop.
 
 Counterpart of `pdp_solver_tpu/train/trainer.py` (`SatTrainer` :41) for
-np-nd-np, the assembly with a differentiable forward here
-(`PDPSolver.forward(is_training=True)`):
+the three neural assemblies, np-nd-np, p-nd-np and np-d-np, whose
+forward is differentiable here (`PDPSolver.forward(is_training=True)`):
 
   * the loss (:94-159): an init state, then T outer steps of
     train_inner_recurrence_num iterations each, the energy of each
     step's prediction weighted lambda^(T-1-t); with train_remat (default
     on) each outer step is recomputed in the backward pass
     (torch.utils.checkpoint, as JAX's jax.checkpoint), which keeps one
-    step's [E, h] activations alive instead of T. train_scan is a JAX
-    compile-size switch with the same math: it is read and ignored;
+    step's [E, h] activations alive instead of T. The state passes from
+    step to step whole: np-d-np's sequential-decimator bookkeeping (its
+    `aux`) rides through the checkpoint as tensors without grad, and its
+    problem starts fresh in every step, as JAX's forward is called with
+    carry=None at each. train_scan (JAX :114-150: a lax.scan over the
+    outer steps, a compile-size switch) has the same math and is
+    accepted: the steps here are a Python loop either way;
   * the optimizer in optax's order (:76-84): clip by global norm
     (optax's rule: scale by max_norm / norm only when norm >= max_norm;
     not clip_grad_norm_, which divides by norm + 1e-6), then add
@@ -37,6 +42,10 @@ preserve_rng_state covers only the default generators). The numbers
 differ from JAX's PRNG; the tests compare the two packages with dropout
 0 and randomized=False, where neither draws.
 
+Checkpoints resume whole: the JAX package's train states hold Adam's
+moments under ['opt'][2] (the r4 checkpoints of p-nd-np and np-d-np do),
+and `_load_train_state` loads them into torch.optim.Adam.
+
 Data parallelism (`data_parallel > 1`), `test`, `predict` and the
 parallel solve are not ported (ROADMAP.md queue 1, items 8 and 9).
 """
@@ -52,6 +61,8 @@ from torch.utils.checkpoint import checkpoint
 
 from pdp_solver_tpu_torch import convert
 from pdp_solver_tpu_torch.fg.loader import BatchLoader
+from pdp_solver_tpu_torch.modules.decimate import SeqDecimatorState
+from pdp_solver_tpu_torch.modules.propagate import SPMessages
 from pdp_solver_tpu_torch.solvers.base import (
     PDPSolver, SolverState, build_solver, random_seed32)
 from pdp_solver_tpu_torch.train import checkpoint as ckpt
@@ -73,6 +84,33 @@ def clip_by_global_norm(grads, max_norm):
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, (g / norm) * max_norm))
+
+
+def state_tensors(state: SolverState):
+    """A training state's tensors in one flat tuple (prop, dec, aux), and
+    the function that rebuilds the state from such a tuple: for
+    torch.utils.checkpoint, which takes and returns tensors."""
+    parts = []
+    for part in (state.prop, state.dec):
+        if isinstance(part, SPMessages):
+            parts.append(("sp", len(part.var), (*part.var, *part.fn)))
+        else:
+            parts.append(("pair", 0, tuple(part)))
+    aux = (() if isinstance(state.aux, tuple)
+           else (state.aux.prev_eta, state.aux.counters, state.aux.has_prev))
+    sizes = [len(p[2]) for p in parts]
+
+    def rebuild(tensors):
+        out, i = [], 0
+        for (kind, n_var, _), n in zip(parts, sizes):
+            xs = tuple(tensors[i:i + n])
+            i += n
+            out.append(SPMessages(var=xs[:n_var], fn=xs[n_var:])
+                       if kind == "sp" else xs)
+        rest = tuple(tensors[i:])
+        return SolverState(prop=out[0], dec=out[1],
+                           aux=SeqDecimatorState(*rest) if rest else ())
+    return parts[0][2] + parts[1][2] + aux, rebuild
 
 
 class SatTrainer:
@@ -115,19 +153,19 @@ class SatTrainer:
 
     # ---------------------------------------------------------------- train
 
-    def _outer_step(self, params, batch, t_inner, seed):
+    def _outer_step(self, params, batch, t_inner, seed, rebuild):
         """One outer BPTT step as a function of the state tensors, for
         torch.utils.checkpoint: its dropout generator is made from `seed`
         here, so a recompute draws the same masks."""
-        def step(pv, pf, dv, df):
+        def step(*tensors):
             gen = None
             if seed is not None:
-                gen = torch.Generator(device=pv.device)
+                gen = torch.Generator(device=batch.device)
                 gen.manual_seed(seed)
             (pred, _), st = self.solver.forward(
-                params, gen, batch, SolverState((pv, pf), (dv, df), ()),
-                t_inner, is_training=True)
-            return (pred, *st.prop, *st.dec)
+                params, gen, batch, rebuild(tensors), t_inner,
+                is_training=True)
+            return (pred, *state_tensors(st)[0])
         return step
 
     def loss(self, params, batch, global_step, init_state=None):
@@ -144,16 +182,18 @@ class SatTrainer:
         kappa = c.get("loss_sharpness", 1)
         remat = (bool(c.get("train_remat", True))
                  and torch.is_grad_enabled())
-        drop = params.training and self.solver.cfg.dropout > 0.0
+        # the neural propagator is the one module with dropout
+        drop = (params.training and self.solver.neural_prop
+                and self.solver.cfg.dropout > 0.0)
         state = init_state
         if state is None:
             state = self.solver.get_init_state(
                 self._gen, batch, bool(c.get("randomized", True)))
-        tensors = (*state.prop, *state.dec)
+        tensors, rebuild = state_tensors(state)
         loss = torch.zeros((), device=batch.device)
         for t in range(t_outer):
             seed = random_seed32(self._gen) if drop else None
-            step = self._outer_step(params, batch, t_inner, seed)
+            step = self._outer_step(params, batch, t_inner, seed, rebuild)
             if remat:
                 pred, *tensors = checkpoint(step, *tensors,
                                             use_reentrant=False,

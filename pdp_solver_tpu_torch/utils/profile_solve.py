@@ -36,17 +36,20 @@ side). --compute-dtype bfloat16 runs a neural model's aggregators and GRU
 cells in bf16 (SolverConfig.compute_dtype); the other models refuse it.
 Needs a CUDA card; exits 2 without one.
 
-    python -m pdp_solver_tpu_torch.utils.profile_solve --train [--steps N]
+    python -m pdp_solver_tpu_torch.utils.profile_solve --train \
+        [--model np-nd-np|p-nd-np|np-d-np] [--steps N]
 
-profiles training instead: SatTrainer at the flagship recipe
-(utils/training.py FLAGSHIP_RECIPE, a fresh seeded init) on segments of
-the flagship mixture at the fixed dims (8192, 32768, 131072, 128),
-generated first: ms per step over N steps (default 5; host clock around
-synchronised steps, after a warm-up step), then one step under the
-profiler: its device busy time, idle share, top kernels and the port's
-own kernels, the launches of kernels 6 and 7 in the step (forward with
-remat's recompute, and as the other's backward rule), peak memory and
-the host time of generating and packing a segment.
+profiles training instead: SatTrainer from a fresh seeded init at the
+flagship recipe (np-nd-np, the default: utils/training.py
+FLAGSHIP_RECIPE, on the flagship mixture) or at the recipe that made the
+r4 checkpoint (p-nd-np, np-d-np: FAMILY_RECIPES, on family_stream), on
+segments at the fixed dims (8192, 32768, 131072, 128), generated first:
+ms per step over N steps (default 5; host clock around synchronised
+steps, after a warm-up step), then one step under the profiler: its
+device busy time, idle share, top kernels and the port's own kernels, the
+launches of each of the port's kernels in the step (forward with remat's
+recompute; kernels 6 and 7 also as the other's backward rule), peak
+memory and the host time of generating and packing a segment.
 """
 
 import argparse
@@ -195,18 +198,68 @@ def solve_profile(solve):
                                for n in own_names)]}
 
 
-def train_profile(steps=5):
-    """ms per training step at the flagship recipe and fixed dims, and a
-    profile of one step."""
+def reset_launches():
+    """Every launch count of the port's wrappers to 0."""
+    from pdp_solver_tpu_torch.ops import (
+        fused, reduce, reduce2d, sp_sweep, verify, walksat)
+    for fn in (fused.fused_edge_pass, fused.chained_edge_pass):
+        fn.launches, fn.launches_by_fn = 0, {}
+    for fn in (reduce2d.segment_sum_2d, reduce2d.gather_2d):
+        fn.launches = fn.launches_bf16 = 0
+        fn.launches_bwd = {"var": 0, "clause": 0}
+    reduce.segment_sum_cols.launches = 0
+    reduce.segment_sum_cols.launches_by_form = {}
+    reduce.segment_sum_cols.backward_calls = 0
+    sp_sweep.sp_full_sweep.launches = 0
+    sp_sweep.sp_full_sweep.launches_by_form = {}
+    verify.verify_and_masks.launches = 0
+    walksat.walksat_walk.launches = 0
+
+
+def read_launches():
+    """The launches since reset_launches, by kernel (kernels 1 and 2 by
+    functor; kernels 6 and 7 with their launches as the other's backward
+    rule, by side; kernel 4 by form)."""
+    from pdp_solver_tpu_torch.ops import (
+        fused, reduce, reduce2d, sp_sweep, verify, walksat)
+    out = {f"fused_edge_pass[{k}]": v
+           for k, v in fused.fused_edge_pass.launches_by_fn.items()}
+    out.update({f"chained_edge_pass[{k}]": v
+                for k, v in fused.chained_edge_pass.launches_by_fn.items()})
+    for name, fn in (("segment_sum_2d", reduce2d.segment_sum_2d),
+                     ("gather_2d", reduce2d.gather_2d)):
+        out[name] = fn.launches
+        out[f"{name}[bf16]"] = fn.launches_bf16
+        out.update({f"{name}[{side}, bwd]": n
+                    for side, n in fn.launches_bwd.items()})
+    out["segment_sum_cols"] = reduce.segment_sum_cols.launches
+    out.update({f"segment_sum_cols[{k}]": v for k, v in
+                reduce.segment_sum_cols.launches_by_form.items()})
+    out["segment_sum_cols[rule calls]"] = (
+        reduce.segment_sum_cols.backward_calls)
+    out["sp_full_sweep"] = sp_sweep.sp_full_sweep.launches
+    out["verify_and_masks"] = verify.verify_and_masks.launches
+    out["walksat_walk"] = walksat.walksat_walk.launches
+    return out
+
+
+def train_profile(steps=5, model="np-nd-np"):
+    """ms per training step at the model's recipe and the fixed dims, and
+    a profile of one step."""
     import itertools
     from torch.profiler import ProfilerActivity, profile
-    from pdp_solver_tpu_torch.ops import reduce2d
     from pdp_solver_tpu_torch.train.trainer import SatTrainer
     from pdp_solver_tpu_torch.utils import training
     t0 = time.time()
-    segs = list(itertools.islice(training.flagship_segments(0), steps + 2))
+    if model == "np-nd-np":
+        recipe, stream = (training.FLAGSHIP_RECIPE,
+                          training.flagship_segments(0))
+    else:
+        recipe = training.FAMILY_RECIPES[model]
+        stream = training.family_segments(23, model)
+    segs = list(itertools.islice(stream, steps + 2))
     gen_ms = (time.time() - t0) / len(segs) * 1e3
-    tr = SatTrainer(training.FLAGSHIP_RECIPE, seed=0, device="cuda")
+    tr = SatTrainer(recipe, seed=0, device="cuda")
     ts = tr.init_train_state()
     ts, _, _ = tr.train_segments(ts, iter(segs[:1]))
     torch.cuda.synchronize()
@@ -215,10 +268,7 @@ def train_profile(steps=5):
     ts, _, n_inst = tr.train_segments(ts, iter(segs[1:-1]))
     torch.cuda.synchronize()
     wall_ms = (time.time() - t0) * 1e3 / steps
-    s, g = reduce2d.segment_sum_2d, reduce2d.gather_2d
-    s.launches = g.launches = 0
-    s.launches_bwd = {"var": 0, "clause": 0}
-    g.launches_bwd = {"var": 0, "clause": 0}
+    reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
@@ -246,10 +296,7 @@ def train_profile(steps=5):
         "kernel_launches": sum(c for _, c in kernels.values()),
         "peak_bytes": torch.cuda.max_memory_allocated(),
         "gen_ms_per_segment": gen_ms,
-        "kernels_6_7": {"segment_sum_2d": s.launches,
-                        "segment_sum_2d_bwd": dict(s.launches_bwd),
-                        "gather_2d": g.launches,
-                        "gather_2d_bwd": dict(g.launches_bwd)},
+        "launches": {k: v for k, v in read_launches().items() if v},
         "busy_shares": shares,
         "top_kernels": [{"name": k[:80], "device_ms": us / 1e3,
                          "count": c} for k, (us, c) in top],
@@ -263,9 +310,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seeds", type=int, nargs="*", default=[0, 1, 2],
                     help="the seeds to solve (none: only the hot loop)")
-    ap.add_argument("--model", default="p-d-p",
+    ap.add_argument("--model", default=None,
                     choices=("p-d-p", "np-d-np", "np-nd-np", "p-nd-np",
-                             "walk-sat", "reinforce"))
+                             "walk-sat", "reinforce"),
+                    help="the model solved (default p-d-p) or, with "
+                         "--train, trained (default np-nd-np)")
     ap.add_argument("--settings", choices=("headline", "reference"),
                     default="headline", help="p-d-p's settings")
     ap.add_argument("--sp-sweep", action="store_true",
@@ -284,10 +333,15 @@ def main(argv=None):
     ap.add_argument("--no-profile", action="store_true",
                     help="skip the hot-loop timing and trace")
     ap.add_argument("--train", action="store_true",
-                    help="profile a training step at the flagship recipe")
+                    help="profile a training step at the model's recipe")
     ap.add_argument("--steps", type=int, default=5,
                     help="--train: the steps timed")
     args = ap.parse_args(argv)
+    if args.train:
+        args.model = args.model or "np-nd-np"
+        if args.model not in NEURAL:
+            ap.error(f"--train takes a neural model, not {args.model}")
+    args.model = args.model or "p-d-p"
     dt = args.compute_dtype
     if dt != "float32" and args.model not in NEURAL:
         ap.error(f"--compute-dtype {dt} takes a neural model")
@@ -304,8 +358,9 @@ def main(argv=None):
     card = smi.stdout.strip().splitlines()[0] if smi.stdout else None
     if args.train:
         print(json.dumps({"device": torch.cuda.get_device_name(0),
-                          "card": card, "model": "np-nd-np",
-                          "train": train_profile(args.steps)}), flush=True)
+                          "card": card, "model": args.model,
+                          "train": train_profile(args.steps, args.model)}),
+              flush=True)
         return 0
     insts = make_ksat_set()
     R = args.replicas

@@ -427,11 +427,6 @@ def test_unported_parts_raise():
                tr._parallel_solve_fn):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fn()
-    for model, cfg in (("p-nd-np", {}), ("np-d-np", {})):
-        t = SatTrainer(dict(CFG, model_type=model, **cfg), device="cpu")
-        b = pack_instances(_instances(8), device="cpu")
-        with pytest.raises(NotImplementedError, match="queue 1"):
-            t.loss(t.params, b, torch.tensor(1.0))
 
 
 def test_serving_forward_is_unchanged_by_training_mode():
