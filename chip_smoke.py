@@ -75,13 +75,22 @@ Phases, one flushed line each with the elapsed seconds:
      replicated, from a random fill and from a problem where every
      instance gets a solved replica before the last block, timed per call
      and per block; np-d-np's decimator pass (`smax`, kernel 1) with the
-     other functors;
+     other functors; the sweep folds (`sp_chain_dec`, `sp_chain_mask`,
+     `sp_chain_maskv`, `sp_pass_c_lean`) as every functor above (their
+     em, ae and counts exactly), then bit for bit against the split
+     passes they replace (sp_chain, smax_scorer, em_ae, cnf_chain,
+     sp_pass_c) from one loop state on the shared set, the compacted
+     batch, the hub and both replicated, and timed three ways beside
+     them;
   3. p-d-p path: compacting_solve at the headline settings (tolerance
      0.08, t_max 50, 1000 iterations, 1000 WalkSAT flips, restart schedule
      0.35/0.35/0.3, chunk 50, simplify_rounds 1) on the shared set
      (fingerprint d3cba04af19db12d), every solution verified with numpy
      against its CNF; the solved fraction must be >= 0.60 and every kernel
-     of the path launched at least once;
+     of the path launched at least once. Its loop is the JAX package's
+     chip default, with every sweep fold: `sp_chain_maskv` and
+     `sp_pass_c_lean` launched, and no sp_chain, sp_pass_c, smax_scorer or
+     em_ae;
   4. np-nd-np path: compacting_solve with the trained r3 checkpoint at
      full width (hidden 150; 1000 iterations, 1000 WalkSAT flips, chunk
      50) on the same set, every solution verified with numpy; the solved
@@ -96,8 +105,10 @@ Phases, one flushed line each with the elapsed seconds:
      after 1 iteration forces, predictions and active flags equal except
      at variables whose CPU |score| < 1e-5 (counted), SP messages to rtol
      1e-5 / atol 1e-6; after 10 iterations under 1% of the forces differ;
-  7. p-d-p with PDP_SP_SWEEP=on: phase 3's solve through the one-launch
-     sweep; >= 0.60 solved and kernel 9 launched once per iteration;
+  7. p-d-p with PDP_SP_SWEEP=on PDP_SWEEP_DEC_FOLD=off (the folds bypass
+     kernel 9, as in the JAX package): phase 34's unfolded solve through
+     the one-launch sweep; >= 0.60 solved and kernel 9 launched once per
+     iteration;
   8. p-nd-np path: compacting_solve with the trained r4 checkpoint at full
      width (hidden 150; 1000 iterations, 1000 WalkSAT flips, chunk 50),
      every solution verified with numpy; >= 28/128 solved and the log-input
@@ -122,7 +133,9 @@ Phases, one flushed line each with the elapsed seconds:
      WalkSAT flips, check_termination): every deduplicated solution
      verified with numpy and against the solver's flags, and the
      replicated walk launched once a block (25 launches). Then the same
-     forward from one injected state on the card and on the CPU: after 1
+     forward from one injected state on the card and on the CPU, folded
+     on both (PDP_FUSED_PASS=on on the CPU, whose default is the unfolded
+     path): after 1
      iteration every state column on every edge to rtol 1e-5 / atol
      1e-6 and the carry (the problem, the flags, the edge mask) exactly;
      after 30 under 1% of the variables' flags or values differ;
@@ -262,10 +275,18 @@ Phases, one flushed line each with the elapsed seconds:
      Every launch count of phases 30-33 is read in the rank's process
      and summed over ranks; no retry happens in any process but the
      injected one;
- 34. the {"kernels": [...]} line (each row with the launches of phase 26's
-     serve and of phases 30-33's paths beside its own path's), the card's
-     name and power limit, and as the last line {"ok": true, "device":
-     {...}}.
+ 34. (run right after phase 3) p-d-p unfolded (PDP_SWEEP_DEC_FOLD=off):
+     phase 3's solve through the split passes, >= 0.60, printed beside
+     phase 3's count, no fold launched; with PDP_SWEEP_MASK_FOLD=off
+     (the decimator fold alone) and with PDP_SWEEP_VERIFY_FOLD=off (the
+     mask fold too): each the unfolded run's count, since their passes
+     give the split passes' bits; then phase 13's card-against-CPU check
+     on the folded forward(replication=1);
+ 35. the {"kernels": [...]} line (each row with the launches of phase 26's
+     serve and of phases 30-33's paths beside its own path's; the split
+     passes' with phase 34's unfolded run, sp_chain_dec's and
+     sp_chain_mask's with its partial fold runs), the card's name and
+     power limit, and as the last line {"ok": true, "device": {...}}.
 
 Phases 4, 8, 10, 11, 15 and 16's solved counts are held equal to the
 counts the card gave before the clamp-tie rule of ops/segment.py, which
@@ -355,6 +376,16 @@ HIDDEN_AGG = 50      # np-nd-np's mem_agg_hidden_dim: the width kernels 6/7 see
 FLOAT_TOL = dict(rtol=1e-5, atol=1e-6)
 # functors whose outputs are flags or small integer counts
 EXACT_FNS = {"em_ae", "em", "ae", "sround", "cnf_chain", "ws_chain"}
+# the sweep folds' flag and count outputs, by index among a pass's flat
+# outputs (vred, eta, em, ae, then the verification's counts)
+EXACT_OUTPUTS = {"sp_chain_mask": {2, 3}, "sp_chain_maskv": {2, 3, 4}}
+# the folded p-d-p loop (phase 3, JAX's chip default): its sweep and lean
+# pass C launched, the split passes they replace never
+FOLDED_PDP_KERNELS = ("sp_chain_maskv", "sp_pass_c_lean", "sround",
+                      "cnf_chain", "walksat_walk")
+SPLIT_PDP_KERNELS = ("sp_chain", "sp_pass_c", "smax_scorer", "em_ae")
+FOLD_KERNELS = ("sp_chain_dec", "sp_chain_mask", "sp_chain_maskv",
+                "sp_pass_c_lean")
 # training (phases 19-21): the card-against-CPU gradient check's segment
 # (V, F, E, B), a quarter of the flagship run's fixed dims, and its gates
 TRAIN_GRAD_DIMS = (2048, 8192, 32768, 32)
@@ -604,12 +635,13 @@ def hold_pass(fn, batch, ins, torch, label=""):
     for r, o in zip(ref, got):
         require((r is None) == (o is None), f"{what}: unexpected output")
     refs, gots = _flat(ref), _flat(got)
-    for r, o in zip(refs, gots):
+    exact = EXACT_OUTPUTS.get(fn.name, ())
+    for i, (r, o) in enumerate(zip(refs, gots)):
         require(r.shape == o.shape, f"{what}: shape {tuple(o.shape)}"
                 f" != {tuple(r.shape)}")
         require(bool(torch.isfinite(o).all()), f"{what}: non-finite")
         err = max(err, float((o - r).abs().max()))
-        if fn.name in EXACT_FNS:
+        if fn.name in EXACT_FNS or i in exact:
             require(torch.equal(o, r), f"{what}: not exact "
                     f"(max abs err {err})")
         else:
@@ -705,6 +737,102 @@ def check_kernels_replicated(insts, torch):
             f" {b.num_real_edges - b.real.num_edges} padding edges inside "
             f"the prefix): every functor matches its plain version")
     return errs
+
+
+def check_folds(insts, torch):
+    """The sweep folds on the card against the split passes they replace
+    (utils/bench_kernels.py split_sweep, folded_sweep), on one state of
+    the p-d-p loop (`fold_inputs`) of the shared set, a compacted batch
+    (8 instances), the hub and both replicated twice: sp_chain_dec,
+    sp_chain_mask and sp_chain_maskv, each followed by sp_pass_c_lean,
+    give the split path's variable sums (sp_chain's two, then
+    smax_scorer's eight), eta, em, ae, q_u and the verification's counts
+    bit for bit. On the shared set each fold and the lean pass C are then
+    timed three ways beside the split launches they replace, and one
+    loop iteration's sweep folded beside split. Returns {functor:
+    numbers}."""
+    from pdp_solver_tpu_torch.fg.batch import pack_instances, replicate_batch
+    from pdp_solver_tpu_torch.ops import fused
+    from pdp_solver_tpu_torch.utils.bench_kernels import (
+        fold_inputs, folded_sweep, hub_batch, split_sweep, timed)
+    full = pack_instances(insts, device="cuda")
+    small = pack_instances(insts[:8], device="cuda")
+    shapes = {"shared": full, "compacted": small, "hub": hub_batch(),
+              "replicated shared": replicate_batch(full, 2),
+              "replicated compacted": replicate_batch(small, 2)}
+    for label, b in shapes.items():
+        x = fold_inputs(b)
+        split = split_sweep(b, x)
+        for fold in ("dec", "mask", "maskv"):
+            got = folded_sweep(b, x, fold)
+            torch.cuda.synchronize()
+            for key, out in got.items():
+                ref = split[key]
+                diff = float((out - ref).abs().max())
+                require(torch.equal(out, ref), f"sp_chain_{fold} ({label}):"
+                        f" {key} is not the split path's bits (max abs "
+                        f"diff {diff:.3g})")
+    log("sweep folds: sp_chain_dec, sp_chain_mask and sp_chain_maskv with "
+        "sp_pass_c_lean give the split path's bits (sums, eta, em, ae, "
+        f"q_u, counts) on {', '.join(shapes)}")
+    b, x = full, fold_inputs(full)
+    out = {}
+    F = fused
+    em, ae = F.fused_edge_pass(F.EM_AE, b, (x["av"], x["abv"], x["ac"],
+                                            x["bmask"]))[1]
+    edges = (x["u_in"], x["eta_in"], x["eta_state"], x["sign"], x["force"],
+             x["bmask"])
+    _, pn, (eta,), _ = F.chained_edge_pass(F.SP_CHAIN, b, (
+        x["u_in"], x["eta_in"], em, ae, x["eta_state"], x["sign"]))
+    calls = {
+        "em_ae": lambda: F.fused_edge_pass(
+            F.EM_AE, b, (x["av"], x["abv"], x["ac"], x["bmask"])),
+        "sp_chain": lambda: F.chained_edge_pass(F.SP_CHAIN, b, (
+            x["u_in"], x["eta_in"], em, ae, x["eta_state"], x["sign"])),
+        "smax_scorer": lambda: F.fused_edge_pass(F.SMAX_SCORER, b, (
+            x["ac"], x["eta_state"], eta, em, x["bmask"], x["force"],
+            x["sign"])),
+        "cnf_chain": lambda: F.chained_edge_pass(F.CNF_CHAIN, b, (
+            x["sol"], x["sign"], x["bmask"], x["cm"])),
+        "sp_pass_c": lambda: F.fused_edge_pass(F.SP_PASS_C, b, (
+            pn[0], pn[1], x["eta_in"], em, ae, x["sign"], x["force"],
+            x["v0"], x["v1"], x["v2"])),
+        "sp_chain_dec": lambda: F.chained_edge_pass(F.SP_CHAIN_DEC, b, (
+            x["ac"], x["u_in"], x["eta_in"], em, ae, x["eta_state"],
+            x["sign"], x["force"], x["bmask"])),
+        "sp_chain_mask": lambda: F.chained_edge_pass(
+            F.SP_CHAIN_MASK, b, (x["av"], x["abv"], x["ac"]) + edges),
+        "sp_chain_maskv": lambda: F.chained_edge_pass(
+            F.SP_CHAIN_MASKV, b,
+            (x["av"], x["abv"], x["sol"], x["ac"], x["cm"]) + edges),
+        "sp_pass_c_lean": lambda: F.fused_edge_pass(F.SP_PASS_C_LEAN, b, (
+            pn[0], pn[1], x["eta_in"], em, ae, x["sign"], x["force"],
+            x["v0"])),
+    }
+    replaced = {"sp_chain_dec": ("sp_chain", "smax_scorer"),
+                "sp_chain_mask": ("em_ae", "sp_chain", "smax_scorer"),
+                "sp_chain_maskv": ("em_ae", "sp_chain", "smax_scorer",
+                                   "cnf_chain"),
+                "sp_pass_c_lean": ("sp_pass_c",)}
+    for name, parts in replaced.items():
+        kern = timed(calls[name])
+        spl = timed(lambda: [calls[p]() for p in parts])
+        out[name] = dict(
+            fold_bits_equal_split=True, split_launches=list(parts),
+            split_ms=spl["ms"], split_host_us=spl["host_us"],
+            split_device_us=spl["device_us"],
+            fold_device_us=kern["device_us"])
+        log(f"{name}: {timing_note(kern)}; the split launches it replaces "
+            f"({' + '.join(parts)}) {timing_note(spl)}")
+    fold_t = timed(lambda: folded_sweep(b, x))
+    split_t = timed(lambda: split_sweep(b, x))
+    for name in replaced:
+        out[name].update(sweep_folded_device_us=fold_t["device_us"],
+                         sweep_split_device_us=split_t["device_us"])
+    log(f"one loop iteration's sweep (shared set): folded (sp_chain_maskv "
+        f"+ sp_pass_c_lean) {timing_note(fold_t)}; split (em_ae, sp_chain, "
+        f"sp_pass_c, smax_scorer, cnf_chain) {timing_note(split_t)}")
+    return out
 
 
 # the numbers of blocks each WalkSAT shape is checked at: one, the old
@@ -1474,8 +1602,10 @@ def check_chained_walk(fn, b, label, torch):
             fn, b, [t.double() for t in ins])[1].float()
     torch.cuda.synchronize()
     err = 0.0
-    for o, a, r in zip(_flat(got), _flat(again), _flat(ref)):
-        err = max(err, _check_sum(torch, name, o, r, exact))
+    flags = EXACT_OUTPUTS.get(fn.name, ())
+    for i, (o, a, r) in enumerate(zip(_flat(got), _flat(again),
+                                      _flat(ref))):
+        err = max(err, _check_sum(torch, name, o, r, exact or i in flags))
         require(torch.equal(o, a), f"{name}: two calls differ")
     if fn.n_vred:
         emu = fused.chained_vred_walk_order(fn, b, ins)
@@ -2002,9 +2132,30 @@ def _tensors(x):
     return []
 
 
-def replicated_card_vs_cpu(insts, torch):
-    """Phase 13's forward(replication=2) from one injected state at full
-    size, on the card and on the CPU: after one iteration (the sequential
+class switches:
+    """Environment switches set for a with block, as they were after."""
+
+    def __init__(self, **kw):
+        self.kw, self.old = kw, {}
+
+    def __enter__(self):
+        self.old = {k: os.environ.get(k) for k in self.kw}
+        os.environ.update(self.kw)
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def card_vs_cpu(insts, torch, replication=2):
+    """Phase 13's forward(replication=2), or phase 34's folded forward
+    (replication=1), from one injected state at full size, on the card and
+    on the CPU, with the sweep folds on both sides (the card's default;
+    PDP_FUSED_PASS=on on the CPU, whose default is the unfolded path, as
+    the JAX package's is): after one iteration (the sequential
     decimator's first, which fixes nothing) every message and decimator
     column on every edge, padding included, to FLOAT_TOL, and the loop's
     carry (the problem's flags and solution, the active instances, the
@@ -2014,39 +2165,47 @@ def replicated_card_vs_cpu(insts, torch):
     under MAX_FORCE_DIFF_SHARE (a near tie of |score| that the order of a
     sum decides can send an instance another way)."""
     from pdp_solver_tpu_torch.fg.batch import pack_instances, replicate_batch
+    from pdp_solver_tpu_torch.modules import propagate as PR
     from pdp_solver_tpu_torch.utils.headline import HEADLINE, headline_solver
     solver = headline_solver(dict(HEADLINE, ls=REP_FLIPS))
+    R = replication
+    what = "replicated card vs cpu" if R > 1 else "folded card vs cpu"
+    on_cpu = switches(PDP_FUSED_PASS="on")
     runs = {}
     for dev in ("cuda", "cpu"):
         batch = pack_instances(insts, device=dev)
         gen = torch.Generator().manual_seed(0)
         state = solver.get_init_state(gen, batch, randomized=True,
-                                      replication=2)
-        _, s1, c1 = solver.forward({}, gen, batch, state, 1,
-                                   check_termination=True, finalize=False,
-                                   replication=2)
-        runs[dev] = [replicate_batch(batch, 2), s1, c1]
+                                      replication=R)
+        with (on_cpu if dev == "cpu" else switches()):
+            require(PR.sweep_folds(replicate_batch(batch, R) if R > 1
+                                   else batch) == (True,) * 3,
+                    f"{what}: the folds are off on the {dev}")
+            _, s1, c1 = solver.forward({}, gen, batch, state, 1,
+                                       check_termination=True,
+                                       finalize=False, replication=R)
+        runs[dev] = [replicate_batch(batch, R) if R > 1 else batch, s1, c1]
     (bg, sg, cg), (bc, sc, cc) = runs["cuda"], runs["cpu"]
     msg_err = 0.0
     for a, b in zip(_tensors(sg), _tensors(sc)):
         a = a.cpu()
-        require(a.shape == b.shape, "replicated card vs cpu: state shapes "
-                "differ")
+        require(a.shape == b.shape, f"{what}: state shapes differ")
         if a.is_floating_point():
             msg_err = max(msg_err, float((a - b).abs().max()))
-            require(torch.allclose(a, b, **FLOAT_TOL), "replicated card vs "
-                    f"cpu: states differ by {msg_err} after 1 iteration")
+            require(torch.allclose(a, b, **FLOAT_TOL), f"{what}: states "
+                    f"differ by {msg_err} after 1 iteration")
     carry_g, carry_c = _tensors(cg), _tensors(cc)
     for a, b in zip(carry_g, carry_c):
-        require(torch.equal(a.cpu(), b), "replicated card vs cpu: the "
-                "problem, flags or edge mask differ after 1 iteration")
+        require(torch.equal(a.cpu(), b), f"{what}: the problem, flags or "
+                "edge mask differ after 1 iteration")
     for dev, run in runs.items():
         b, st, carry = run
-        _, run[1], run[2] = solver.forward(
-            {}, torch.Generator().manual_seed(1), b, st,
-            REP_CMP_ITERATIONS - 1,
-            check_termination=True, carry=carry, finalize=False,
-            replication=2)
+        with (on_cpu if dev == "cpu" else switches()):
+            _, run[1], run[2] = solver.forward(
+                {}, torch.Generator().manual_seed(1), b, st,
+                REP_CMP_ITERATIONS - 1,
+                check_termination=True, carry=carry, finalize=False,
+                replication=R)
     pg, pc = runs["cuda"][2][0], runs["cpu"][2][0]
     real = bc.var_mask > 0
     differ = ((pg.active_vars.cpu() != pc.active_vars)
@@ -2054,9 +2213,8 @@ def replicated_card_vs_cpu(insts, torch):
     share = float(differ.sum()) / float(real.sum())
     fixed = int(((pc.active_vars == 0) & real).sum())
     flags = int((runs["cuda"][2][1].cpu() != runs["cpu"][2][1]).sum())
-    require(share < MAX_FORCE_DIFF_SHARE, f"replicated card vs cpu: "
-            f"{share:.4%} of the variables differ after "
-            f"{REP_CMP_ITERATIONS} iterations")
+    require(share < MAX_FORCE_DIFF_SHARE, f"{what}: {share:.4%} of the "
+            f"variables differ after {REP_CMP_ITERATIONS} iterations")
     return {"state_max_abs_err": msg_err, "var_diff_share": share,
             "inactive_vars": fixed, "flag_diffs": flags}
 
@@ -3697,6 +3855,8 @@ def main():
         rows = check_kernels(batch, torch, np)
         for name, errs in check_kernels_replicated(insts, torch).items():
             rows[name]["replicated_max_abs_err"] = errs
+        for name, numbers in check_folds(insts, torch).items():
+            rows[name].update(numbers)
         rows.update(check_reduce2d(batch, torch))
         rows.update(check_reduce2d_bf16(
             batch, pack_instances(insts[:8], device="cuda"), torch))
@@ -3731,6 +3891,58 @@ def main():
         log(f"launches on the p-d-p path: {json.dumps(launches)}")
         require(frac >= MIN_SOLVED,
                 f"solved fraction {frac} < {MIN_SOLVED}")
+        # JAX's chip default: every fold on, no split pass left in the loop
+        for name in FOLDED_PDP_KERNELS:
+            require(launches.get(name, 0) > 0,
+                    f"the folded p-d-p path never launched {name}")
+        require(not any(launches.get(n, 0) for n in SPLIT_PDP_KERNELS),
+                "the folded p-d-p path launched a split pass: "
+                f"{ {n: launches.get(n, 0) for n in SPLIT_PDP_KERNELS} }")
+
+        t0 = time.time()
+        with switches(PDP_SWEEP_DEC_FOLD="off"):
+            ures, ulaunches = run_path(lambda: solve_headline(insts, seed=0))
+        log(f"phase 34 p-d-p unfolded (PDP_SWEEP_DEC_FOLD=off): solved "
+            f"{ures['solved_fraction']:.4f} ({ures['solved']}/{len(insts)}, "
+            f"verified with numpy; phase 3, folded: {res['solved']}) in "
+            f"{ures['wall_s']:.2f} s; attempts {ures['attempt_solved']}, pdp "
+            f"{ures['pdp_wall_s']} s, walksat {ures['ls_wall_s']} s")
+        log(f"launches on the unfolded p-d-p path: {json.dumps(ulaunches)}")
+        require(ures["solved_fraction"] >= MIN_SOLVED, f"the unfolded p-d-p "
+                f"path solved {ures['solved_fraction']} < {MIN_SOLVED}")
+        for name in SPLIT_PDP_KERNELS:
+            require(ulaunches.get(name, 0) > 0,
+                    f"the unfolded p-d-p path never launched {name}")
+        require(not any(ulaunches.get(n, 0) for n in FOLD_KERNELS),
+                f"the unfolded p-d-p path launched a fold: {ulaunches}")
+        # the decimator fold alone, then with the mask fold: the same
+        # bits as the split passes (phase 2), so the unfolded run's solve
+        fold_paths = {}
+        for fn, off in (("sp_chain_dec", "PDP_SWEEP_MASK_FOLD"),
+                        ("sp_chain_mask", "PDP_SWEEP_VERIFY_FOLD")):
+            with switches(**{off: "off"}):
+                vres, fold_paths[fn] = run_path(
+                    lambda: solve_headline(insts, seed=0))
+            log(f"phase 34 p-d-p with {off}=off: solved {vres['solved']}/"
+                f"{len(insts)} (verified with numpy; unfolded "
+                f"{ures['solved']}) in {vres['wall_s']:.2f} s; launches "
+                f"{json.dumps(fold_paths[fn])}")
+            require(vres["solved"] == ures["solved"], f"p-d-p with {off}="
+                    f"off solved {vres['solved']}, the unfolded run "
+                    f"{ures['solved']}")
+            require(fold_paths[fn].get(fn, 0) > 0
+                    and not fold_paths[fn].get("sp_chain_maskv", 0),
+                    f"p-d-p with {off}=off never launched {fn}")
+        fcmp = card_vs_cpu(insts, torch, replication=1)
+        log(f"phase 34 folded forward card vs cpu (PDP_FUSED_PASS=on on the "
+            f"cpu): every state column on every edge within rtol "
+            f"{FLOAT_TOL['rtol']} / atol {FLOAT_TOL['atol']} (max abs err "
+            f"{fcmp['state_max_abs_err']:.3g}) and the carry exact after 1 "
+            f"iteration; after {REP_CMP_ITERATIONS}, "
+            f"{fcmp['var_diff_share']:.4%} of the variables differ "
+            f"({fcmp['inactive_vars']} inactive on the CPU), "
+            f"{fcmp['flag_diffs']} instance flags differ; phase 34 in "
+            f"{time.time() - t0:.1f} s")
 
         from pdp_solver_tpu_torch.utils.neural import solve_np_nd_np
         require(not torch.backends.cuda.matmul.allow_tf32,
@@ -3776,16 +3988,15 @@ def main():
             f"{cmp['force_diff_share_10']:.4%} of the forces differ after "
             "10 iterations")
 
-        os.environ["PDP_SP_SWEEP"] = "on"
-        try:
+        # the folds bypass kernel 9's sweep, as in the JAX package
+        with switches(PDP_SP_SWEEP="on", PDP_SWEEP_DEC_FOLD="off"):
             sres, slaunches = run_path(lambda: solve_headline(insts, seed=0))
-        finally:
-            os.environ.pop("PDP_SP_SWEEP")
         sfrac = sres["solved_fraction"]
-        log(f"phase 7 p-d-p with PDP_SP_SWEEP=on: solved {sfrac:.4f} "
+        log(f"phase 7 p-d-p with PDP_SP_SWEEP=on PDP_SWEEP_DEC_FOLD=off: "
+            f"solved {sfrac:.4f} "
             f"({sres['solved']}/{len(insts)}, verified with numpy; the two-"
-            f"launch run solved {res['solved']}: "
-            f"{'reproduced' if sres['solved'] == res['solved'] else 'not reproduced'}"
+            f"launch unfolded run, phase 34, solved {ures['solved']}: "
+            f"{'reproduced' if sres['solved'] == ures['solved'] else 'not reproduced'}"
             f") in {sres['wall_s']:.2f} s")
         log(f"launches on the p-d-p sweep path: {json.dumps(slaunches)}")
         require(sfrac >= MIN_SOLVED, f"p-d-p with the one-launch sweep "
@@ -3900,7 +4111,7 @@ def main():
         require(flaunches["walksat_walk"] == fres["blocks"],
                 f"the replicated walk launched {flaunches['walksat_walk']} "
                 f"times for {fres['blocks']} blocks")
-        rcmp = replicated_card_vs_cpu(insts, torch)
+        rcmp = card_vs_cpu(insts, torch)
         log(f"phase 13 replicated card vs cpu: every state column on every "
             f"edge within rtol {FLOAT_TOL['rtol']} / atol "
             f"{FLOAT_TOL['atol']} (max abs err "
@@ -4392,6 +4603,9 @@ def main():
 
         # each row carries the launches of the path it serves
         serves = {"segment_sum_2d": nlaunches, "gather_2d": nlaunches,
+                  # the split passes the folds replace: the unfolded loop
+                  **{n: ulaunches for n in SPLIT_PDP_KERNELS},
+                  **fold_paths,
                   "segment_sum_2d[bf16]": hlaunches,
                   "gather_2d[bf16]": hlaunches,
                   "scorer": rlaunches, "segment_sum_cols": rlaunches,

@@ -227,7 +227,7 @@ struct Cols {
 // may shuffle inside it).
 
 #define PDP_HEAVY_ITERS 128
-#define PDP_WALK_MAXR 8
+#define PDP_WALK_MAXR 10  // the SP sweep folds' ten variable sums
 #define PDP_FULL_MASK 0xffffffffu
 
 struct WalkPlan {

@@ -66,6 +66,51 @@ struct SpPassC {
   }
 };
 
+// SP pass C for the folded p-d-p loop (propagate.py _sp_pass_c_lean): q_u
+// alone, the one message of the triplet the loop reads next. in: pos[V],
+// neg[V], eta_in, em, mask, sign, force, v0; s = pi. out: the new q_u, the
+// bits of sp_pass_c's first output.
+struct SpPassCLean {
+  static const char* name() { return "sp_pass_c_lean"; }
+  static constexpr int SIDE = 0, NIN = 8, NR = 0, NE = 1;
+  __device__ static void f(const Cols& a, int e, float*, float* o) {
+    const int v = a.ev[e];
+    const float v0 = a.in[7][e];
+    float q[3];
+    sp_q_triplet(a.in[0][v], a.in[1][v], a.in[2][e], a.in[3][e], a.in[4][e],
+                 a.in[5][e], a.in[6][e], a.s, v0, v0, v0, q);
+    o[0] = q[0];  // q_s and q_dc are dead: the compiler drops them
+  }
+};
+
+// the eight columns of the decimator's pass (decimate.py
+// _smax_scorer_pass) for one edge: the convergence and paramagnetic
+// smooth-max columns and the survey scorer's aggregation. Shared by
+// SmaxScorer and the sweep folds, which compute them from the sweep's new
+// eta, so that both give the same bits. The two products of floats are
+// rounded on their own (__fmul_rn), so that no walk contracts one with
+// its sum into a multiply-add: the sums are then the bits of the walk's
+// order over these terms (ops/reduce.py walk_order_sum); every other
+// product here has a 0/1 or +-1 factor and is exact.
+__device__ __forceinline__ void smax_scorer_terms(float ac_e, float prev,
+                                                  float eta, float em,
+                                                  float bmask, float force,
+                                                  float sign, float* r) {
+  const float diff = fabsf(prev - eta) * em;
+  const float cd = safe_exp(30.0f * diff) * bmask;
+  const float ce = safe_exp(30.0f * eta) * bmask;
+  const float em_s = ac_e * bmask;
+  const float fm1 = safe_log(1.0f - eta, PDP_LOG_EPS_SCORE) * em_s;
+  r[0] = __fmul_rn(diff, cd);
+  r[1] = cd;
+  r[2] = __fmul_rn(eta, ce);
+  r[3] = ce;
+  r[4] = force * bmask;
+  r[5] = fm1 * flag(sign == 1.0f);
+  r[6] = fm1 * flag(sign == -1.0f);
+  r[7] = fm1;
+}
+
 // decimator convergence + paramagnetic smooth-max columns and the survey
 // scorer's aggregation (decimate.py _smax_scorer_pass). in: ac[F],
 // prev_eta, eta, em, bmask, force, sign.
@@ -73,22 +118,8 @@ struct SmaxScorer {
   static const char* name() { return "smax_scorer"; }
   static constexpr int SIDE = 1, NIN = 7, NR = 8, NE = 0;
   __device__ static void f(const Cols& a, int e, float* r, float*) {
-    const float ac_e = a.in[0][a.ec[e]];
-    const float prev = a.in[1][e], eta = a.in[2][e], em = a.in[3][e];
-    const float bmask = a.in[4][e], force = a.in[5][e], sign = a.in[6][e];
-    const float diff = fabsf(prev - eta) * em;
-    const float cd = safe_exp(30.0f * diff) * bmask;
-    const float ce = safe_exp(30.0f * eta) * bmask;
-    const float em_s = ac_e * bmask;
-    const float fm1 = safe_log(1.0f - eta, PDP_LOG_EPS_SCORE) * em_s;
-    r[0] = diff * cd;
-    r[1] = cd;
-    r[2] = eta * ce;
-    r[3] = ce;
-    r[4] = force * bmask;
-    r[5] = fm1 * flag(sign == 1.0f);
-    r[6] = fm1 * flag(sign == -1.0f);
-    r[7] = fm1;
+    smax_scorer_terms(a.in[0][a.ec[e]], a.in[1][e], a.in[2][e], a.in[3][e],
+                      a.in[4][e], a.in[5][e], a.in[6][e], r);
   }
 };
 
@@ -303,10 +334,140 @@ struct WalksatChain {
   }
 };
 
-#define PDP_FUSED_FNS(X) \
-  X(SpPassC) X(SmaxScorer) X(Smax) X(Scorer) X(EmAe) X(Em) X(Ae)
-#define PDP_CHAINED_FNS(X) \
-  X(SpChain) X(SpChainLogin) X(SimplifyRound) X(CnfChain) X(WalksatChain)
+// --- the sweep folds of the classical p-d-p loop (propagate.py
+// :274-386): the SP sweep's chained pass with the sequential decimator's
+// eight columns (SmaxScorer's, from the new eta, with the sweep's
+// eta_state as prev_eta: the p-d-p loop's prev_eta) summed per variable
+// beside the polarity sums, so the decimator's own pass goes; with the
+// mask fold also the edge masks, from active_vars, the per-variable
+// instance flag and active_clauses (0/1, so the clause factor is exact at
+// f2), emitted as edge outputs in place of the em_ae pass; with the verify
+// fold also the CNF check of the current solution, a second clause sum
+// and the per-instance (max_sat, got_sat) in place of cnf_chain. Each
+// term is computed as the split functors compute it (SpChainOps, EmAe,
+// CnfChain, smax_scorer_terms), so the variable sums are their bits. ---
+
+// the sweep's variable terms and eta from the clause's log-u sum: vr[0..1]
+// the polarity-split log(1 - eta_in), vr[2..9] the decimator's columns;
+// returns the new eta
+__device__ __forceinline__ float sp_fold_f3(float cl_sum, float ac_e,
+                                            float u_in, float eta_in,
+                                            float em, float mask,
+                                            float eta_state, float sign,
+                                            float force, float bmask,
+                                            float* vr) {
+  const float new_eta =
+      sp_new_eta(cl_sum, sp_log_u<false>(u_in, em), mask, eta_state);
+  const float lm = sp_lm(eta_in, em);
+  vr[0] = lm * flag(sign == 1.0f);
+  vr[1] = lm * flag(sign == -1.0f);
+  smax_scorer_terms(ac_e, eta_state, new_eta, em, bmask, force, sign,
+                    vr + 2);
+  return new_eta;
+}
+
+// the decimator fold (propagate.py _sp_chain_f1_dec/_f2_dec/_f3_dec). in:
+// ac[F], u_in, eta_in, em, mask, eta_state, sign, force, bmask. vred: the
+// polarity sums then the decimator's eight; eout: eta.
+struct SpChainDec {
+  static const char* name() { return "sp_chain_dec"; }
+  static constexpr int NIN = 9, NCRED = 1, NCOUT = 0, NBC = 2, NVRED = 10,
+                       NE = 1, NIRED = 0;
+  __device__ static void f1(const Cols& a, int e, float* cr) {
+    cr[0] = sp_log_u<false>(a.in[1][e], a.in[3][e]);
+  }
+  __device__ static void f2(const Cols& a, int c, const float* cred, float*,
+                            float* bc, float*) {
+    bc[0] = cred[0];
+    bc[1] = a.in[0][c];
+  }
+  __device__ static void f3(const Cols& a, int e, const float* bc, float* vr,
+                            float* o) {
+    o[0] = sp_fold_f3(bc[0], bc[1], a.in[1][e], a.in[2][e], a.in[3][e],
+                      a.in[4][e], a.in[5][e], a.in[6][e], a.in[7][e],
+                      a.in[8][e], vr);
+  }
+};
+
+// the mask fold (propagate.py _sp_chain_f1_mask/_f2_mask/_f3_mask) and,
+// with VERIFY, the verify fold (_sp_chain_f1_maskv/_f2_maskv). in: av[V],
+// abv[V] (the instance flag of each variable), [sol[V],] ac[F], [cm[F],]
+// u_in, eta_in, eta_state, sign, force, bmask. vred as SpChainDec's;
+// eouts: eta, em, ae; with VERIFY ired: (max_sat, got_sat) per instance.
+template <bool VERIFY>
+struct SpChainMaskOps {
+  static constexpr int V = VERIFY ? 1 : 0;  // the solution's column
+  static constexpr int AC = 2 + V, CM = 3 + V, E0 = 3 + 2 * V;
+  __device__ static void f1(const Cols& a, int e, float* cr) {
+    const int v = a.ev[e];
+    const float bm = a.in[E0 + 5][e];
+    // the clause factor of em lands at f2 (exact: active_clauses is 0/1)
+    cr[0] = sp_u_log<false>(a.in[E0][e]) * a.in[0][v] * bm;
+    if (VERIFY) {
+      const float sign = a.in[E0 + 3][e];
+      const float lit = sign * a.in[2][v] + (1.0f - sign) / 2.0f;
+      cr[1] = flag(lit > 0.5f) * bm;
+    }
+  }
+  __device__ static void f2(const Cols& a, int c, const float* cred, float*,
+                            float* bc, float* ir) {
+    const float ac = a.in[AC][c];
+    bc[0] = cred[0] * ac;
+    bc[1] = ac;
+    if (VERIFY) {
+      const float cm = a.in[CM][c];
+      ir[0] = cm;
+      ir[1] = flag(cred[1] > 0.0f) * cm;
+    }
+  }
+  __device__ static void f3(const Cols& a, int e, const float* bc, float* vr,
+                            float* o) {
+    const int v = a.ev[e];
+    const float bm = a.in[E0 + 5][e];
+    const float em = a.in[0][v] * bc[1] * bm;
+    const float ae = a.in[1][v];
+    o[0] = sp_fold_f3(bc[0], bc[1], a.in[E0][e], a.in[E0 + 1][e], em, ae,
+                      a.in[E0 + 2][e], a.in[E0 + 3][e], a.in[E0 + 4][e], bm,
+                      vr);
+    o[1] = em;
+    o[2] = ae;
+  }
+};
+
+#define PDP_SP_MASK_FORWARD(VERIFY)                                      \
+  __device__ static void f1(const Cols& a, int e, float* cr) {            \
+    SpChainMaskOps<VERIFY>::f1(a, e, cr);                                 \
+  }                                                                       \
+  __device__ static void f2(const Cols& a, int c, const float* cred,      \
+                            float* co, float* bc, float* ir) {            \
+    SpChainMaskOps<VERIFY>::f2(a, c, cred, co, bc, ir);                   \
+  }                                                                       \
+  __device__ static void f3(const Cols& a, int e, const float* bc,        \
+                            float* vr, float* o) {                        \
+    SpChainMaskOps<VERIFY>::f3(a, e, bc, vr, o);                          \
+  }
+
+struct SpChainMask {
+  static const char* name() { return "sp_chain_mask"; }
+  static constexpr int NIN = 9, NCRED = 1, NCOUT = 0, NBC = 2, NVRED = 10,
+                       NE = 3, NIRED = 0;
+  PDP_SP_MASK_FORWARD(false)
+};
+
+struct SpChainMaskv {
+  static const char* name() { return "sp_chain_maskv"; }
+  static constexpr int NIN = 11, NCRED = 2, NCOUT = 0, NBC = 2, NVRED = 10,
+                       NE = 3, NIRED = 2;
+  PDP_SP_MASK_FORWARD(true)
+};
+#undef PDP_SP_MASK_FORWARD
+
+#define PDP_FUSED_FNS(X)                                                \
+  X(SpPassC) X(SmaxScorer) X(Smax) X(Scorer) X(EmAe) X(Em) X(Ae)         \
+  X(SpPassCLean)
+#define PDP_CHAINED_FNS(X)                                               \
+  X(SpChain) X(SpChainLogin) X(SimplifyRound) X(CnfChain) X(WalksatChain) \
+  X(SpChainDec) X(SpChainMask) X(SpChainMaskv)
 
 enum {
 #define PDP_ENUM(F) FN_##F,

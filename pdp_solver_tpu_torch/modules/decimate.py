@@ -138,17 +138,24 @@ def _select(cond, new: ProblemState, old: ProblemState) -> ProblemState:
 def sequential_decimator_apply(cfg: SeqDecimatorConfig, scorer_cfg, batch,
                                seq_state: SeqDecimatorState, message_state,
                                problem: ProblemState, edge_mask,
-                               active_instances, scorer_fn=None):
+                               active_instances, scorer_fn=None,
+                               precomputed_agg=None):
     """Returns (new_seq_state, new_problem, new_active_instances);
     active_instances may be None (no termination tracking).
 
     message_state: SPMessages, scored by the survey scorer of scorer_cfg;
     or the neural propagator's (var, fn) pair, scored by
     scorer_fn(message_state, problem) -> [V, 1] (JAX's scorer_fn,
-    `pdp_solver_tpu/solvers/base.py` _scorer_fn)."""
+    `pdp_solver_tpu/solvers/base.py` _scorer_fn). precomputed_agg: (nd
+    [4, V], scorer_agg [4, V]) that a folded sweep already summed
+    (`propagate.survey_propagate_with_decimator_agg`), in place of this
+    decimator's own pass (decimate.py :221-224)."""
     V, B = batch.num_vars, batch.batch_size
     classical = isinstance(message_state, SPMessages)
-    if classical:
+    if precomputed_agg is not None:
+        eta = message_state.fn[0]
+        nd, scorer_agg = precomputed_agg
+    elif classical:
         eta, force = message_state.fn
         # convergence + paramagnetic smooth-max columns and the survey
         # scorer's aggregation, one edge -> variable pass

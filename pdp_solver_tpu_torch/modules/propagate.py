@@ -6,11 +6,19 @@ the JAX package:
   survey propagator: SPMessages of 1-D edge columns, var = (q_u, q_s, q_dc)
   simplex, fn = (eta survey, external force).
 
-The JAX package also folds the decimator's reduce and the edge masks into
-the sweep (`survey_propagate_with_decimator_agg` :474,
-`survey_propagate_folded_masks` :396) to save launches on the TPU. The port
-leaves the folds out: its sweep, decimator and mask passes compute the same
-messages, masks and reductions in separate kernels.
+The classical p-d-p loop folds work into its sweep, as the JAX package's
+does wherever its kernels run (`survey_propagate_with_decimator_agg` :474,
+`survey_propagate_folded_masks` :396): the decimator fold sums the
+sequential decimator's eight columns beside the sweep's polarity sums
+(`sp_chain_dec`), the mask fold also makes the edge masks in the sweep
+(`sp_chain_mask`), and the verify fold also checks the current solution
+against its CNF (`sp_chain_maskv`); pass C then computes q_u alone
+(`sp_pass_c_lean`), since q_s and q_dc are dead in that loop.
+`sweep_folds` decides, as the JAX package's gates do, with the card in
+place of its TPU: on a batch on the card by default, on the CPU only
+under PDP_FUSED_PASS=on, and each fold off under its own switch
+(PDP_SWEEP_DEC_FOLD, PDP_SWEEP_MASK_FOLD, PDP_SWEEP_VERIFY_FOLD: auto or
+off). `survey_propagator_apply` is the unfolded sweep.
 """
 
 import dataclasses
@@ -201,6 +209,136 @@ def survey_propagator_apply(cfg: SurveyPropagatorConfig, batch, prop_state,
         (pn[0], pn[1], eta_in, edge_mask, active_edge, sign, force, v0, v1,
          v2), scalar=float(cfg.pi))
     return SPMessages(var=(nv0, nv1, nv2), fn=(new_eta, force))
+
+
+# --- the sweep folds (propagate.py :274-523) ---------------------------
+
+# the verify fold's limit on instances (pallas_fused.py IWIN :288)
+IWIN = 2048
+FOLD_SWITCHES = ("PDP_FUSED_PASS", "PDP_SWEEP_DEC_FOLD",
+                 "PDP_SWEEP_MASK_FOLD", "PDP_SWEEP_VERIFY_FOLD")
+
+
+def fold_switches():
+    """The fold gates' switches, read from the environment at once:
+    {name: value}, "auto" where unset."""
+    return {k: os.environ.get(k, "auto") for k in FOLD_SWITCHES}
+
+
+def kernels_run(batch, switches=None) -> bool:
+    """The JAX package's use_fused_pass (pallas_fused.py :98), the card in
+    place of its TPU: PDP_FUSED_PASS=off never, on wherever the batch
+    meets the window invariants, and by default there on a batch on the
+    card."""
+    mode = (switches or fold_switches())["PDP_FUSED_PASS"]
+    if mode == "off":
+        return False
+    ok = bool(batch.fast_var and batch.fast_clause)
+    return ok if mode == "on" else ok and batch.device.type == "cuda"
+
+
+def use_sweep_decimator_fold(batch, switches=None) -> bool:
+    """propagate.py :464: the chained fast path for classical SP, unless
+    PDP_SWEEP_DEC_FOLD=off."""
+    sw = switches or fold_switches()
+    return (sw["PDP_SWEEP_DEC_FOLD"] != "off" and kernels_run(batch, sw)
+            and fused.use_chained_pass(batch))
+
+
+def use_sweep_mask_fold(batch, switches=None) -> bool:
+    """propagate.py :358: the decimator fold, unless
+    PDP_SWEEP_MASK_FOLD=off."""
+    sw = switches or fold_switches()
+    return (sw["PDP_SWEEP_MASK_FOLD"] != "off"
+            and use_sweep_decimator_fold(batch, sw))
+
+
+def use_sweep_verify_fold(batch, switches=None) -> bool:
+    """propagate.py :388: the mask fold on at most IWIN instances, unless
+    PDP_SWEEP_VERIFY_FOLD=off."""
+    sw = switches or fold_switches()
+    return (sw["PDP_SWEEP_VERIFY_FOLD"] != "off"
+            and use_sweep_mask_fold(batch, sw)
+            and batch.batch_size <= IWIN)
+
+
+def sweep_folds(batch):
+    """(fold_dec, fold_masks, fold_verify) for a classical p-d-p loop on
+    this batch, each fold implying the one before (solvers/base.py
+    :478-494), from one read of the switches."""
+    sw = fold_switches()
+    return (use_sweep_decimator_fold(batch, sw),
+            use_sweep_mask_fold(batch, sw),
+            use_sweep_verify_fold(batch, sw))
+
+
+def _lean_pass_c(cfg, batch, pn, eta_in, em, mask, force, v0):
+    _, (nv0,) = fused.fused_edge_pass(
+        fused.SP_PASS_C_LEAN, batch,
+        (pn[0], pn[1], eta_in, em, mask, batch.edge_sign, force, v0),
+        scalar=float(cfg.pi))
+    return nv0
+
+
+def survey_propagate_with_decimator_agg(cfg: SurveyPropagatorConfig, batch,
+                                        prop_state, dec_state, edge_mask,
+                                        active_edge, active_clauses):
+    """One classical SP sweep that also returns the sequential decimator's
+    convergence and scorer sums (propagate.py :474; use_sweep_decimator_fold
+    must hold): the sweep's chained pass with the decimator's eight columns
+    (`sp_chain_dec`), then the lean pass C. Returns (SPMessages, (nd
+    [4, V], scorer_agg [4, V])), the sums the decimator's own pass would
+    give on these messages with prev_eta = the sweep's eta_state (the
+    p-d-p loop's): pass them as its precomputed_agg. q_s and q_dc pass
+    through stale, as in the JAX package: that loop never reads them."""
+    assert not cfg.include_adaptors
+    v0, v1, v2 = prop_state.var
+    eta_state = prop_state.fn[0]
+    u_like = dec_state.var[0]
+    eta_in, force = dec_state.fn
+    _, vred, (new_eta,), _ = fused.chained_edge_pass(
+        fused.SP_CHAIN_DEC, batch,
+        (active_clauses, u_like, eta_in, edge_mask, active_edge, eta_state,
+         batch.edge_sign, force, batch.edge_mask))
+    nv0 = _lean_pass_c(cfg, batch, vred[0:2], eta_in, edge_mask,
+                       active_edge, force, v0)
+    return (SPMessages(var=(nv0, v1, v2), fn=(new_eta, force)),
+            (vred[2:6], vred[6:10]))
+
+
+def survey_propagate_folded_masks(cfg: SurveyPropagatorConfig, batch,
+                                  prop_state, dec_state, problem,
+                                  active_instances, verify=False):
+    """One classical SP sweep that makes its own edge masks from the
+    problem and the instance flags (propagate.py :396; use_sweep_mask_fold
+    must hold), with the decimator's sums of
+    survey_propagate_with_decimator_agg. Returns (SPMessages, (nd,
+    scorer_agg), em, ae), em and ae equal to
+    edge_masks_pair(batch, problem, active_instances); with verify=True
+    (use_sweep_verify_fold must hold) also (max_sat, got_sat) per
+    instance, cnf_evaluate's counts for problem.solution, from the same
+    chained pass."""
+    assert not cfg.include_adaptors
+    v0, v1, v2 = prop_state.var
+    eta_state = prop_state.fn[0]
+    u_like = dec_state.var[0]
+    eta_in, force = dec_state.fn
+    edges = (u_like, eta_in, eta_state, batch.edge_sign, force,
+             batch.edge_mask)
+    abv = active_instances[batch.var_batch]
+    if verify:
+        fn, ins = fused.SP_CHAIN_MASKV, (
+            problem.active_vars, abv, problem.solution,
+            problem.active_clauses, batch.clause_mask) + edges
+    else:
+        fn, ins = fused.SP_CHAIN_MASK, (
+            problem.active_vars, abv, problem.active_clauses) + edges
+    _, vred, (new_eta, em, ae), counts = fused.chained_edge_pass(
+        fn, batch, ins)
+    nv0 = _lean_pass_c(cfg, batch, vred[0:2], eta_in, em, ae, force, v0)
+    out = (SPMessages(var=(nv0, v1, v2), fn=(new_eta, force)),
+           (vred[2:6], vred[6:10]), em, ae)
+    return out + ((counts[0], counts[1]),) if verify else out
 
 
 def sp_sweep_train(batch, u_like, eta_in, em, mask, eta_state, force, v,

@@ -64,7 +64,7 @@ MAX_EOUT = 4      # PDP_MAX_EOUT
 MAX_COLS = 8      # PDP_RED_MAXC, reduce.cu
 GROUP_MIN, GROUP_MAX = 4, 32
 HEAVY_ITERS = 128  # PDP_HEAVY_ITERS, common.cuh
-WALK_MAXR = 8      # PDP_WALK_MAXR
+WALK_MAXR = 10     # PDP_WALK_MAXR
 THREADS = 256      # PDP_THREADS
 CLUSTER_MAX = 16   # PDP_CLUSTER_MAX
 R2D_HEAVY = 256    # PDP_R2D_HEAVY, reduce2d.cu

@@ -132,16 +132,29 @@ def _sp_pass_c(ins, ev, ec, pi):
                      for q, v in ((q_u, v0), (q_s, v1), (d, v2)))
 
 
-def _smax_scorer(ins, ev, ec, s):
-    ac, prev_eta, eta, em, bmask, force, sign = ins
+def _sp_pass_c_lean(ins, ev, ec, pi):
+    pos, neg, eta_in, em, mask, sign, force, v0 = ins
+    return (), _sp_pass_c((pos, neg, eta_in, em, mask, sign, force, v0, v0,
+                           v0), ev, ec, pi)[1][:1]
+
+
+def _smax_scorer_terms(ac_e, prev_eta, eta, em, bmask, force, sign):
+    """The decimator pass's eight edge columns (decimate.py
+    _smax_scorer_pass), shared with the sweep folds."""
     diff = torch.abs(prev_eta - eta) * em
     cd = safe_exp(30.0 * diff) * bmask
     ce = safe_exp(30.0 * eta) * bmask
-    em_s = ac[ec] * bmask
+    em_s = ac_e * bmask
     fm1 = safe_log(1.0 - eta, LOG_EPS_SCORE) * em_s
     pos_w, neg_w = _flag(sign == 1), _flag(sign == -1)
     return (diff * cd, cd, eta * ce, ce, force * bmask, fm1 * pos_w,
-            fm1 * neg_w, fm1), ()
+            fm1 * neg_w, fm1)
+
+
+def _smax_scorer(ins, ev, ec, s):
+    ac, prev_eta, eta, em, bmask, force, sign = ins
+    return _smax_scorer_terms(ac[ec], prev_eta, eta, em, bmask, force,
+                              sign), ()
 
 
 def _smax(ins, ev, ec, s):
@@ -178,6 +191,11 @@ SP_PASS_C = EdgeFn(
     "sp_pass_c", "none", "VVEEEEEEEE",
     ("pos", "neg", "eta_in", "em", "mask", "sign", "force", "v0", "v1",
      "v2"), 0, 3, _sp_pass_c, 40)
+# q_u alone, for the folded p-d-p loop (propagate.py _sp_pass_c_lean :216)
+SP_PASS_C_LEAN = EdgeFn(
+    "sp_pass_c_lean", "none", "VVEEEEEE",
+    ("pos", "neg", "eta_in", "em", "mask", "sign", "force", "v0"), 0, 1,
+    _sp_pass_c_lean, 40)
 SMAX_SCORER = EdgeFn(
     "smax_scorer", "var", "FEEEEEE",
     ("ac", "prev_eta", "eta", "em", "bmask", "force", "sign"), 8, 0,
@@ -279,6 +297,83 @@ def _no_f3(bc, ins, ev, ec):
     return (), ()
 
 
+# --- the sweep folds of the classical p-d-p loop (propagate.py :274-386):
+# the decimator's eight columns ride the sweep's variable sums, then the
+# edge masks are made in the sweep, then the CNF check of the solution
+# rides its clause phase (csrc/edge_pass.cu SpChainDec, SpChainMaskOps) ---
+
+def _sp_fold_f3(cl_sum, ac_e, u_in, eta_in, em, mask, eta_state, sign,
+                force, bmask):
+    """The sweep's variable terms (polarity sums, then the decimator's
+    columns from the new eta with eta_state as prev_eta) and the new
+    eta, each computed as sp_chain and smax_scorer compute it."""
+    log_u = safe_log(u_in, LOG_EPS_PROP) * em
+    eta = safe_exp(cl_sum - log_u)
+    new_eta = mask * eta + (1.0 - mask) * eta_state
+    lm = safe_log(1.0 - eta_in, LOG_EPS_PROP) * em
+    return ((lm * _flag(sign == 1), lm * _flag(sign == -1))
+            + _smax_scorer_terms(ac_e, eta_state, new_eta, em, bmask, force,
+                                 sign)), new_eta
+
+
+def _dec_f1(ins, ev, ec):
+    ac, u_in, eta_in, em, mask, eta_state, sign, force, bmask = ins
+    return (safe_log(u_in, LOG_EPS_PROP) * em,)
+
+
+def _dec_f2(cred, ins):
+    return (), (cred[0], ins[0]), ()
+
+
+def _dec_f3(bc, ins, ev, ec):
+    ac, u_in, eta_in, em, mask, eta_state, sign, force, bmask = ins
+    vr, new_eta = _sp_fold_f3(bc[0], bc[1], u_in, eta_in, em, mask,
+                              eta_state, sign, force, bmask)
+    return vr, (new_eta,)
+
+
+def _mask_cols(ins, verify):
+    """(av, abv, sol, ac, cm, edge columns) of a mask-fold input tuple;
+    sol and cm None without the verify fold."""
+    if verify:
+        av, abv, sol, ac, cm = ins[:5]
+        return av, abv, sol, ac, cm, ins[5:]
+    av, abv, ac = ins[:3]
+    return av, abv, None, ac, None, ins[3:]
+
+
+def _mask_f1_of(verify):
+    def f1(ins, ev, ec):
+        av, _, sol, _, _, (u_in, _, _, sign, _, bm) = _mask_cols(ins, verify)
+        # the clause factor of em lands at f2 (exact: active_clauses is 0/1)
+        cols = (safe_log(u_in, LOG_EPS_PROP) * av[ev] * bm,)
+        if verify:
+            lit = sign * sol[ev] + (1.0 - sign) / 2.0
+            cols += (_flag(lit > 0.5) * bm,)
+        return cols
+    return f1
+
+
+def _mask_f2_of(verify):
+    def f2(cred, ins):
+        _, _, _, ac, cm, _ = _mask_cols(ins, verify)
+        ired = (cm, _flag(cred[1] > 0) * cm) if verify else ()
+        return (), (cred[0] * ac, ac), ired
+    return f2
+
+
+def _mask_f3_of(verify):
+    def f3(bc, ins, ev, ec):
+        av, abv, _, _, _, (u_in, eta_in, eta_state, sign, force, bm) = \
+            _mask_cols(ins, verify)
+        em = av[ev] * bc[1] * bm
+        ae = abv[ev]
+        vr, new_eta = _sp_fold_f3(bc[0], bc[1], u_in, eta_in, em, ae,
+                                  eta_state, sign, force, bm)
+        return vr, (new_eta, em, ae)
+    return f3
+
+
 SP_CHAIN = ChainFn(
     "sp_chain", "EEEEEE",
     ("u_in", "eta_in", "em", "mask", "eta_state", "sign"), 1, 0, 1, 2, 1, 0,
@@ -297,8 +392,31 @@ WS_CHAIN = ChainFn("ws_chain", "VVEEEF",
                    ("sa", "av", "sign", "mask", "em", "ac"),
                    2, 0, 3, 2, 0, 1, _ws_f1, _ws_f2, _ws_f3, 14)
 
-FUSED_FNS = (SP_PASS_C, SMAX_SCORER, SMAX, SCORER, EM_AE, EM, AE)
-CHAINED_FNS = (SP_CHAIN, SP_CHAIN_LOGIN, SROUND, CNF_CHAIN, WS_CHAIN)
+# the decimator fold (propagate.py _sp_chain_f1_dec/_f2_dec/_f3_dec
+# :281-312): vred the polarity sums, then smax_scorer's eight columns
+SP_CHAIN_DEC = ChainFn(
+    "sp_chain_dec", "FEEEEEEEE",
+    ("ac", "u_in", "eta_in", "em", "mask", "eta_state", "sign", "force",
+     "bmask"), 1, 0, 2, 10, 1, 0, _dec_f1, _dec_f2, _dec_f3, 50)
+# the mask fold (_sp_chain_f1_mask/_f2_mask/_f3_mask :322-355): eouts eta,
+# em and ae
+SP_CHAIN_MASK = ChainFn(
+    "sp_chain_mask", "VVFEEEEEE",
+    ("av", "abv", "ac", "u_in", "eta_in", "eta_state", "sign", "force",
+     "bmask"), 1, 0, 2, 10, 3, 0, _mask_f1_of(False), _mask_f2_of(False),
+    _mask_f3_of(False), 52)
+# the verify fold (_sp_chain_f1_maskv/_f2_maskv :374-385): ired the
+# solution's (max_sat, got_sat) per instance
+SP_CHAIN_MASKV = ChainFn(
+    "sp_chain_maskv", "VVVFFEEEEEE",
+    ("av", "abv", "sol", "ac", "cm", "u_in", "eta_in", "eta_state", "sign",
+     "force", "bmask"), 2, 0, 2, 10, 3, 2, _mask_f1_of(True),
+    _mask_f2_of(True), _mask_f3_of(True), 58)
+
+FUSED_FNS = (SP_PASS_C, SMAX_SCORER, SMAX, SCORER, EM_AE, EM, AE,
+             SP_PASS_C_LEAN)
+CHAINED_FNS = (SP_CHAIN, SP_CHAIN_LOGIN, SROUND, CNF_CHAIN, WS_CHAIN,
+               SP_CHAIN_DEC, SP_CHAIN_MASK, SP_CHAIN_MASKV)
 
 # the JAX package's uniform clause widths for its chained passes
 # (pallas_fused.py _TILES, k > 0)
@@ -514,13 +632,32 @@ def chained_edge_pass_plain(fn: ChainFn, batch, ins):
             ired)
 
 
+def clause_order_sum(batch, cols):
+    """Edge columns summed per clause in the clause phase's order
+    (`csrc/edge_pass.cu clause_columns`): each clause's slots of
+    clause_ptr one after another, from 0. On the CPU index_add_ gives the
+    same values; on the card it adds in atomic order."""
+    ptr = batch.clause_ptr.long()
+    lo, hi = ptr[:-1], ptr[1:]
+    acc = [c.new_zeros(batch.num_clauses) for c in cols]
+    width = int((hi - lo).max()) if batch.num_clauses else 0
+    for j in range(width):
+        idx = lo + j
+        ok = idx < hi
+        idx = torch.where(ok, idx, torch.zeros_like(idx))
+        acc = [a + torch.where(ok, c[idx], torch.zeros_like(a))
+               for a, c in zip(acc, cols)]
+    return acc
+
+
 def chained_vred_walk_order(fn: ChainFn, batch, ins):
     """The chained pass's variable sums f32[n_vred, V] in the var walk's
     order (`csrc/common.cuh`, emulated by `walk_order_sum`), over the f3
-    terms of the plain version: on the card, the kernel's bits wherever
-    its terms are the plain version's."""
+    terms of the plain version from clause sums in the clause phase's
+    order (the sweep folds' terms depend on them): on the card, the
+    kernel's bits wherever its terms are the plain version's."""
     ev, ec = batch.edge_var, batch.edge_clause
-    cred = _sum_real_edges(batch, fn.f1(ins, ev, ec), ec, batch.num_clauses)
+    cred = clause_order_sum(batch, fn.f1(ins, ev, ec))
     _, bcast, _ = fn.f2(tuple(cred), ins)
     terms, _ = fn.f3(tuple(b[ec] for b in bcast), ins, ev, ec)
     lo, hi = csr_bounds(batch.var_ptr)

@@ -34,9 +34,14 @@ The JAX hot loop is one `lax.while_loop` that stops once no instance is
 active. Here it is a Python loop of `iteration_num` iterations with no host
 sync: the caller runs it in chunks (the resumable `carry=` /
 `finalize=False` API) and reads the per-instance active flags once per
-chunk. With check_termination and PDP_VERIFY_MASKS=on (read at each call,
-default off, as in the JAX package) an eligible batch verifies the
-prediction and builds the next edge masks in one launch (`ops/verify.py`)
+chunk. A p-d-p loop with check_termination takes the JAX package's sweep
+folds where it would (`modules/propagate.py sweep_folds`: by default on
+the card): the decimator's pass, the edge masks and the verification
+ride the sweep's chained pass. With check_termination and
+PDP_VERIFY_MASKS=on (read at each call,
+default off, as in the JAX package) an eligible batch without the
+verify fold verifies the prediction and builds the next edge masks in
+one launch (`ops/verify.py`)
 instead of `cnf_evaluate`, the freeze and `edge_masks_pair`. Once no
 instance is active an iteration changes nothing but the sequential
 decimator's counters, which are held with a device-side flag,
@@ -510,13 +515,30 @@ class PDPSolver:
     def _forward_core(self, params, generator, batch, problem, state,
                       iteration_num, check_termination, resume=None,
                       replication=1, meta_e=None):
-        """The hot loop (solvers/base.py :456-603, unfolded path).
-        REINFORCE draws its coin from `generator` once per iteration. With
-        replication an instance is solved once any of its replicas is,
-        and the verification stays split, as in the JAX package."""
+        """The hot loop (solvers/base.py :456-603). REINFORCE draws its
+        coin from `generator` once per iteration. With replication an
+        instance is solved once any of its replicas is, and
+        PDP_VERIFY_MASKS's one-launch verification is not taken, as in
+        the JAX package. A p-d-p loop
+        with check_termination folds work into its sweep wherever the JAX
+        package would (`propagate.sweep_folds`, :478-494): the
+        decimator's pass, then the edge masks, then the verification of
+        the current solution, which freezes the instances it finds solved
+        before this iteration's decimation. That verification is of the
+        solution the previous iteration left (the in-loop identity
+        prediction changes no solution), so the active flags follow the
+        unfolded path's, except that the sweep's own freeze and the exit
+        lag the last verification by one iteration."""
+        t = self.cfg.model_type
+        fold_dec, fold_masks, fold_verify = (
+            PR.sweep_folds(batch) if t == "p-d-p" and check_termination
+            else (False, False, False))
+        # the verification in one launch with the next masks yields to the
+        # verify fold, as in the JAX package (:550)
         use_vm = (check_termination and replication == 1
-                  and use_verify_masks(batch)
+                  and not fold_verify and use_verify_masks(batch)
                   and os.environ.get("PDP_VERIFY_MASKS", "off") == "on")
+        seq = not self.neural_dec and t != "reinforce"
         scorer_fn = self._scorer_fn(params, batch)
         if resume is not None:
             active_b, em = resume
@@ -526,14 +548,36 @@ class PDPSolver:
         ae = edge_active_instance_mask(batch, active_b)
 
         for _ in range(iteration_num):
-            prop = self._propagate(params, batch, state.prop, state.dec, em,
-                                   ae, meta_e)
+            if seq and check_termination:
+                # the JAX loop runs this iteration while an instance is
+                # active
+                alive = torch.sum(active_b) > 0
+            prop_agg = None
+            if fold_verify:
+                prop, prop_agg, em, ae, (max_sat, got_sat) = \
+                    PR.survey_propagate_folded_masks(
+                        self.prop_cfg, batch, state.prop, state.dec,
+                        problem, active_b, verify=True)
+                solved = _group_any((max_sat == got_sat).to(torch.float32),
+                                    replication)
+                active_b = active_b * (solved <= 0.5).to(torch.float32)
+            elif fold_masks:
+                prop, prop_agg, em, ae = PR.survey_propagate_folded_masks(
+                    self.prop_cfg, batch, state.prop, state.dec, problem,
+                    active_b)
+            elif fold_dec:
+                prop, prop_agg = PR.survey_propagate_with_decimator_agg(
+                    self.prop_cfg, batch, state.prop, state.dec, em, ae,
+                    problem.active_clauses)
+            else:
+                prop = self._propagate(params, batch, state.prop, state.dec,
+                                       em, ae, meta_e)
             if self.neural_dec:
                 # the neural decimator never changes the problem
                 dec = params["dec"](batch, state.dec, prop, ae,
                                     self.cfg.compute_dtype, meta_e=meta_e)
                 state = SolverState(prop=prop, dec=dec, aux=())
-            elif self.cfg.model_type == "reinforce":
+            elif t == "reinforce":
                 # once no instance is active every edge is frozen and the
                 # state stops moving, as when the JAX loop has exited
                 coin = (float(torch.rand((), generator=generator))
@@ -549,12 +593,11 @@ class PDPSolver:
                 aux, problem, maybe_active = D.sequential_decimator_apply(
                     self.dec_cfg, self.scorer_cfg, batch, state.aux, prop,
                     problem, em, active_b if check_termination else None,
-                    scorer_fn=scorer_fn)
+                    scorer_fn=scorer_fn, precomputed_agg=prop_agg)
                 if check_termination:
                     # the JAX loop has stopped once no instance is active;
                     # the counters are the only state a later iteration
                     # would move
-                    alive = torch.sum(active_b) > 0
                     aux = D.SeqDecimatorState(
                         prev_eta=aux.prev_eta,
                         counters=torch.where(alive, aux.counters,
@@ -564,7 +607,7 @@ class PDPSolver:
                     active_b = maybe_active
                 state = SolverState(prop=prop, dec=prop, aux=aux)
 
-            if check_termination:
+            if check_termination and not fold_verify:
                 pred = self._predict(params, None, batch, problem, state.dec,
                                      em, last_call=False, meta_e=meta_e)
                 var_pred, problem = _update_solution(problem, pred)
@@ -577,7 +620,8 @@ class PDPSolver:
                     solved, _ = cnf_evaluate(batch, var_pred)
                     solved = _group_any(solved, replication)
                 active_b = active_b * (solved <= 0.5).to(torch.float32)
-            if not use_vm:
+            # under the mask fold the next sweep makes its own masks
+            if not (use_vm or fold_masks):
                 em, ae = edge_masks_pair(batch, problem, active_b)
         return problem, state, active_b
 

@@ -19,7 +19,12 @@ and for kernel 6 on a training segment, it gives for each form:
             synchronize, after a warm-up;
   device_us device us / call, the profiler's kernel times over 500 calls
             (and by kernel name).
-The forms: "chained_edge_pass[name]" for the five chained functors;
+The forms: "chained_edge_pass[name]" for the eight chained functors,
+"fused_edge_pass[name]" for the fused ones; "sweep folded" (one
+iteration's passes of the p-d-p loop with every fold: sp_chain_maskv then
+sp_pass_c_lean) and "sweep split" (the passes they replace: em_ae,
+sp_chain, sp_pass_c, smax_scorer, cnf_chain), on one state
+(`fold_inputs`);
 "sp_full_sweep[pi 0]", "[pi 0.01]" and "[login]"; "verify_and_masks"
 and "verify split" (the split path it replaces: cnf_evaluate, the freeze,
 edge_masks_pair); "walksat_block" (K = 8, eps 0.5, from a problem with
@@ -204,7 +209,7 @@ def _fused_inputs(fn, batch, seed):
             u = batch.edge_sign
         elif name in ("mask", "bmask"):
             u = batch.edge_mask
-        elif name in ("em", "av", "ac", "cm"):
+        elif name in ("em", "av", "abv", "ac", "cm"):
             u = (u > 0.2).float()
         elif name == "sa":
             u = torch.where(u > 0.5, 1.0, -1.0)
@@ -248,6 +253,90 @@ def _verify_inputs(batch):
     act[::4] = 0.0
     pred = torch.rand(batch.num_vars, 1, generator=g).cuda()
     return problem.replace(active_vars=av, active_clauses=ac), act, pred
+
+
+def fold_inputs(batch, seed=13):
+    """One state of the p-d-p loop for its sweep, folded or split: a
+    problem with some variables and clauses inactive, a quarter of the
+    instances stopped (abv, their flag per variable), a 0/1 solution,
+    messages in (0.02, 0.98), forces +-1 on real edges."""
+    g = torch.Generator().manual_seed(seed)
+    dev = batch.device
+
+    def u(n):
+        return torch.rand(n, generator=g).to(dev)
+
+    E = batch.num_edges
+    act = (u(batch.batch_size) > 0.25).float() * batch.instance_mask
+    return dict(
+        av=(u(batch.num_vars) > 0.15).float() * batch.var_mask,
+        ac=(u(batch.num_clauses) > 0.2).float() * batch.clause_mask,
+        abv=act[batch.var_batch].contiguous(),
+        sol=(u(batch.num_vars) > 0.5).float(), cm=batch.clause_mask,
+        u_in=u(E) * 0.96 + 0.02, eta_in=u(E) * 0.96 + 0.02,
+        eta_state=u(E) * 0.96 + 0.02, v0=u(E) * 0.96 + 0.02,
+        v1=u(E) * 0.96 + 0.02, v2=u(E) * 0.96 + 0.02,
+        force=torch.where(u(E) > 0.5, 1.0, -1.0) * batch.edge_mask,
+        sign=batch.edge_sign, bmask=batch.edge_mask)
+
+
+def split_sweep(batch, x, pi=0.0):
+    """The unfolded p-d-p loop's passes of one iteration on state x
+    (`fold_inputs`): em_ae, sp_chain, sp_pass_c, smax_scorer (prev_eta =
+    the sweep's eta_state, as in that loop) and cnf_chain. Returns
+    {"vred": the sp_chain polarity sums and smax_scorer's eight [10, V],
+    "eta", "em", "ae", "q_u", "counts" [2, B]}."""
+    from pdp_solver_tpu_torch.ops import fused
+    _, (em, ae) = fused.fused_edge_pass(
+        fused.EM_AE, batch, (x["av"], x["abv"], x["ac"], x["bmask"]))
+    _, pn, (eta,), _ = fused.chained_edge_pass(
+        fused.SP_CHAIN, batch,
+        (x["u_in"], x["eta_in"], em, ae, x["eta_state"], x["sign"]))
+    _, q = fused.fused_edge_pass(
+        fused.SP_PASS_C, batch,
+        (pn[0], pn[1], x["eta_in"], em, ae, x["sign"], x["force"], x["v0"],
+         x["v1"], x["v2"]), scalar=pi)
+    nd8, _ = fused.fused_edge_pass(
+        fused.SMAX_SCORER, batch,
+        (x["ac"], x["eta_state"], eta, em, x["bmask"], x["force"],
+         x["sign"]))
+    _, _, _, counts = fused.chained_edge_pass(
+        fused.CNF_CHAIN, batch, (x["sol"], x["sign"], x["bmask"], x["cm"]))
+    return {"vred": torch.cat([pn, nd8]), "eta": eta, "em": em, "ae": ae,
+            "q_u": q[0], "counts": counts}
+
+
+def folded_sweep(batch, x, fold="maskv", pi=0.0):
+    """The folded sweep on state x: the chained pass of the fold ("dec":
+    sp_chain_dec over split_sweep's em and ae; "mask"; "maskv"), then
+    sp_pass_c_lean. Returns split_sweep's keys (no "counts" but with
+    maskv)."""
+    from pdp_solver_tpu_torch.ops import fused
+    edges = (x["u_in"], x["eta_in"], x["eta_state"], x["sign"], x["force"],
+             x["bmask"])
+    counts = None
+    if fold == "dec":
+        _, (em, ae) = fused.fused_edge_pass(
+            fused.EM_AE, batch, (x["av"], x["abv"], x["ac"], x["bmask"]))
+        _, vred, (eta,), _ = fused.chained_edge_pass(
+            fused.SP_CHAIN_DEC, batch,
+            (x["ac"], x["u_in"], x["eta_in"], em, ae, x["eta_state"],
+             x["sign"], x["force"], x["bmask"]))
+    elif fold == "mask":
+        _, vred, (eta, em, ae), _ = fused.chained_edge_pass(
+            fused.SP_CHAIN_MASK, batch, (x["av"], x["abv"], x["ac"]) + edges)
+    else:
+        _, vred, (eta, em, ae), counts = fused.chained_edge_pass(
+            fused.SP_CHAIN_MASKV, batch,
+            (x["av"], x["abv"], x["sol"], x["ac"], x["cm"]) + edges)
+    _, (q_u,) = fused.fused_edge_pass(
+        fused.SP_PASS_C_LEAN, batch,
+        (vred[0], vred[1], x["eta_in"], em, ae, x["sign"], x["force"],
+         x["v0"]), scalar=pi)
+    out = {"vred": vred, "eta": eta, "em": em, "ae": ae, "q_u": q_u}
+    if counts is not None:
+        out["counts"] = counts
+    return out
 
 
 def bench_batch(batch, forms, only=None):
@@ -360,6 +449,16 @@ def bench_batch(batch, forms, only=None):
                     return edge_masks_pair(
                         batch, problem, act * (solved <= 0.5).float())
             lib = None
+        elif form.startswith("sweep"):
+            # "sweep folded" and "sweep split": one iteration's passes
+            x = fold_inputs(batch)
+            if form == "sweep folded":
+                def call():
+                    return folded_sweep(batch, x)
+            else:
+                def call():
+                    return split_sweep(batch, x)
+            lib = None
         elif form.startswith("walksat"):
             # "walksat_block" (K = 8 from walk_inputs' "half" fill),
             # "walksat_block unsat" (from the "unsat" fill) and "walksat
@@ -425,7 +524,11 @@ def bench_batch(batch, forms, only=None):
 
 
 CHAINED_FORMS = tuple(f"chained_edge_pass[{name}]" for name in (
-    "sp_chain", "sp_chain_login", "sround", "cnf_chain", "ws_chain"))
+    "sp_chain", "sp_chain_login", "sround", "cnf_chain", "ws_chain",
+    "sp_chain_dec", "sp_chain_mask", "sp_chain_maskv"))
+# the sweep folds' pass C and one loop iteration's sweep, folded and split
+FOLD_FORMS = ("fused_edge_pass[sp_pass_c_lean]", "sweep folded",
+              "sweep split")
 SWEEP_FORMS = ("sp_full_sweep[pi 0]", "sp_full_sweep[pi 0.01]",
                "sp_full_sweep[login]")
 VERIFY_FORMS = ("verify_and_masks", "verify split")
@@ -440,12 +543,12 @@ SHARED_FORMS = ("segment_sum var C=2", "segment_sum_cols var C=1",
                 "fused_edge_pass[em_ae]", "fused_edge_pass[sp_pass_c]",
                 "fused_edge_pass[smax_scorer]", "fused_edge_pass[scorer]") \
     + WALK_FORMS + CHAINED_FORMS + SWEEP_FORMS + VERIFY_FORMS \
-    + GATHER_FORMS
+    + GATHER_FORMS + FOLD_FORMS
 COMPACTED_FORMS = ("segment_sum var C=2", "segment_sum_cols var C=1",
                    "segment_sum_cols clause C=1", "sorted_segment_sum real",
                    "fused_edge_pass[ae]", "fused_edge_pass[smax_scorer]",
                    "fused_edge_pass[scorer]") + WALK_FORMS + CHAINED_FORMS \
-    + SWEEP_FORMS + VERIFY_FORMS + GATHER_FORMS \
+    + SWEEP_FORMS + VERIFY_FORMS + GATHER_FORMS + FOLD_FORMS \
     + ("segment_sum_2d var compacted",)
 HUB_2D_FORMS = ("segment_sum_2d var hub", "segment_sum_2d var hub bf16")
 # kernel 6 at a training segment's shape: Gather2d's backward over either
@@ -484,7 +587,8 @@ def main(argv=None):
                                  "segment_sum_cols var C=1",
                                  "fused_edge_pass[smax_scorer]")
                            + CHAINED_FORMS + SWEEP_FORMS + VERIFY_FORMS
-                           + WALK_FORMS + HUB_2D_FORMS, args.only),
+                           + WALK_FORMS + HUB_2D_FORMS + FOLD_FORMS,
+                           args.only),
                **bench_batch(shared, ("sorted_segment_sum all",),
                              args.only)),
            "large": bench_batch(pack_instances([large_instance()],

@@ -3,7 +3,7 @@
     python -m pdp_solver_tpu_torch.utils.profile_solve [--seeds 0 1 2]
         [--model p-d-p|np-d-np|np-nd-np|p-nd-np|walk-sat|reinforce]
         [--settings headline|one-attempt|reference] [--min-edges N]
-        [--sp-sweep] [--verify-masks] [--replicas R]
+        [--sp-sweep] [--verify-masks] [--no-folds] [--replicas R]
         [--compute-dtype float32|bfloat16] [--no-profile]
 
 On the shared set, with p-d-p at the headline settings (with --settings
@@ -31,7 +31,10 @@ headline settings use 32768; the JAX package's records 65536).
 --sp-sweep and --verify-masks set PDP_SP_SWEEP=on and PDP_VERIFY_MASKS=on
 for the whole run (the profiled chunk and the seeds' solves): the
 one-launch sweep (kernel 9) and the one-launch verification with masks
-(kernel 10). --replicas R gives every instance R slots: the seeds' solves
+(kernel 10). p-d-p's loop takes the sweep folds on the card, as the JAX
+package's does on its chip (modules/propagate.py sweep_folds); --no-folds
+sets PDP_SWEEP_DEC_FOLD=off for the whole run, the unfolded path; the
+line's "folds" says which the shared set's batch takes. --replicas R gives every instance R slots: the seeds' solves
 run compacting_solve(replicas=R), and the hot loop and the walk-sat trace
 run on the batch it packs first (R copies of each instance side by
 side). --compute-dtype bfloat16 runs a neural model's aggregators and GRU
@@ -322,6 +325,8 @@ def main(argv=None):
                     default="headline", help="p-d-p's settings")
     ap.add_argument("--sp-sweep", action="store_true",
                     help="PDP_SP_SWEEP=on: the one-launch SP sweep")
+    ap.add_argument("--no-folds", action="store_true",
+                    help="PDP_SWEEP_DEC_FOLD=off: the unfolded p-d-p loop")
     ap.add_argument("--verify-masks", action="store_true",
                     help="PDP_VERIFY_MASKS=on: verification and masks in "
                          "one launch")
@@ -348,10 +353,12 @@ def main(argv=None):
     dt = args.compute_dtype
     if dt != "float32" and args.model not in NEURAL:
         ap.error(f"--compute-dtype {dt} takes a neural model")
-    for flag, name in ((args.sp_sweep, "PDP_SP_SWEEP"),
-                       (args.verify_masks, "PDP_VERIFY_MASKS")):
+    for flag, name, value in (
+            (args.sp_sweep, "PDP_SP_SWEEP", "on"),
+            (args.verify_masks, "PDP_VERIFY_MASKS", "on"),
+            (args.no_folds, "PDP_SWEEP_DEC_FOLD", "off")):
         if flag:
-            os.environ[name] = "on"
+            os.environ[name] = value
     if not torch.cuda.is_available():
         print("profile_solve: no CUDA card", file=sys.stderr)
         return 2
@@ -365,6 +372,8 @@ def main(argv=None):
                           "train": train_profile(args.steps, args.model)}),
               flush=True)
         return 0
+    from pdp_solver_tpu_torch.modules.propagate import (
+        FOLD_SWITCHES, sweep_folds)
     insts = make_ksat_set()
     R = args.replicas
     # the batch compacting_solve(replicas=R) packs first
@@ -372,8 +381,10 @@ def main(argv=None):
     out = {"device": torch.cuda.get_device_name(0), "card": card,
            "fingerprint": dataset_fingerprint(insts), "model": args.model,
            "replicas": R, "compute_dtype": dt,
-           "env": {k: os.environ.get(k, "off")
-                   for k in ("PDP_SP_SWEEP", "PDP_VERIFY_MASKS")}}
+           "env": dict({k: os.environ.get(k, "off")
+                        for k in ("PDP_SP_SWEEP", "PDP_VERIFY_MASKS")},
+                       **{k: os.environ.get(k, "auto")
+                          for k in FOLD_SWITCHES})}
     profile = not args.no_profile
     if args.model == "p-d-p":
         h = {"headline": HEADLINE, "reference": REFERENCE,
@@ -381,6 +392,8 @@ def main(argv=None):
         if args.min_edges is not None:
             h = dict(h, min_edges=args.min_edges)
         out["settings"] = dict(h, name=args.settings)
+        out["folds"] = dict(zip(("dec", "mask", "verify"), sweep_folds(
+            pack_instances(slots, device="cuda"))))
         if profile:
             out["hot_loop"] = hot_loop(slots, headline_solver(h), {})
         out["seeds"] = [solve_headline(insts, s, settings=h, replicas=R)

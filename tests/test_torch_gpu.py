@@ -1,5 +1,11 @@
 """The CUDA kernels against their plain versions, on the card.
 
+The p-d-p loop's sweep folds (kernels 1 and 2's `sp_chain_dec`,
+`sp_chain_mask`, `sp_chain_maskv`, `sp_pass_c_lean`) take their inputs
+as that loop has them (`_fold_inputs`: 0/1 flags, +-1 forces) and give,
+from one loop state, the bits of the split passes they replace on the
+small shared set, a compacted batch and the hub.
+
 Marked `gpu`: each test skips when torch sees no CUDA card (decided inside
 the fixture, never at import). On the card's machine run them with
 `python -m pytest tests/test_torch_gpu.py -m gpu`. Tolerances as in
@@ -86,11 +92,47 @@ def _inputs(fn, batch, seed):
     return out
 
 
+# the p-d-p loop's sweep folds: their inputs are drawn as that loop has
+# them (`_fold_inputs`)
+FOLD_FNS = (fused.SP_CHAIN_DEC, fused.SP_CHAIN_MASK, fused.SP_CHAIN_MASKV,
+            fused.SP_PASS_C_LEAN)
+
+
+def _fold_inputs(fn, batch, seed):
+    """A fold's inputs as the p-d-p loop has them: 0/1 flags where it has
+    flags (edge masks, activity and instance flags; the folds' algebra
+    needs them: em = av * ac * bmask, the clause factor applied at the
+    clause, is the split path's em only on 0/1), the batch's signs and
+    edge mask, forces +-1 on real edges, solutions 0/1, messages in
+    (0.02, 0.98)."""
+    g = torch.Generator().manual_seed(seed)
+    sizes = {"V": batch.num_vars, "F": batch.num_clauses,
+             "E": batch.num_edges}
+    real = {"V": batch.var_mask, "F": batch.clause_mask,
+            "E": batch.edge_mask}
+    out = []
+    for kind, name in zip(fn.layout, fn.inputs):
+        u = torch.rand(sizes[kind], generator=g).to(batch.device)
+        if name == "sign":
+            x = batch.edge_sign
+        elif name in ("mask", "bmask", "cm"):
+            x = real[kind]
+        elif name == "force":
+            x = torch.where(u > 0.5, 1.0, -1.0) * real[kind]
+        elif name in ("em", "av", "abv", "ac", "sol"):
+            x = (u > 0.2).float() * real[kind]
+        else:
+            x = u * 0.96 + 0.02
+        out.append(x.contiguous())
+    return out
+
+
 @pytest.mark.parametrize("fn", fused.FUSED_FNS + fused.CHAINED_FNS,
                          ids=lambda f: f.name)
 def test_kernel_matches_plain(batches, fn):
     cpu, gpu = batches
-    ins = _inputs(fn, cpu, 0)
+    ins = (_fold_inputs(fn, cpu, 0) if fn in FOLD_FNS
+           else _inputs(fn, cpu, 0))
     call = (fused.fused_edge_pass if fn in fused.FUSED_FNS
             else fused.chained_edge_pass)
     plain = (fused.fused_edge_pass_plain if fn in fused.FUSED_FNS
@@ -577,7 +619,10 @@ INTEGER_CHAINS = ("sround", "cnf_chain", "ws_chain")
 def _typed_inputs(fn, batch, seed):
     """Inputs drawn like the columns they stand for: 0/1 masks and
     activity flags, +-1 signs and forces, solutions in {0, 0.5, 1}, log u
-    for the log-input sweep, floats in (0.02, 0.98) otherwise."""
+    for the log-input sweep, floats in (0.02, 0.98) otherwise; a sweep
+    fold's as the p-d-p loop has them (`_fold_inputs`)."""
+    if fn in FOLD_FNS:
+        return _fold_inputs(fn, batch, seed)
     g = torch.Generator().manual_seed(seed)
     sizes = {"V": batch.num_vars, "F": batch.num_clauses,
              "E": batch.num_edges}
@@ -647,6 +692,26 @@ def test_chained_pass_walk(walk_batches, which, fn):
 
 
 @pytest.mark.parametrize("which", ["shared", "compacted", "hub"])
+@pytest.mark.parametrize("fold", ["dec", "mask", "maskv"])
+def test_folds_bit_equal_to_split_passes(walk_batches, which, fold):
+    """A sweep fold then sp_pass_c_lean against em_ae, sp_chain,
+    sp_pass_c, smax_scorer and cnf_chain from one loop state
+    (utils/bench_kernels.py fold_inputs): the variable sums, eta, em, ae,
+    q_u and the verification's counts bit for bit."""
+    from pdp_solver_tpu_torch.utils.bench_kernels import (
+        fold_inputs, folded_sweep, split_sweep)
+    gpu = walk_batches[which]
+    x = fold_inputs(gpu)
+    ref = split_sweep(gpu, x)
+    got = folded_sweep(gpu, x, fold)
+    torch.cuda.synchronize()
+    assert set(got) <= set(ref)
+    for key, out in got.items():
+        assert bool(torch.isfinite(out).all())
+        assert torch.equal(out, ref[key]), key
+
+
+@pytest.mark.parametrize("which", ["shared", "compacted", "hub"])
 @pytest.mark.parametrize("case", ["pi0", "pi0.01", "login"])
 def test_sp_sweep_bit_equal_to_two_launches(walk_batches, which, case):
     """Kernel 9 takes its variable sums in the walk's order, so it gives
@@ -687,7 +752,9 @@ def _active_mask_inputs(fn, batch, seed):
     """_typed_inputs with the SP passes' mask drawn as the solver's
     active-edge flag, which is 1 on padding edges too."""
     ins = _typed_inputs(fn, batch, seed)
-    if fn.name.startswith("sp_"):
+    # (the mask and verify folds read the instance flag per variable,
+    # abv, in its place)
+    if fn.name.startswith("sp_") and "mask" in fn.inputs:
         g = torch.Generator().manual_seed(seed + 1000)
         ins[fn.inputs.index("mask")] = (torch.rand(
             batch.num_edges, generator=g) > 0.2).float().cuda()

@@ -3,8 +3,9 @@
 A whole p-d-p forward (the hot loop: SP sweep, decimation, simplification,
 verification, mask refresh) starts in both packages from the same messages,
 handed over with convert.state_from_jax. The JAX side runs its Pallas
-kernels in interpret mode on the unfolded path (PDP_SWEEP_DEC_FOLD=off: the
-folds are launch-count answers for the TPU that the port leaves out).
+kernels in interpret mode; both packages take the unfolded path
+(PDP_SWEEP_DEC_FOLD=off; the sweep folds, the card's default, are held
+against JAX in tests/test_torch_sweep_fold.py).
 Tolerance: the decimated problem, the active flags, the decimator counters
 and the solved flags must be EQUAL; the messages, sums of logs taken in
 another order and fed back through up to 60 sweeps, agree to atol 1e-3 on
